@@ -1,0 +1,26 @@
+"""Layer-config type name -> forward unit class.
+
+Counterpart of ``veles_tpu/ops/registry.py`` for the layer types this
+slice serves (the AlexNet family).  Gradient units arrive with the
+training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from veles_tpu_torch.ops import all2all, conv, dropout, lrn, pooling
+
+forward_registry: Dict[str, type] = {
+    "conv": conv.Conv,
+    "conv_tanh": conv.ConvTanh,
+    "conv_relu": conv.ConvRELU,
+    "norm": lrn.LRNormalizer,
+    "max_pooling": pooling.MaxPooling,
+    "avg_pooling": pooling.AvgPooling,
+    "all2all": all2all.All2All,
+    "all2all_tanh": all2all.All2AllTanh,
+    "all2all_relu": all2all.All2AllRELU,
+    "softmax": all2all.All2AllSoftmax,
+    "dropout": dropout.Dropout,
+}
