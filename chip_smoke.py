@@ -3,40 +3,58 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the serving process, at the full width of
-AlexNet, and holds its hand-written kernel against its plain PyTorch
-version.  Every phase is fatal: the script exits nonzero, printing no
-result line, when any check fails, when there is no CUDA device, or
-when it is run without the repository beside it.  It imports nothing
-of JAX and nothing of the JAX package.
+Drives the port's two main paths at the full width of AlexNet, serving
+and training, and holds each hand-written kernel against its plain
+PyTorch version.  Every phase is fatal: the script exits nonzero,
+printing no result line, when any check fails, when there is no CUDA
+device, or when it is run without the repository beside it.  It imports
+nothing of JAX and nothing of the JAX package.
 
-1. Device: the card's name and power limit; build the LRN kernel from
-   ``veles_tpu_torch/csrc/lrn_fwd.cu`` and print the build time and
-   what ptxas reported.
-2. Kernel vs plain on the card: ``lrn_fwd`` at AlexNet's two norm
-   shapes at batch 64, n = 5 and 4, f32 and bf16, plus a ragged row
-   count and a channel count over 48 KiB of shared memory.  Each case
-   prints the kernel's, the plain version's and the library call's
-   (``torch.nn.functional.local_response_norm``) times from CUDA
-   events after warm-up, its memory bound, and the max abs error.
-   bf16 cases are also held to one bf16 ulp.
+1. Device: the card's name and power limit; build both LRN kernels from
+   ``veles_tpu_torch/csrc/`` (one ``nvcc`` each, started together) and
+   print the build time and what ptxas reported.
+2. Kernels vs plain on the card, at AlexNet's two norm shapes.
+   ``lrn_fwd`` at batch 64 (serving) and 128 (training), ``lrn_bwd`` at
+   batch 128; n = 5 and 4, f32 and bf16, plus ragged row counts and a
+   channel count over 48 KiB of shared memory.  Each case prints the
+   kernel's, the plain version's and the library call's times from CUDA
+   events after warm-up (``torch.nn.functional.local_response_norm``
+   and, for the backward, autograd through it), its memory bound, and
+   the max abs error.
 3. Serve: pack a 2-member full-width AlexNet ensemble (gaussian init at
    ``alexnet_layers``' stddevs from a numpy seed), start
    ``python -m veles_tpu_torch --serve-models alexnet=PKG --max-batch
    64`` on the card, send concurrent requests of 1-16 rows, check every
    answer (rows_n, crc, probabilities summing to 1, agreement with the
    in-process engine at the same dtype), read the hive's stats (the
-   main path's kernel launches), shut it down (rc 0).  Then each norm
+   serving path's kernel launches), shut it down (rc 0).  Then each norm
    layer of each member, in bf16 on a served batch, against the plain
    version to one bf16 ulp; and, once, the in-process engine in f32 on
    the card (TF32 off) against the CPU plain path in f32.
-4. Summary: a ``kernels`` JSON line and a ``serve`` JSON line, then the
-   device line last.
+4. Train: full-width AlexNet (227x227x3, 1000 classes, minibatch 128,
+   superstep 8, bf16) for 2 epochs through ``Launcher`` +
+   ``drive_workflow`` on ``veles_tpu_torch/models/alexnet.py``, the path
+   ``python -m veles_tpu_torch`` takes, in process, with the data set
+   cut to 1024 train + 128 validation images.  The launch counts are
+   zeroed just before and read just after; every training minibatch
+   must have run ``lrn_bwd`` at both norm layers and every minibatch
+   ``lrn_fwd``.  Then one train superstep timed with CUDA events, and
+   each norm layer's backward at the activations and error of a real
+   training minibatch, kernel vs plain, in bf16.
+5. Card vs CPU: one train superstep (k = 2, dropout 0, f32, TF32 off)
+   from the same params and indices on the card and through the port's
+   CPU plain path, the CPU replaying the card's choices at every max
+   pool (argmax) and ReLU (mask), each choice it would have made
+   otherwise a near tie: every param's change agrees within 1e-3
+   relative.
+6. Summary: ``serve`` and ``train`` JSON lines, the card line, the
+   ``kernels`` line, then the device line last.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -52,6 +70,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
 MAX_BATCH = 64
+TRAIN_BATCH = 128
 N_MEMBERS = 2
 SAMPLE_SHAPE = (227, 227, 3)
 N_CLASSES = 1000
@@ -103,14 +122,15 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def lrn_bound(shape, dtype, n: int):
-    """(bound_ms, bound_by): x read once, y written once, against
-    about n + 6 f32 operations per element."""
+def lrn_bound(shape, dtype, n_arrays: int, ops_per_elem: float):
+    """(bound_ms, bound_by): each of ``n_arrays`` arrays of ``shape``
+    read or written once, against ``ops_per_elem`` f32 operations per
+    element."""
     import torch
     numel = int(np.prod(shape))
     item = torch.empty((), dtype=dtype).element_size()
-    t_bytes = 2 * numel * item / HBM_BYTES_S * 1e3
-    t_ops = (n + 6) * numel / F32_FLOPS_S * 1e3
+    t_bytes = n_arrays * numel * item / HBM_BYTES_S * 1e3
+    t_ops = ops_per_elem * numel / F32_FLOPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -126,7 +146,53 @@ def check_one_ulp(y, ref, what: str) -> None:
           f"off (max abs err {float(err.max()):.3g})")
 
 
+def bwd_terms(x, err, n: int, k: float, alpha: float, beta: float = 0.75):
+    """The two terms of the backward, ``|e*d|`` and ``|2*alpha*beta*x*wt|``,
+    in f32 as the plain version forms them."""
+    import torch
+
+    from veles_tpu_torch.ops import lrn_cuda
+    c = x.shape[-1]
+    xr = x.reshape(-1, c)
+    xf, ef = xr.float(), err.reshape(-1, c).float()
+    s = (xr * xr).float() @ lrn_cuda._band_tensor(c, n, x.device,
+                                                  torch.float32)
+    d, d1 = lrn_cuda._powers(k + alpha * s, beta, need_d1=True)
+    t = (ef * xf * d1).to(x.dtype).float()
+    wt = t @ lrn_cuda._band_tensor(c, n, x.device, torch.float32,
+                                   transpose=True)
+    return ((ef * d).abs().reshape(x.shape),
+            (2.0 * alpha * beta * xf * wt).abs().reshape(x.shape))
+
+
+def check_bwd_bf16(out, ref, x, err, n: int, k: float, alpha: float,
+                   what: str, beta: float = 0.75) -> None:
+    """bf16 backward within one bf16 ulp (at most 2^-7 of the value) of
+    the LARGER of its two terms, ``|e*d|`` and ``|2*alpha*beta*x*wt|``.
+    The result is their difference: where they cancel, an ulp of the
+    result alone is far smaller than the rounding either term carries
+    (the kernel and the plain version may round t, or the result, on
+    either side of a bf16 boundary when their f32 window sums differ in
+    order), so the yardstick is the larger term's ulp."""
+    import torch
+    a, b = bwd_terms(x, err, n, k, alpha, beta)
+    diff = (out.float() - ref.float()).abs()
+    bad = diff > 2.0 ** -7 * torch.maximum(a, b)
+    check(not bool(bad.any()),
+          f"{what}: {int(bad.sum())} bf16 elements more than one ulp of "
+          f"the larger term off (max abs err {float(diff.max()):.3g})")
+
+
+def lrn_cases(batch: int, ns=(5, 4), dts=None):
+    import torch
+    dts = dts or (torch.float32, torch.bfloat16)
+    return [(shape, n, dt) for shape in ((batch, 55, 55, 96),
+                                         (batch, 27, 27, 256))
+            for n in ns for dt in dts]
+
+
 def kernel_phase(card: str):
+    """Both kernels against their plain versions, with times."""
     import torch
     import torch.nn.functional as F
 
@@ -134,53 +200,101 @@ def kernel_phase(card: str):
 
     k, alpha = 2.0, 1e-4
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    # tolerances against the plain version in the same dtype: in f32
-    # the two differ only in the order of the <= n-term f32 window sum
-    # (den >= k = 2, so relative errors stay near 1e-7); in bf16 that
-    # order can flip the final rounding of y by one bf16 ulp (2^-8
-    # relative), well inside 2e-2
-    tol = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2e-2, 2e-2)}
+    # tolerances against the plain version in the same dtype.  Forward:
+    # in f32 the two differ only in the order of the <= n-term f32
+    # window sum (den >= k = 2, so relative errors stay near 1e-7); in
+    # bf16 that order can flip the final rounding of y by one bf16 ulp
+    # (2^-8 relative), well inside 2e-2, and bf16 is also held to one
+    # ulp (2e-2 alone would pass an alpha off by 10%).  Backward: f32 at
+    # the tolerance of the reference's own Pallas backward test
+    # (tests/test_ops.py); bf16 by check_bwd_bf16.
+    fwd_tol = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2e-2, 2e-2)}
+    bwd_tol = (2e-4, 1e-5)
     cases = []
-    # bf16 is also held to one ulp (below): 2e-2 alone would pass an
-    # alpha off by 10%, which moves y by about 1.5% at these inputs
-    for shape in ((MAX_BATCH, 55, 55, 96), (MAX_BATCH, 27, 27, 256)):
-        for n in (5, 4):
-            for dt in (torch.float32, torch.bfloat16):
-                cases.append((shape, n, dt, "main"
-                              if n == 5 and dt == torch.bfloat16
-                              else "check"))
-    cases.append(((3, 17, 19, 96), 5, torch.float32, "ragged"))
-    cases.append(((5, 16384), 5, torch.bfloat16, "wide"))
+    for role, batch in (("serve", MAX_BATCH), ("train", TRAIN_BATCH)):
+        for shape, n, dt in lrn_cases(batch):
+            if role == "train" and n != 5:
+                continue
+            main = n == 5 and dt == torch.bfloat16
+            cases.append(("lrn_fwd", shape, n, dt, role if main else "check"))
+    cases.append(("lrn_fwd", (3, 17, 19, 96), 5, torch.float32, "ragged"))
+    cases.append(("lrn_fwd", (5, 16384), 5, torch.bfloat16, "wide"))
+    for shape, n, dt in lrn_cases(TRAIN_BATCH):
+        main = n == 5 and dt == torch.bfloat16
+        cases.append(("lrn_bwd", shape, n, dt, "train" if main else "check"))
+    cases.append(("lrn_bwd", (3, 17, 19, 96), 5, torch.float32, "ragged"))
+    cases.append(("lrn_bwd", (3, 17, 19, 96), 4, torch.bfloat16, "ragged"))
+    cases.append(("lrn_bwd", (5, 16384), 5, torch.bfloat16, "wide"))
     rows = []
-    for shape, n, dt, role in cases:
+    for name, shape, n, dt, role in cases:
         # post-ReLU-scale activations: alpha * window sum is a sizable
         # part of den, so the power term is exercised
         x = (torch.randn(shape, generator=gen, device="cuda") * 30.0
              ).to(dt)
-        y = lrn_cuda.lrn_fwd(x, n, k, alpha)
-        ref = lrn_cuda.lrn_fwd_plain(x, n, k, alpha)
-        torch.cuda.synchronize()
-        err = (y.float() - ref.float()).abs()
-        rtol, atol = tol[dt]
-        bad = err > atol + rtol * ref.float().abs()
-        check(not bool(bad.any()),
-              f"lrn_fwd {shape} n={n} {dt}: {int(bad.sum())} elements "
-              f"off (max abs err {float(err.max()):.3g})")
-        if dt == torch.bfloat16:
-            check_one_ulp(y, ref, f"lrn_fwd {shape} n={n}")
-        row = {"shape": list(shape), "n": n, "dtype": str(dt)[6:],
-               "role": role, "max_abs_err": float(err.max())}
-        row["kernel_ms"] = cuda_ms(lambda: lrn_cuda.lrn_fwd(x, n, k, alpha))
-        row["plain_ms"] = cuda_ms(
-            lambda: lrn_cuda.lrn_fwd_plain(x, n, k, alpha))
-        if len(shape) == 4:
-            xc = x.permute(0, 3, 1, 2)
-            row["library_ms"] = cuda_ms(lambda: F.local_response_norm(
-                xc, size=n, alpha=alpha * n, beta=0.75, k=k))
+        row = {"kernel": name, "shape": list(shape), "n": n,
+               "dtype": str(dt)[6:], "role": role}
+        if name == "lrn_fwd":
+            y = lrn_cuda.lrn_fwd(x, n, k, alpha)
+            ref = lrn_cuda.lrn_fwd_plain(x, n, k, alpha)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs()
+            rtol, atol = fwd_tol[dt]
+            bad = err > atol + rtol * ref.float().abs()
+            check(not bool(bad.any()),
+                  f"lrn_fwd {shape} n={n} {dt}: {int(bad.sum())} elements "
+                  f"off (max abs err {float(err.max()):.3g})")
+            if dt == torch.bfloat16:
+                check_one_ulp(y, ref, f"lrn_fwd {shape} n={n}")
+            row["max_abs_err"] = float(err.max())
+            row["kernel_ms"] = cuda_ms(
+                lambda: lrn_cuda.lrn_fwd(x, n, k, alpha))
+            row["plain_ms"] = cuda_ms(
+                lambda: lrn_cuda.lrn_fwd_plain(x, n, k, alpha))
+            if len(shape) == 4:
+                xc = x.permute(0, 3, 1, 2)
+                row["library_ms"] = cuda_ms(lambda: F.local_response_norm(
+                    xc, size=n, alpha=alpha * n, beta=0.75, k=k))
+            else:
+                row["library_ms"] = None
+            row["bound_ms"], row["bound_by"] = lrn_bound(shape, dt, 2, n + 6)
         else:
-            row["library_ms"] = None
-        row["bound_ms"], row["bound_by"] = lrn_bound(shape, dt, n)
-        print("lrn_fwd " + json.dumps(row) + f"  [{card}]", flush=True)
+            e = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            out = lrn_cuda.lrn_bwd(x, e, n, k, alpha)
+            ref = lrn_cuda.lrn_bwd_plain(x, e, n, k, alpha)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            what = f"lrn_bwd {shape} n={n} {dt}"
+            if dt == torch.bfloat16:
+                check_bwd_bf16(out, ref, x, e, n, k, alpha, what)
+            else:
+                rtol, atol = bwd_tol
+                bad = err > atol + rtol * ref.abs()
+                check(not bool(bad.any()),
+                      f"{what}: {int(bad.sum())} elements off (max abs "
+                      f"err {float(err.max()):.3g})")
+            row["max_abs_err"] = float(err.max())
+            row["kernel_ms"] = cuda_ms(
+                lambda: lrn_cuda.lrn_bwd(x, e, n, k, alpha))
+            row["plain_ms"] = cuda_ms(
+                lambda: lrn_cuda.lrn_bwd_plain(x, e, n, k, alpha))
+            if len(shape) == 4:
+                # the library yardstick: autograd through the library's
+                # forward, its graph recorded once
+                xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+                yl = F.local_response_norm(xl, size=n, alpha=alpha * n,
+                                           beta=0.75, k=k)
+                el = e.permute(0, 3, 1, 2)
+                row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    yl, xl, el, retain_graph=True))
+                del xl, yl
+            else:
+                row["library_ms"] = None
+            # x and e read once, the result written once; about 3n + 11
+            # f32 operations an element (two window sums, the squares,
+            # den and its powers, the products)
+            row["bound_ms"], row["bound_by"] = lrn_bound(shape, dt, 3,
+                                                         3 * n + 11)
+        print(f"{name} " + json.dumps(row) + f"  [{card}]", flush=True)
         rows.append(row)
     return rows
 
@@ -285,7 +399,7 @@ def build_package(workdir: str) -> str:
     members = []
     for i in range(N_MEMBERS):
         gen = np.random.default_rng(SEED + i)
-        params = {f.name: f.init_params(gen) for f in w.forwards}
+        params = {f.name: f.fill_params(gen) for f in w.forwards}
         members.append({"params": params_to_jax(params),
                         "seed": SEED + i, "valid_error": 0.0,
                         "forward_names": [f.name for f in w.forwards]})
@@ -344,7 +458,8 @@ def norm_layers_in_situ(model, device, rows: np.ndarray) -> list:
             x = device.put(rows).to(torch.bfloat16)
             for f in model.forwards:
                 y, _ = f.apply_fwd({p: t[i] for p, t in
-                                    params[f.name].items()}, x)
+                                    params[f.name].items()}, x,
+                                   train=False)
                 if isinstance(f, LRNormalizer):
                     xc = x.contiguous()
                     check_one_ulp(y, lrn_cuda.lrn_fwd_plain(
@@ -508,23 +623,359 @@ def serve_phase(card: str, workdir: str):
     return serve, launches
 
 
-def summary_kernel(rows, launches: int, card: str) -> dict:
-    """The kernels-line entry: times summed over the main path's two
-    shapes (one member's forward at batch 64 in bf16, n = 5)."""
-    main = [r for r in rows if r["role"] == "main"]
+# -- phase 4: training ----------------------------------------------------
+
+#: the data set cut of the training phase: host generation stays about
+#: 20 s; widths and depth are the model's
+TRAIN_OVERRIDES = ["root.alexnet.loader.n_train=1024",
+                   "root.alexnet.loader.n_valid=128",
+                   "root.alexnet.decision.max_epochs=2"]
+N_TRAIN, N_VALID, N_EPOCHS, SUPERSTEP = 1024, 128, 2, 8
+
+
+class _Capture:
+    """Wraps a gradient unit's backward_from_saved to keep every
+    (x, err) it is given, in order."""
+
+    def __init__(self, gd) -> None:
+        self.gd, self.got = gd, []
+        self.inner = gd.backward_from_saved
+        gd.backward_from_saved = self
+
+    def __call__(self, params, saved, err, *args, **kwargs):
+        self.got.append((saved[0].contiguous(), err.contiguous()))
+        return self.inner(params, saved, err, *args, **kwargs)
+
+    def restore(self) -> None:
+        del self.gd.backward_from_saved
+
+
+def train_phase(card: str) -> dict:
+    """Full-width AlexNet, 2 epochs, through the port's entry path."""
+    import torch
+
+    from veles_tpu_torch.config import parse_overrides, root
+    from veles_tpu_torch.launcher import Launcher, drive_workflow
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.ops import lrn_cuda
+    from veles_tpu_torch.ops.lrn import GDLRNormalizer
+
+    saved_root = dict(root.__dict__)
+    parse_overrides(TRAIN_OVERRIDES)
+    try:
+        launcher = Launcher(backend="cuda", seed=SEED)
+        # the training path's counts: zeroed just before, read just after
+        lrn_cuda.lrn_fwd.launches = lrn_cuda.lrn_bwd.launches = 0
+        t0 = time.perf_counter()
+        drive_workflow(launcher, os.path.join(
+            HERE, "veles_tpu_torch", "models", "alexnet.py"))
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = {"lrn_fwd": lrn_cuda.lrn_fwd.launches,
+                    "lrn_bwd": lrn_cuda.lrn_bwd.launches}
+    finally:
+        root.__dict__.clear()
+        root.__dict__.update(saved_root)
+    w = launcher.workflow
+    ld, fused = w.loader, w.fused
+    check(ld.max_minibatch_size == TRAIN_BATCH and
+          w.superstep == SUPERSTEP and fused.compute_dtype ==
+          torch.bfloat16, f"not the configured run: mb "
+          f"{ld.max_minibatch_size}, superstep {w.superstep}, "
+          f"{fused.compute_dtype}")
+    n_norm = sum(isinstance(gd, GDLRNormalizer) for gd in w.gds)
+    train_mb = N_EPOCHS * N_TRAIN // TRAIN_BATCH
+    valid_mb = N_EPOCHS * -(-N_VALID // TRAIN_BATCH)
+    check(n_norm == 2 and launches == {
+        "lrn_bwd": n_norm * train_mb,
+        "lrn_fwd": n_norm * (train_mb + valid_mb)},
+        f"training path launches {launches} with {n_norm} norm layers, "
+        f"{train_mb} train and {valid_mb} validation minibatches")
+    hist = w.decision.history
+    check([(r["class"], r["count"]) for r in hist] ==
+          [("validation", N_VALID), ("train", N_TRAIN)] * N_EPOCHS,
+          f"history {hist}")
+    check(all(np.isfinite(r["loss"]) for r in hist),
+          f"non-finite loss in {hist}")
+    check(w.decision.complete, "decision did not complete")
+
+    # one train superstep timed with CUDA events (the loader goes on
+    # past the last epoch: a validation firing, then train)
+    ld.run()
+    ld.run()
+    check(ld.minibatch_class == TRAIN and ld.superstep_k == SUPERSTEP,
+          f"no full train superstep: class {ld.minibatch_class}, k "
+          f"{ld.superstep_k}")
+    w.lr_adjust.run()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    torch.cuda.synchronize()
+    start.record()
+    fused.run()
+    end.record()
+    torch.cuda.synchronize()
+    superstep_ms = start.elapsed_time(end)
+    fused.take_class_metrics()
+
+    # in situ: each norm layer's backward at a real training minibatch
+    caps = [_Capture(gd) for gd in w.gds if isinstance(gd, GDLRNormalizer)]
+    try:
+        fused.run()
+        torch.cuda.synchronize()
+    finally:
+        for cap in caps:
+            cap.restore()
+    fused.take_class_metrics()
+    in_situ = []
+    for cap in caps:
+        f = cap.gd.forward
+        x, err = cap.got[0]
+        check(x.dtype == err.dtype == torch.bfloat16,
+              f"{cap.gd.name}: saw {x.dtype} / {err.dtype}")
+        out = lrn_cuda.lrn_bwd(x, err, f.n, f.k, f.alpha, f.beta)
+        ref = lrn_cuda.lrn_bwd_plain(x, err, f.n, f.k, f.alpha, f.beta)
+        torch.cuda.synchronize()
+        check_bwd_bf16(out, ref, x, err, f.n, f.k, f.alpha,
+                       f"{cap.gd.name} in situ", f.beta)
+        a, b = bwd_terms(x, err, f.n, f.k, f.alpha, f.beta)
+        in_situ.append({"layer": cap.gd.name, "shape": list(x.shape),
+                        "max_abs_err": float((out.float() - ref.float())
+                                             .abs().max()),
+                        "window_term_share": float(
+                            (b / (a + b).clamp(min=1e-30)).mean())})
+    images = N_EPOCHS * (N_TRAIN + N_VALID)
+    return {"epochs": N_EPOCHS, "minibatch": TRAIN_BATCH,
+            "superstep": SUPERSTEP, "dtype": "bfloat16",
+            "train_minibatches": train_mb,
+            "valid_minibatches": valid_mb, "launches": launches,
+            "history": hist, "superstep_ms": superstep_ms,
+            "ms_per_train_minibatch": superstep_ms / SUPERSTEP,
+            "train_img_s": SUPERSTEP * TRAIN_BATCH / superstep_ms * 1e3,
+            "run_wall_s": w.wall_time, "run_img_s_wall":
+            images / w.wall_time, "drive_wall_s": total_s,
+            "lrn_bwd_in_situ": in_situ, "card": card}
+
+
+# -- phase 5: one step on the card against the CPU plain path -----------
+
+class _Routed(_Capture):
+    """A max-pool gradient unit whose choices are recorded and, given
+    ``indices`` (per call, in order: the (N, C, OH, OW) flat H*W
+    positions of ``F.max_pool2d(..., return_indices=True)``), replayed:
+    it then scatters its error to the inputs they name, summing where
+    windows overlap, as the pool's own backward does with its own
+    argmax.  ``choices()``: per call, its own argmax and its input."""
+
+    def __init__(self, gd, indices=None) -> None:
+        super().__init__(gd)
+        self.indices = indices
+
+    def __call__(self, params, saved, err, *args, **kwargs):
+        import torch
+        if self.indices is None:
+            return super().__call__(params, saved, err, *args, **kwargs)
+        x = saved[0]
+        self.got.append((x.contiguous(), err.contiguous()))
+        n, h, w, c = x.shape
+        idx = torch.from_numpy(self.indices[len(self.got) - 1]).to(x.device)
+        g = torch.zeros(n, c, h * w, dtype=err.dtype, device=x.device)
+        g.scatter_add_(2, idx.reshape(n, c, -1),
+                       err.permute(0, 3, 1, 2).reshape(n, c, -1))
+        return g.reshape(n, c, h, w).permute(0, 2, 3, 1), {}
+
+    def choices(self):
+        import torch.nn.functional as F
+        f = self.gd.forward
+        return [(F.max_pool2d(x.permute(0, 3, 1, 2), (f.ky, f.kx),
+                              f.sliding, return_indices=True)[1]
+                 .cpu().numpy(), x.cpu()) for x, _ in self.got]
+
+
+class _Masked:
+    """A ReLU gradient unit whose choices are recorded and, given
+    ``masks`` (per call, in order: output > 0), replayed in place of its
+    own.  ``choices()``: per call, its own mask and its output."""
+
+    def __init__(self, gd, masks=None) -> None:
+        self.gd, self.masks, self.got = gd, masks, []
+        self.inner = gd.act_deriv
+        gd.act_deriv = self
+
+    def __call__(self, output, err_output):
+        import torch
+        self.got.append(output.detach().cpu())
+        if self.masks is None:
+            return self.inner(output, err_output)
+        mask = torch.from_numpy(self.masks[len(self.got) - 1])
+        return err_output * mask.to(output.device, output.dtype)
+
+    def restore(self) -> None:
+        del self.gd.act_deriv
+
+    def choices(self):
+        return [((y > 0).numpy(), y) for y in self.got]
+
+
+def _one_f32_step(backend: str, replay=None):
+    """One train superstep of k = 2 minibatches of 32, dropout 0, f32,
+    from the SEED params and indices: (params before, after, metrics,
+    indices, {gradient unit: its own choices}), the choices those of
+    every max pool and every ReLU in each minibatch (``_Routed``,
+    ``_Masked``).  With ``replay`` ({gradient unit: choices per
+    minibatch}), each of those units makes the given choices instead."""
+    import torch
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import make_device
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.models import alexnet
+    from veles_tpu_torch.ops.pooling import MaxPooling
+
+    class FL:
+        workflow = None
+
+    prng.seed_all(SEED)
+    loader = dict(alexnet.DEFAULTS["loader"], minibatch_size=32,
+                  n_train=64, n_valid=0)
+    w = alexnet.create_workflow(FL(), loader=loader, dropout=0.0)
+    w.superstep = 2
+    w.fused.compute_dtype = torch.float32
+    w.initialize(device=make_device(backend), train=True)
+    before = w.fused.host_params()
+    w.loader.run()
+    check(w.loader.minibatch_class == TRAIN and w.loader.superstep_k == 2,
+          "card-vs-CPU step: no 2-minibatch train superstep")
+    w.lr_adjust.run()
+    replay = replay or {}
+    caps = [_Routed(gd, replay.get(gd.name))
+            if isinstance(gd.forward, MaxPooling) else
+            _Masked(gd, replay.get(gd.name)) for gd in w.gds
+            if isinstance(gd.forward, MaxPooling)
+            or gd.forward.activation_mode == "relu"]
+    try:
+        w.fused.run()
+    finally:
+        for cap in caps:
+            cap.restore()
+    return before, w.fused.host_params(), w.fused.take_class_metrics(), \
+        w.loader.superstep_indices, {cap.gd.name: cap.choices()
+                                     for cap in caps}
+
+
+def _flip_gap(card, cpu) -> tuple:
+    """(choices that differ, choices, the largest near-tie gap among
+    them) of one unit over the step's minibatches.  A max pool's gap is
+    how far apart, relative to the window's max, the CPU's inputs at the
+    two chosen positions lie; a ReLU's is the larger of the two devices'
+    outputs there, relative to the layer's largest output."""
+    import torch
+    n_flip = n_all = 0
+    gap = 0.0
+    for (c_dec, c_val), (own, val) in zip(card, cpu):
+        n_all += own.size
+        flip = c_dec != own
+        n_flip += int(flip.sum())
+        if not flip.any():
+            continue
+        at = torch.from_numpy(flip)
+        if own.dtype == bool:             # a ReLU: mask and outputs
+            g = (torch.maximum(val[at].abs(), c_val[at].abs()).max()
+                 / val.abs().max().clamp(min=1e-30))
+        else:                             # a max pool: its inputs
+            xf = val.permute(0, 3, 1, 2).flatten(2)
+            got = [xf.gather(2, torch.from_numpy(i).flatten(2))
+                   .reshape(i.shape)[at] for i in (c_dec, own)]
+            g = ((got[1] - got[0]).abs()
+                 / got[1].abs().clamp(min=1e-30)).max()
+        gap = max(gap, float(g))
+    return n_flip, n_all, gap
+
+
+def _rel_delta_diff(before, after_a, after_b) -> dict:
+    """Per param, ``|da - db| / |db|`` of the two steps' changes."""
+    out = {}
+    for fn, ps in before.items():
+        for pn, b in ps.items():
+            da, db = after_a[fn][pn] - b, after_b[fn][pn] - b
+            out[f"{fn}.{pn}"] = float(np.linalg.norm(da - db)
+                                      / max(np.linalg.norm(db), 1e-30))
+    return out
+
+
+def card_vs_cpu_phase() -> dict:
+    """The card's f32 step against the CPU plain path's, every param's
+    change within 1e-3 relative.  Where a max-pool window's two largest
+    inputs, or a ReLU's input and zero, lie closer than the two devices'
+    f32 disagreement (about 1e-6 relative), the two may choose apart,
+    and one such choice moves the error of every layer below it by about
+    1e-3 of its norm.  So the CPU step replays the card's choices at
+    every max pool and ReLU, and each choice the CPU would have made
+    otherwise must be a near tie (gap within 1e-5, see ``_flip_gap``)
+    and such choices rare (under 1e-4 of all: a fault would flip far
+    more)."""
+    import torch
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    b_card, a_card, m_card, i_card, c_card = _one_f32_step("cuda")
+    b_cpu, a_cpu, m_cpu, i_cpu, c_cpu = _one_f32_step(
+        "cpu", {name: [dec for dec, _ in got]
+                for name, got in c_card.items()})
+    check(np.array_equal(i_card, i_cpu), "different minibatch indices")
+    flips = {}
+    for name, got in c_cpu.items():
+        n_flip, n_all, gap = _flip_gap(c_card[name], got)
+        check(n_flip <= 1e-4 * n_all and gap <= 1e-5,
+              f"{name}: {n_flip} of {n_all} choices differ between card "
+              f"and CPU, the widest {gap:.3g} apart (relative)")
+        flips[name] = {"differ": n_flip, "of": n_all, "gap": gap}
+    for fn in b_cpu:
+        for pn in b_cpu[fn]:
+            check(np.array_equal(b_card[fn][pn], b_cpu[fn][pn]),
+                  f"{fn}.{pn}: different initial params")
+    rel = _rel_delta_diff(b_card, a_card, a_cpu)
+    for pn, r in rel.items():
+        check(r <= 1e-3, f"{pn}: the step's change differs by {r:.3g} "
+              f"(relative, limit 1e-3) between card and CPU")
+    check(m_card[0] == m_cpu[0] and m_card[2] == m_cpu[2],
+          f"n_err/count differ: card {m_card}, cpu {m_cpu}")
+    # for the record, not held to a limit: the CPU step on its own
+    # choices, what the near ties alone move
+    a_own = _one_f32_step("cpu")[1]
+    return {"rel_delta_diff": rel, "near_tie_choices": flips,
+            "rel_delta_diff_cpu_own_choices": _rel_delta_diff(
+                b_card, a_card, a_own),
+            "n_err": m_card[0], "count": m_card[2],
+            "loss_card": m_card[1], "loss_cpu": m_cpu[1]}
+
+
+# -- phase 6: summary -------------------------------------------------------
+
+def summary_kernel(name: str, replaces: str, rows, launches: dict,
+                   card: str) -> dict:
+    """The kernels-line entry: times summed over the training path's two
+    shapes (batch 128, bf16, n = 5); ``launches`` is the training path's
+    count, ``launches_by_path`` that of each main path that reads it
+    (serving runs no backward and reports only ``lrn_fwd``)."""
+    main = [r for r in rows if r["kernel"] == name and r["role"] == "train"]
     lib = [r["library_ms"] for r in main]
-    return {"name": "lrn_fwd", "route": "cuda",
-            "source": "veles_tpu_torch/csrc/lrn_fwd.cu",
-            "replaces": "veles_tpu/ops/lrn_pallas.py:132",
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in main),
-            "ms": sum(r["kernel_ms"] for r in main),
-            "plain_ms": sum(r["plain_ms"] for r in main),
-            "bound_ms": sum(r["bound_ms"] for r in main),
-            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                       for r in main) else "operations",
-            "library_ms": sum(lib) if None not in lib else None,
-            "shapes": [r["shape"] for r in main], "card": card}
+    entry = {"name": name, "route": "cuda",
+             "source": f"veles_tpu_torch/csrc/{name}.cu",
+             "replaces": replaces,
+             "launches": launches["train"],
+             "launches_by_path": launches,
+             "max_abs_err": max(r["max_abs_err"] for r in main),
+             "ms": sum(r["kernel_ms"] for r in main),
+             "plain_ms": sum(r["plain_ms"] for r in main),
+             "bound_ms": sum(r["bound_ms"] for r in main),
+             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                        for r in main) else "operations",
+             "library_ms": sum(lib) if None not in lib else None,
+             "shapes": [r["shape"] for r in main], "card": card}
+    serve = [r for r in rows if r["kernel"] == name and r["role"] == "serve"]
+    if serve:
+        entry["serve_ms"] = sum(r["kernel_ms"] for r in serve)
+        entry["serve_shapes"] = [r["shape"] for r in serve]
+    return entry
 
 
 def main() -> int:
@@ -545,6 +996,8 @@ def main() -> int:
         print(f"chip_smoke: FAIL: the port is not beside this script "
               f"({e})", file=sys.stderr)
         return 1
+    logging.basicConfig(level=logging.INFO,
+                        format="%(levelname)s %(name)s: %(message)s")
 
     workdir = os.path.join(HERE, "_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -558,24 +1011,39 @@ def main() -> int:
               f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
         t0 = time.perf_counter()
         lrn_cuda.build()
-        print(f"build: lrn_fwd in {time.perf_counter() - t0:.1f}s "
-              f"({lrn_cuda.build_info['path']})", flush=True)
-        for line in lrn_cuda.build_info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print("ptxas: " + line.strip())
+        print(f"build: lrn_fwd and lrn_bwd in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        for kname, info in lrn_cuda.build_info.items():
+            print(f"build: {kname} {info['seconds']:.1f}s "
+                  f"({info['path']})", flush=True)
+            for line in info["log"].splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"ptxas: {kname}: " + line.strip())
         # phase 2: every kernel against its plain version
         rows = kernel_phase(card)
-        # phase 3: the main path
-        serve, launches = serve_phase(card, workdir)
+        # phase 3: the serving path
+        serve, serve_launches = serve_phase(card, workdir)
+        # phases 4 and 5: the training path
+        train = train_phase(card)
+        t0 = time.perf_counter()
+        train["f32_card_vs_cpu"] = card_vs_cpu_phase()
+        train["f32_card_vs_cpu"]["seconds"] = time.perf_counter() - t0
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    kernels = [
+        summary_kernel("lrn_fwd", "veles_tpu/ops/lrn_pallas.py:132", rows,
+                       {"train": train["launches"]["lrn_fwd"],
+                        "serve": serve_launches}, card),
+        summary_kernel("lrn_bwd", "veles_tpu/ops/lrn_pallas.py:151", rows,
+                       {"train": train["launches"]["lrn_bwd"]}, card)]
     print("serve " + json.dumps(serve))
+    print("train " + json.dumps(train))
     print(card)
-    print(json.dumps({"kernels": [summary_kernel(rows, launches, card)]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

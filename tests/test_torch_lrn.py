@@ -69,7 +69,7 @@ def test_port_unit_matches_reference_and_counts_no_launch_on_cpu():
     before = lrn_cuda.lrn_fwd.launches
     unit = port_lrn.LRNormalizer(alpha=1e-4, beta=0.75, n=5, k=2.0)
     unit.initialize(x.shape)
-    got, res = unit.apply_fwd({}, torch.from_numpy(x))
+    got, res = unit.apply_fwd({}, torch.from_numpy(x), train=False)
     assert res is None and got.dtype == torch.float32
     ref_unit = jax_lrn.LRNormalizer(alpha=1e-4, beta=0.75, n=5, k=2.0)
     want, _ = ref_unit.apply_fwd({}, jnp.asarray(x), train=False)

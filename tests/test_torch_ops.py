@@ -77,7 +77,7 @@ def test_unit_forward_matches_reference(kind, kwargs, shape):
                             jnp.asarray(x), train=False)
     got, res = port.apply_fwd(
         {p: torch.from_numpy(a) for p, a in port_params.items()},
-        torch.from_numpy(x))
+        torch.from_numpy(x), train=False)
     assert res is None
     assert tuple(got.shape) == port.output_shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
@@ -109,6 +109,15 @@ def test_conv_weights_round_trip_between_layouts():
 
 
 def test_training_mode_is_not_in_this_slice():
+    """Training mode belongs to the training slice (now ported): there a
+    unit keeps the residual its gradient unit reads, while eval mode
+    keeps none, and dropout draws its mask only from the generator the
+    fused step hands it."""
     unit = forward_registry["dropout"](None, name="d", dropout_ratio=0.5)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="Generator"):
         unit.apply_fwd({}, torch.ones(2, 3), train=True)
+    fc = forward_registry["all2all"](None, name="fc", output_sample_shape=2)
+    x, w = torch.ones(1, 3), {"weights": torch.ones(3, 2)}
+    y, res = fc.apply_fwd(w, x)
+    assert res[0] is x and res[1] is y
+    assert fc.apply_fwd(w, x, train=False)[1] is None

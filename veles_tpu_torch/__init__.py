@@ -8,8 +8,9 @@ anything of ``veles_tpu``: where it needs one of the reference's
 framework-free modules (config, forge, packaging) it keeps its own
 trimmed copy.
 
-This slice holds the serving path:
-``python -m veles_tpu_torch --serve-models NAME=PKG.vpkg``.
+It trains (``python -m veles_tpu_torch WORKFLOW.py``, the reference's
+fused step) and serves (``python -m veles_tpu_torch --serve-models
+NAME=PKG.vpkg``).
 """
 
 __version__ = "0.1.0"

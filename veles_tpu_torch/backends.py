@@ -1,7 +1,7 @@
 """Devices: where the port's tensors live and which dtype they compute in.
 
 Counterpart of ``veles_tpu/backends.py`` (``JaxDevice``,
-``make_device``), serving half only.
+``make_device``), single-device only.
 
 - :class:`TorchDevice` wraps one ``torch.device``.  ``put`` copies a
   host array onto it (counting ``h2d_bytes``), ``get`` copies back,

@@ -1,14 +1,17 @@
 """Global configuration tree (the port's own copy).
 
-Counterpart of ``veles_tpu/config.py``, trimmed to what serving reads:
-a global ``root`` Config with dot-notation access, auto-vivified
-sub-trees and deep ``update``.  Config files are plain Python executed
-for their side effect on ``root`` (:func:`launcher.apply_config_file`).
+Counterpart of ``veles_tpu/config.py``, trimmed to what the port
+reads: a global ``root`` Config with dot-notation access, auto-vivified
+sub-trees, deep ``update``, and the command line's ``root.x.y=value``
+overrides (:func:`parse_overrides`).  Config files are plain Python
+executed for their side effect on ``root``
+(:func:`launcher.apply_config_file`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator
+import ast
+from typing import Any, Dict, Iterator, List
 
 
 class Config:
@@ -72,6 +75,37 @@ class Config:
         return {k: v.todict() if isinstance(v, Config) else v
                 for k, v in self.__dict__.items()}
 
+    def apply_override(self, dotted: str, value: str) -> None:
+        """Apply one ``path.to.key=value`` override (the value parsed as
+        a Python literal when it is one, else kept as a string)."""
+        *path, leaf = dotted.split(".")
+        node: Config = self
+        for p in path:
+            node = getattr(node, p)
+        try:
+            parsed = ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            parsed = value
+        setattr(node, leaf, parsed)
+
 
 #: The global configuration tree every workflow/config file mutates.
 root = Config("root")
+
+
+def is_override(arg: str) -> bool:
+    """Whether a command-line argument is a ``root.x.y=value`` override."""
+    return arg.startswith("root.") and "=" in arg
+
+
+def parse_overrides(args: List[str]) -> List[str]:
+    """Apply every ``root.x.y=value`` argument to ``root``; return the
+    other arguments."""
+    remaining = []
+    for a in args:
+        if is_override(a):
+            dotted, _, value = a.partition("=")
+            root.apply_override(dotted[len("root."):], value)
+        else:
+            remaining.append(a)
+    return remaining

@@ -35,41 +35,11 @@
 // The wrapper (veles_tpu_torch/ops/lrn_cuda.py) allocates y, checks
 // shapes and dtypes, and raises on a nonzero return.
 
-#include <atomic>
-#include <cstdint>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "lrn_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-// tile elements staged per block: 8192 * (4 + 2) = 48 KiB in bf16,
-// 64 KiB in f32; a row longer than that gets a block of its own
-constexpr int kTileElems = 8192;
-// Hopper's largest dynamic shared memory per block (opt-in)
-constexpr int kMaxSmemBytes = 232448;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// the square as the TPU kernel forms it: in the input dtype
-template <typename T>
-__device__ __forceinline__ float square(T v) {
-  const float f = to_f32(v);
-  return to_f32(from_f32<T>(f * f));
-}
+using namespace veles_lrn;
 
 // VEC: elements per 16-byte load (16 / sizeof(T)), or 1 where a row is
 // not a multiple of 16 bytes or a pointer is not 16-byte aligned
@@ -144,48 +114,23 @@ lrn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, long long rows,
   }
 }
 
-// Tiles over 48 KiB (f32, or rows over 8192 channels) need an opt-in to
-// more dynamic shared memory.  It is made once per instantiation and
-// device, to the most a block may take (227 KiB, which bounds C in the
-// wrapper), not on every launch.
-template <typename T, int VEC>
-cudaError_t allow_large_tiles() {
-  constexpr int kMaxDevices = 64;
-  // per device: 0 = not yet set, else the setter's cudaError_t + 1 (two
-  // threads racing here both set the same value, which is harmless)
-  static std::atomic<int> state[kMaxDevices];
-  int dev = 0;
-  const cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  const int seen = state[dev].load(std::memory_order_acquire);
-  if (seen != 0) return static_cast<cudaError_t>(seen - 1);
-  const cudaError_t set = cudaFuncSetAttribute(
-      lrn_fwd_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmemBytes);
-  state[dev].store(static_cast<int>(set) + 1, std::memory_order_release);
-  return set;
-}
-
 template <typename T, int VEC>
 int launch(const void* x, void* y, long long rows, int c, int n, float k,
            float alpha, float beta, cudaStream_t stream) {
-  int rows_per_block = kTileElems / c;
-  if (rows_per_block < 1) rows_per_block = 1;
-  if (rows_per_block > rows) rows_per_block = static_cast<int>(rows);
-  const size_t smem = static_cast<size_t>(rows_per_block) * c *
+  const int rpb = tile_rows(rows, c);
+  const size_t smem = static_cast<size_t>(rpb) * c *
                       (sizeof(float) + sizeof(T));
   if (smem > 48 * 1024) {
-    const cudaError_t e = allow_large_tiles<T, VEC>();
+    const cudaError_t e = allow_large_smem<lrn_fwd_kernel<T, VEC>>();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
+  const long long blocks = (rows + rpb - 1) / rpb;
   const int lo = n / 2;
   const int hi = n - 1 - lo;
   lrn_fwd_kernel<T, VEC><<<static_cast<unsigned>(blocks), kThreads, smem,
                            stream>>>(static_cast<const T*>(x),
                                      static_cast<T*>(y), rows, c,
-                                     rows_per_block, lo, hi, k, alpha, beta);
+                                     rpb, lo, hi, k, alpha, beta);
   return static_cast<int>(cudaGetLastError());
 }
 

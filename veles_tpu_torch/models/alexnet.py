@@ -5,8 +5,14 @@ The classic 8-layer net (Krizhevsky 2012): 5 conv stages (with LRN and
 overlapping max pooling) and 3 fully-connected layers with dropout;
 single-group convolutions.  ``alexnet_layers`` and ``DEFAULTS`` are the
 reference's, so a package built for either framework describes the
-same net.  The prepared-ImageNet loader (``loader.data_dir``) is not
-ported: serving reads only the sample shape.
+same net, and ``create_workflow`` passes the reference's decision,
+lr_adjust and loss config.  Train it with
+
+    python -m veles_tpu_torch veles_tpu_torch/models/alexnet.py \
+        [config.py ...] [root.alexnet.k=v ...]
+
+on the synthetic stand-in data set (227x227x3, 1000 classes).  The
+prepared-ImageNet loader (``loader.data_dir``) is not ported.
 """
 
 from __future__ import annotations
@@ -91,12 +97,23 @@ def create_workflow(launcher, **overrides):
     lcfg = dict(cfg["loader"])
     if lcfg.pop("data_dir", None):
         raise ValueError("loader.data_dir (prepared ImageNet) is not "
-                         "ported yet; the port serves from packages")
+                         "ported yet")
+    if cfg.get("snapshotter"):
+        raise ValueError("snapshots are not ported yet")
     w = StandardWorkflow(
         loader_factory=lambda wf: SyntheticClassificationLoader(
             wf, name="loader", **lcfg),
         layers=cfg.get("layers") or
         alexnet_layers(cfg["n_classes"], cfg["dropout"]),
+        loss_function="softmax",
+        decision_config=cfg["decision"],
+        lr_adjust_config=cfg.get("lr_adjust"),
         name="AlexNetWorkflow")
     launcher.workflow = w
     return w
+
+
+def run(launcher):
+    launcher.create_workflow(create_workflow)
+    launcher.initialize()
+    launcher.run()

@@ -1,6 +1,6 @@
-"""Fixed-shape batching helpers of the serving engine.
+"""Fixed-shape batching helpers of the engines.
 
-Counterpart of ``veles_tpu/ops/batching.py`` (serving subset): the
+Counterpart of ``veles_tpu/ops/batching.py`` (single-device subset): the
 compute-dtype policy, the param caster, member stacking, the
 residency byte count, and the zero-padded micro-batch.
 """

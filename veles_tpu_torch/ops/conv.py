@@ -1,14 +1,19 @@
-"""Convolution units (forward).
+"""Convolution units and their gradient unit.
 
 Counterpart of ``veles_tpu/ops/conv.py`` (``Conv``, ``ConvTanh``,
-``ConvRELU``): a 2-D convolution with symmetric padding ``(py, px)``
-and strides ``(sy, sx)``.  Activations stay NHWC at the unit's
-boundary.  Inside, ``x.permute(0, 3, 1, 2)`` is an NCHW view of the
-same memory (PyTorch's channels-last format), which
+``ConvRELU``, ``GradientDescentConv``): a 2-D convolution with
+symmetric padding ``(py, px)`` and strides ``(sy, sx)``.  Activations
+stay NHWC at the unit's boundary.  Inside, ``x.permute(0, 3, 1, 2)`` is
+an NCHW view of the same memory (PyTorch's channels-last format), which
 ``torch.nn.functional.conv2d`` consumes and produces without a copy,
 so the permute back is free too.  Weights are OIHW
 ``(n_kernels, C, ky, kx)`` in the port's params; ``convert.py`` maps
 the reference's HWIO onto that once, at load.
+
+The backward takes the weight and input gradients from
+``torch.nn.grad.conv2d_weight`` / ``conv2d_input`` (cuDNN on the card),
+as the reference left them to XLA (``jax.vjp``); the weight gradient
+stays OIHW, like the params and the momentum buffers.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from veles_tpu_torch.ops.nn_units import ForwardUnit
+from veles_tpu_torch.ops.nn_units import ForwardUnit, GradientUnit
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -57,8 +62,12 @@ class Conv(ForwardUnit):
             shapes["bias"] = (self.n_kernels,)
         return shapes
 
-    def weight_fan_in(self, shape):
-        return int(shape[1] * shape[2] * shape[3])
+    def reference_param_shapes(self, input_shape):
+        shapes = {"weights": (self.ky, self.kx, input_shape[-1],
+                              self.n_kernels)}
+        if self.include_bias:
+            shapes["bias"] = (self.n_kernels,)
+        return shapes
 
     def activation(self, v: torch.Tensor) -> torch.Tensor:
         return v
@@ -72,10 +81,42 @@ class Conv(ForwardUnit):
 
 
 class ConvTanh(Conv):
+    activation_mode = "tanh"
+
     def activation(self, v):
         return torch.tanh(v)
 
 
 class ConvRELU(Conv):
+    activation_mode = "relu"
+
     def activation(self, v):
         return torch.relu(v)
+
+
+class GradientDescentConv(GradientUnit):
+    """Backward for Conv*: weight, bias and (unless skipped) input
+    gradients of the pre-activation, on the channels-last NCHW views."""
+
+    can_skip_err_input = True
+
+    def backward_from_saved(self, params, saved, err_output,
+                            need_err_input=True):
+        x, out = saved
+        f = self.forward
+        err_pre = self.act_deriv(out, err_output).permute(0, 3, 1, 2)
+        x_nchw = x.permute(0, 3, 1, 2)
+        w = params["weights"]
+        grads = {"weights": torch.nn.grad.conv2d_weight(
+            x_nchw, w.shape, err_pre, stride=f.sliding, padding=f.padding)}
+        if "bias" in params:
+            grads["bias"] = err_pre.sum(dim=(0, 2, 3))
+        if not need_err_input:
+            return None, grads
+        err_input = torch.nn.grad.conv2d_input(
+            x_nchw.shape, w, err_pre, stride=f.sliding, padding=f.padding)
+        return err_input.permute(0, 2, 3, 1), grads
+
+
+GDConvTanh = GradientDescentConv
+GDConvRELU = GradientDescentConv

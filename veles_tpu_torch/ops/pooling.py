@@ -1,9 +1,15 @@
-"""Pooling units (forward): max and average over VALID windows with a
-floor-size output.
+"""Pooling units: max and average over VALID windows with a floor-size
+output, and their gradient units.
 
 Counterpart of ``veles_tpu/ops/pooling.py`` (``MaxPooling``,
-``AvgPooling``).  NHWC at the boundary; the NCHW view inside is the
-same memory (see ``ops/conv.py``).
+``AvgPooling``, ``GDMaxPooling``, ``GDAvgPooling``).  NHWC at the
+boundary; the NCHW view inside is the same memory (see ``ops/conv.py``).
+The backward is the backward of ``F.max_pool2d`` / ``F.avg_pool2d``
+(``torch.autograd.grad`` over the saved input), as the reference takes
+``jax.vjp`` of its ``reduce_window``.  Where a max window holds equal
+values, torch and XLA may route the error to different ones; on a real
+net those ties are the zeros a ReLU leaves, whose gradient the ReLU
+kills anyway.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from veles_tpu_torch.ops.conv import _pair, conv_out_size
-from veles_tpu_torch.ops.nn_units import ForwardUnit
+from veles_tpu_torch.ops.nn_units import ForwardUnit, GradientUnit
 
 
 class PoolingBase(ForwardUnit):
@@ -47,3 +53,17 @@ class MaxPooling(PoolingBase):
 class AvgPooling(PoolingBase):
     def pool(self, x_nchw):
         return F.avg_pool2d(x_nchw, (self.ky, self.kx), self.sliding)
+
+
+class _GDPooling(GradientUnit):
+    def backward_from_saved(self, params, saved, err_output):
+        x, _ = saved
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            y = self.forward.apply({}, xx)
+            (err_input,) = torch.autograd.grad(y, xx, err_output)
+        return err_input, {}
+
+
+GDMaxPooling = _GDPooling
+GDAvgPooling = _GDPooling

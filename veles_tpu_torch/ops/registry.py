@@ -1,8 +1,7 @@
-"""Layer-config type name -> forward unit class.
+"""Layer-config type name -> forward unit class and gradient unit class.
 
-Counterpart of ``veles_tpu/ops/registry.py`` for the layer types this
-slice serves (the AlexNet family).  Gradient units arrive with the
-training slice.
+Counterpart of ``veles_tpu/ops/registry.py`` for the layer types of the
+AlexNet family.
 """
 
 from __future__ import annotations
@@ -23,4 +22,18 @@ forward_registry: Dict[str, type] = {
     "all2all_relu": all2all.All2AllRELU,
     "softmax": all2all.All2AllSoftmax,
     "dropout": dropout.Dropout,
+}
+
+gd_registry: Dict[str, type] = {
+    "conv": conv.GradientDescentConv,
+    "conv_tanh": conv.GDConvTanh,
+    "conv_relu": conv.GDConvRELU,
+    "norm": lrn.GDLRNormalizer,
+    "max_pooling": pooling.GDMaxPooling,
+    "avg_pooling": pooling.GDAvgPooling,
+    "all2all": all2all.GradientDescent,
+    "all2all_tanh": all2all.GDTanh,
+    "all2all_relu": all2all.GDRELU,
+    "softmax": all2all.GDSoftmax,
+    "dropout": dropout.GDDropout,
 }
