@@ -11,16 +11,18 @@ device, or when it is run without the repository beside it.  It imports
 nothing of JAX and nothing of the JAX package.
 
 1. Device: the card's name and power limit; build both LRN kernels from
-   ``veles_tpu_torch/csrc/`` (one ``nvcc`` each, started together) and
-   print the build time and what ptxas reported.
+   ``veles_tpu_torch/csrc/`` (one ``nvcc`` each, started together),
+   print each kernel function's registers and spills as ptxas reports
+   them, and fail on any spill.
 2. Kernels vs plain on the card, at AlexNet's two norm shapes.
    ``lrn_fwd`` at batch 64 (serving) and 128 (training), ``lrn_bwd`` at
-   batch 128; n = 5 and 4, f32 and bf16, plus ragged row counts and a
-   channel count over 48 KiB of shared memory.  Each case prints the
-   kernel's, the plain version's and the library call's times from CUDA
-   events after warm-up (``torch.nn.functional.local_response_norm``
-   and, for the backward, autograd through it), its memory bound, and
-   the max abs error.
+   batch 128; n = 5 and 4, f32 and bf16; plus the edges of the kernels'
+   design (``lrn_cases``).  Each case prints the kernel's, the plain
+   version's and the library call's times (``torch.nn.functional.
+   local_response_norm`` and, for the backward, autograd through it),
+   each the mean of many launches back to back over rotated copies of
+   the inputs with no host time in the window (``cuda_ms``), its memory
+   bound, its share of the bound and the max abs error.
 3. Serve: pack a 2-member full-width AlexNet ensemble (gaussian init at
    ``alexnet_layers``' stddevs from a numpy seed), start
    ``python -m veles_tpu_torch --serve-models alexnet=PKG --max-batch
@@ -101,25 +103,54 @@ def card_line() -> str:
 
 # -- phase 2: the kernel against its plain version ---------------------
 
-def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Mean device time of ``fn`` from CUDA events around each call,
-    after warm-up.  Before each call a 128 MiB write evicts the 50 MB
-    L2, so an input that fits there is still read from device memory,
-    as the bound assumes."""
+#: inputs rotated in a timed run add up to at least this much, well over
+#: the H100's 50 MB L2, so that each launch reads its own inputs cold
+ROTATE_BYTES = 256 << 20
+#: cycles of the sleep kernel queued ahead of a timed run (about 11 ms at
+#: 1.75 GHz); doubled until the host has queued every launch before it
+#: ends
+SLEEP_CYCLES = 20_000_000
+
+
+def cuda_ms(fn, inputs, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn(*inputs[i % len(inputs)])`` over ``iters``
+    launches back to back between two CUDA events.  ``inputs`` holds
+    copies of the arguments (``rotations``), together well over the L2,
+    so each launch reads its own inputs from device memory, and each
+    output is written back once, as the bound counts; no flush leaves
+    dirty lines for the timed kernel to write back.  A sleep kernel is
+    queued ahead of the start event, and the host must queue every
+    launch before it ends (else the sleep doubles and the run repeats),
+    so the host's time per call never falls inside the window."""
     import torch
-    for _ in range(warmup):
-        fn()
-    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
-    pairs = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda.synchronize()
-    for start, end in pairs:
-        flush.zero_()
+    for i in range(warmup):
+        fn(*inputs[i % len(inputs)])
+    cycles = SLEEP_CYCLES
+    for _ in range(7):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
         start.record()
-        fn()
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
         end.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    raise SmokeFailure("cuda_ms: the host could not queue the launches "
+                       "within a sleep of %d cycles" % cycles)
+
+
+def rotations(*tensors, iters: int):
+    """Copies of ``tensors`` for :func:`cuda_ms`: enough sets that they
+    add up to ``ROTATE_BYTES``, at least 2, and no more than ``iters`` + 2
+    (the timed and warm-up launches)."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    n = min(max(2, -(-ROTATE_BYTES // size)), iters + 2)
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
 
 
 def lrn_bound(shape, dtype, n_arrays: int, ops_per_elem: float):
@@ -183,120 +214,190 @@ def check_bwd_bf16(out, ref, x, err, n: int, k: float, alpha: float,
           f"the larger term off (max abs err {float(diff.max()):.3g})")
 
 
-def lrn_cases(batch: int, ns=(5, 4), dts=None):
+K_LRN, ALPHA_LRN = 2.0, 1e-4
+#: kernel vs plain version, in the same dtype.  Forward: in f32 the two
+#: differ only in the order of the <= n-term f32 window sum (den >= k =
+#: 2, so relative errors stay near 1e-7); in bf16 that order can flip the
+#: final rounding of y by one bf16 ulp (2^-8 relative), well inside 2e-2,
+#: and bf16 is also held to one ulp (2e-2 alone would pass an alpha off
+#: by 10%).  Backward: f32 at the tolerance of the reference's own Pallas
+#: backward test (tests/test_ops.py); bf16 by check_bwd_bf16.
+FWD_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2e-2, 2e-2)}
+BWD_TOL = (2e-4, 1e-5)
+#: timed launches of a kernel, and of its plain version or library call
+KERNEL_ITERS, REF_ITERS = 50, 10
+#: the edge cases' rows: 4 x 13 x 17 = 884
+EDGE = (4, 13, 17)
+
+
+def lrn_cases():
+    """(kernel, shape, n, dtype, role) of every kernel-phase case.  Roles:
+    "serve" and "train" are the main paths' shapes (bf16, n = 5, at batch
+    64 and 128); "check" the other n and dtypes there; the rest are edges
+    of the kernels' design: a ragged row count, a row of 16 384 channels
+    (the vector path) and one of 16 383 (the row path, with over 48 KiB
+    of shared memory a block), C not a multiple of the 8-element vector
+    (100) or under n (3), n = 1, n = 9 (past the vector path's widest
+    window, 5), n = 19 (a halo wider than a neighbouring vector), and
+    inputs whose data pointer is one element past a 16-byte boundary;
+    "rows" times the row path at the training path's row count (C =
+    100, bf16)."""
+    cases = []
+    for name, roles in (("lrn_fwd", (("serve", 64), ("train", 128))),
+                        ("lrn_bwd", (("train", 128),))):
+        for role, batch in roles:
+            for hw, c in ((55, 96), (27, 256)):
+                for n in (5, 4):
+                    if name == "lrn_fwd" and role == "train" and n != 5:
+                        continue
+                    for dt in ("float32", "bfloat16"):
+                        main = n == 5 and dt == "bfloat16"
+                        cases.append((name, (batch, hw, hw, c), n, dt,
+                                      role if main else "check"))
+        cases.append((name, (3, 17, 19, 96), 5, "float32", "ragged"))
+        if name == "lrn_bwd":
+            cases.append((name, (3, 17, 19, 96), 4, "bfloat16", "ragged"))
+        cases.append((name, (TRAIN_BATCH, 55, 55, 100), 5, "bfloat16",
+                      "rows"))
+        cases.append((name, (5, 16384), 5, "bfloat16", "wide"))
+        cases.append((name, (5, 16383), 5, "bfloat16", "wide"))
+        for dt in ("float32", "bfloat16"):
+            for c, n in ((100, 5), (3, 5), (96, 1), (96, 9), (96, 19)):
+                cases.append((name, EDGE + (c,), n, dt, "edge"))
+            cases.append((name, EDGE + (96,), 5, dt, "unaligned"))
+    return cases
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data pointer is one element into
+    a buffer, so not 16-byte aligned."""
     import torch
-    dts = dts or (torch.float32, torch.bfloat16)
-    return [(shape, n, dt) for shape in ((batch, 55, 55, 96),
-                                         (batch, 27, 27, 256))
-            for n in ns for dt in dts]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    check(out.is_contiguous() and out.data_ptr() % 16 != 0,
+          "could not make a misaligned input")
+    return out
+
+
+def lrn_case(case, gen, card: str) -> dict:
+    """One kernel-phase case: the kernel against its plain version at the
+    stated tolerance, then the kernel's, the plain version's and the
+    library call's times (never called by the port: ``torch.nn.
+    functional.local_response_norm`` on an NCHW view, and for the
+    backward autograd through it), its memory bound and its share of the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from veles_tpu_torch.ops import lrn_cuda
+    name, shape, n, dt, role = case
+    dtype = getattr(torch, dt)
+    k, alpha = K_LRN, ALPHA_LRN
+    # post-ReLU-scale activations: alpha * window sum is a sizable part of
+    # den, so the power term is exercised
+    x = (torch.randn(shape, generator=gen, device="cuda") * 30.0).to(dtype)
+    e = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    if role == "unaligned":
+        x, e = _misaligned(x), _misaligned(e)
+    row = {"kernel": name, "shape": list(shape), "n": n, "dtype": dt,
+           "role": role}
+    what = f"{name} {shape} n={n} {dt} {role}"
+    if name == "lrn_fwd":
+        args = (x,)
+        kernel = lambda x: lrn_cuda.lrn_fwd(x, n, k, alpha)  # noqa: E731
+        plain = lambda x: lrn_cuda.lrn_fwd_plain(x, n, k, alpha)  # noqa: E731
+        got, ref = kernel(x), plain(x)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        rtol, atol = FWD_TOL[dt]
+        bad = err > atol + rtol * ref.float().abs()
+        check(not bool(bad.any()), f"{what}: {int(bad.sum())} elements "
+              f"off (max abs err {float(err.max()):.3g})")
+        if dtype == torch.bfloat16:
+            check_one_ulp(got, ref, what)
+    else:
+        args = (x, e)
+        kernel = lambda x, e: lrn_cuda.lrn_bwd(x, e, n, k, alpha)  # noqa: E731
+        plain = lambda x, e: lrn_cuda.lrn_bwd_plain(  # noqa: E731
+            x, e, n, k, alpha)
+        got, ref = kernel(x, e), plain(x, e)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if dtype == torch.bfloat16:
+            check_bwd_bf16(got, ref, x, e, n, k, alpha, what)
+        else:
+            rtol, atol = BWD_TOL
+            bad = err > atol + rtol * ref.abs()
+            check(not bool(bad.any()), f"{what}: {int(bad.sum())} elements "
+                  f"off (max abs err {float(err.max()):.3g})")
+    row["max_abs_err"] = float(err.max())
+    if role == "unaligned":
+        rot = [tuple(_misaligned(t) for t in args) for _ in range(2)]
+    else:
+        rot = rotations(*args, iters=KERNEL_ITERS)
+    row["kernel_ms"] = cuda_ms(kernel, rot, KERNEL_ITERS)
+    if name == "lrn_fwd":
+        row["bound_ms"], row["bound_by"] = lrn_bound(shape, dtype, 2, n + 6)
+    else:
+        # x and e read once, the result written once; about 3n + 11 f32
+        # operations an element (two window sums, the squares, den and
+        # its powers, the products)
+        row["bound_ms"], row["bound_by"] = lrn_bound(shape, dtype, 3,
+                                                     3 * n + 11)
+    row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    row["plain_ms"] = cuda_ms(plain, rot, REF_ITERS)
+    row["library_ms"] = None
+    if len(shape) == 4 and name == "lrn_fwd":
+        row["library_ms"] = cuda_ms(
+            lambda x: F.local_response_norm(
+                x.permute(0, 3, 1, 2), size=n, alpha=alpha * n, beta=0.75,
+                k=k), rot, REF_ITERS)
+    elif len(shape) == 4:
+        # autograd through the library's forward, one graph recorded per
+        # rotated input set
+        graphs = []
+        for xr, er in rot:
+            xl = xr.permute(0, 3, 1, 2).detach().requires_grad_(True)
+            graphs.append((xl, F.local_response_norm(
+                xl, size=n, alpha=alpha * n, beta=0.75, k=k),
+                er.permute(0, 3, 1, 2)))
+        row["library_ms"] = cuda_ms(
+            lambda xl, yl, el: torch.autograd.grad(yl, xl, el,
+                                                   retain_graph=True),
+            graphs, REF_ITERS)
+        del graphs
+    print(f"{name} " + json.dumps(row) + f"  [{card}]", flush=True)
+    return row
 
 
 def kernel_phase(card: str):
     """Both kernels against their plain versions, with times."""
     import torch
-    import torch.nn.functional as F
-
-    from veles_tpu_torch.ops import lrn_cuda
-
-    k, alpha = 2.0, 1e-4
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    # tolerances against the plain version in the same dtype.  Forward:
-    # in f32 the two differ only in the order of the <= n-term f32
-    # window sum (den >= k = 2, so relative errors stay near 1e-7); in
-    # bf16 that order can flip the final rounding of y by one bf16 ulp
-    # (2^-8 relative), well inside 2e-2, and bf16 is also held to one
-    # ulp (2e-2 alone would pass an alpha off by 10%).  Backward: f32 at
-    # the tolerance of the reference's own Pallas backward test
-    # (tests/test_ops.py); bf16 by check_bwd_bf16.
-    fwd_tol = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2e-2, 2e-2)}
-    bwd_tol = (2e-4, 1e-5)
-    cases = []
-    for role, batch in (("serve", MAX_BATCH), ("train", TRAIN_BATCH)):
-        for shape, n, dt in lrn_cases(batch):
-            if role == "train" and n != 5:
-                continue
-            main = n == 5 and dt == torch.bfloat16
-            cases.append(("lrn_fwd", shape, n, dt, role if main else "check"))
-    cases.append(("lrn_fwd", (3, 17, 19, 96), 5, torch.float32, "ragged"))
-    cases.append(("lrn_fwd", (5, 16384), 5, torch.bfloat16, "wide"))
-    for shape, n, dt in lrn_cases(TRAIN_BATCH):
-        main = n == 5 and dt == torch.bfloat16
-        cases.append(("lrn_bwd", shape, n, dt, "train" if main else "check"))
-    cases.append(("lrn_bwd", (3, 17, 19, 96), 5, torch.float32, "ragged"))
-    cases.append(("lrn_bwd", (3, 17, 19, 96), 4, torch.bfloat16, "ragged"))
-    cases.append(("lrn_bwd", (5, 16384), 5, torch.bfloat16, "wide"))
-    rows = []
-    for name, shape, n, dt, role in cases:
-        # post-ReLU-scale activations: alpha * window sum is a sizable
-        # part of den, so the power term is exercised
-        x = (torch.randn(shape, generator=gen, device="cuda") * 30.0
-             ).to(dt)
-        row = {"kernel": name, "shape": list(shape), "n": n,
-               "dtype": str(dt)[6:], "role": role}
-        if name == "lrn_fwd":
-            y = lrn_cuda.lrn_fwd(x, n, k, alpha)
-            ref = lrn_cuda.lrn_fwd_plain(x, n, k, alpha)
-            torch.cuda.synchronize()
-            err = (y.float() - ref.float()).abs()
-            rtol, atol = fwd_tol[dt]
-            bad = err > atol + rtol * ref.float().abs()
-            check(not bool(bad.any()),
-                  f"lrn_fwd {shape} n={n} {dt}: {int(bad.sum())} elements "
-                  f"off (max abs err {float(err.max()):.3g})")
-            if dt == torch.bfloat16:
-                check_one_ulp(y, ref, f"lrn_fwd {shape} n={n}")
-            row["max_abs_err"] = float(err.max())
-            row["kernel_ms"] = cuda_ms(
-                lambda: lrn_cuda.lrn_fwd(x, n, k, alpha))
-            row["plain_ms"] = cuda_ms(
-                lambda: lrn_cuda.lrn_fwd_plain(x, n, k, alpha))
-            if len(shape) == 4:
-                xc = x.permute(0, 3, 1, 2)
-                row["library_ms"] = cuda_ms(lambda: F.local_response_norm(
-                    xc, size=n, alpha=alpha * n, beta=0.75, k=k))
-            else:
-                row["library_ms"] = None
-            row["bound_ms"], row["bound_by"] = lrn_bound(shape, dt, 2, n + 6)
-        else:
-            e = torch.randn(shape, generator=gen, device="cuda").to(dt)
-            out = lrn_cuda.lrn_bwd(x, e, n, k, alpha)
-            ref = lrn_cuda.lrn_bwd_plain(x, e, n, k, alpha)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs()
-            what = f"lrn_bwd {shape} n={n} {dt}"
-            if dt == torch.bfloat16:
-                check_bwd_bf16(out, ref, x, e, n, k, alpha, what)
-            else:
-                rtol, atol = bwd_tol
-                bad = err > atol + rtol * ref.abs()
-                check(not bool(bad.any()),
-                      f"{what}: {int(bad.sum())} elements off (max abs "
-                      f"err {float(err.max()):.3g})")
-            row["max_abs_err"] = float(err.max())
-            row["kernel_ms"] = cuda_ms(
-                lambda: lrn_cuda.lrn_bwd(x, e, n, k, alpha))
-            row["plain_ms"] = cuda_ms(
-                lambda: lrn_cuda.lrn_bwd_plain(x, e, n, k, alpha))
-            if len(shape) == 4:
-                # the library yardstick: autograd through the library's
-                # forward, its graph recorded once
-                xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
-                yl = F.local_response_norm(xl, size=n, alpha=alpha * n,
-                                           beta=0.75, k=k)
-                el = e.permute(0, 3, 1, 2)
-                row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                    yl, xl, el, retain_graph=True))
-                del xl, yl
-            else:
-                row["library_ms"] = None
-            # x and e read once, the result written once; about 3n + 11
-            # f32 operations an element (two window sums, the squares,
-            # den and its powers, the products)
-            row["bound_ms"], row["bound_by"] = lrn_bound(shape, dt, 3,
-                                                         3 * n + 11)
-        print(f"{name} " + json.dumps(row) + f"  [{card}]", flush=True)
-        rows.append(row)
-    return rows
+    return [lrn_case(case, gen, card) for case in lrn_cases()]
+
+
+def ptxas_table(log: str) -> list:
+    """Per kernel function in ptxas's -v output: its registers and spill
+    bytes."""
+    import re
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None and "spill_stores" not in cur:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 # -- phase 3: the served ensemble --------------------------------------
@@ -588,7 +689,7 @@ def serve_phase(card: str, workdir: str):
     rows64 = np.concatenate(reqs)[:MAX_BATCH]
     check(len(rows64) == MAX_BATCH, f"only {len(rows64)} request rows")
     xb = device.put(rows64)
-    dispatch_ms = cuda_ms(lambda: engine.predict(xb), warmup=2, iters=10)
+    dispatch_ms = cuda_ms(engine.predict, [(xb,)], iters=10)
     engine.release()
     alpha_shares = norm_layers_in_situ(model, device, rows64)
 
@@ -967,6 +1068,8 @@ def summary_kernel(name: str, replaces: str, rows, launches: dict,
              "ms": sum(r["kernel_ms"] for r in main),
              "plain_ms": sum(r["plain_ms"] for r in main),
              "bound_ms": sum(r["bound_ms"] for r in main),
+             "share_of_bound": sum(r["bound_ms"] for r in main)
+             / sum(r["kernel_ms"] for r in main),
              "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                         for r in main) else "operations",
              "library_ms": sum(lib) if None not in lib else None,
@@ -1016,9 +1119,17 @@ def main() -> int:
         for kname, info in lrn_cuda.build_info.items():
             print(f"build: {kname} {info['seconds']:.1f}s "
                   f"({info['path']})", flush=True)
-            for line in info["log"].splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas: {kname}: " + line.strip())
+            if not info["log"]:
+                print(f"ptxas: {kname}: built by an earlier process, "
+                      f"no report")
+                continue
+            table = ptxas_table(info["log"])
+            for fn in table:
+                print(f"ptxas: {kname}: " + json.dumps(fn))
+            spilled = [fn["function"] for fn in table
+                       if fn.get("spill_stores") or fn.get("spill_loads")]
+            check(table and not spilled,
+                  f"{kname}: ptxas reports spills in {spilled}")
         # phase 2: every kernel against its plain version
         rows = kernel_phase(card)
         # phase 3: the serving path

@@ -21,6 +21,12 @@ from veles_tpu_torch.ops import lrn as port_lrn
 from veles_tpu_torch.ops import lrn_cuda
 
 RTOL, ATOL = 2e-5, 1e-6
+#: (C, n): AlexNet's widths, then the edges of the kernels' design that
+#: chip_smoke.py also drives on the card: C not a multiple of the
+#: 8-element vector, C under n, n = 1, a window past the vector path's
+#: widest (9) and one wider than a neighbouring vector (19)
+CASES = [(96, 5), (256, 5), (96, 4), (100, 5), (3, 5), (96, 1), (96, 9),
+         (96, 19)]
 
 
 @pytest.mark.parametrize("n", [3, 4, 5, 6])
@@ -38,8 +44,11 @@ def _x(c, seed):
     return (rng.standard_normal((2, 5, 4, c)) * 30.0).astype(np.float32)
 
 
-@pytest.mark.parametrize("c,n", [(96, 5), (256, 5), (96, 4)])
+@pytest.mark.parametrize("c,n", CASES)
 def test_plain_matches_reference_unit_and_pallas_kernel(c, n):
+    """Against the reference unit's XLA form and its numpy oracle, and
+    against its Pallas kernel in interpret mode where that kernel takes
+    the config (``lrn_pallas.usable``: not for C under n)."""
     k, alpha = 2.0, 1e-4
     x = _x(c, seed=c + n)
     got = lrn_cuda.lrn_fwd_plain(torch.from_numpy(x), n, k, alpha).numpy()
@@ -47,10 +56,15 @@ def test_plain_matches_reference_unit_and_pallas_kernel(c, n):
     ref_unit = jax_lrn.LRNormalizer(alpha=alpha, beta=0.75, n=n, k=k)
     want_xla, _ = ref_unit.apply_fwd({}, jnp.asarray(x), train=False)
     np.testing.assert_allclose(got, np.asarray(want_xla), RTOL, ATOL)
+    want_np, _ = ref_unit.apply_fwd({}, x, train=False)
+    np.testing.assert_allclose(got, want_np, RTOL, ATOL)
 
-    want_pl = lrn_pallas.lrn_fwd(jnp.asarray(x), n, k, alpha,
-                                 interpret=True)
-    np.testing.assert_allclose(got, np.asarray(want_pl), RTOL, ATOL)
+    if lrn_pallas.usable(x.shape, n, 0.75):
+        want_pl = lrn_pallas.lrn_fwd(jnp.asarray(x), n, k, alpha,
+                                     interpret=True)
+        np.testing.assert_allclose(got, np.asarray(want_pl), RTOL, ATOL)
+    else:
+        assert n > c
 
 
 @pytest.mark.parametrize("beta", [0.5, 1.0, 0.6])

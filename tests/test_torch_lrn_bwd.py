@@ -26,7 +26,15 @@ from veles_tpu_torch.ops import lrn_cuda
 
 RTOL, ATOL = 2e-4, 1e-5
 K, ALPHA = 2.0, 3e-2
-CASES = [(96, 5), (256, 5), (96, 4)]
+#: (C, n): AlexNet's widths, then the edges of the kernels' design that
+#: chip_smoke.py also drives on the card: C not a multiple of the
+#: 8-element vector, C under n, n = 1, a window past the vector path's
+#: widest (9) and one wider than a neighbouring vector (19)
+CASES = [(96, 5), (256, 5), (96, 4), (100, 5), (3, 5), (96, 1), (96, 9),
+         (96, 19)]
+#: the cases the reference's Pallas kernel takes (not C under n)
+PALLAS_CASES = [(c, n) for c, n in CASES
+                if lrn_pallas.usable((16, 3, 3, c), n, 0.75)]
 
 
 def _inputs(c, n, seed=None):
@@ -52,7 +60,7 @@ def test_plain_matches_reference_numpy_oracle(c, n):
     np.testing.assert_allclose(_plain(x, err, n), want, RTOL, ATOL)
 
 
-@pytest.mark.parametrize("c,n", CASES)
+@pytest.mark.parametrize("c,n", PALLAS_CASES)
 def test_plain_matches_reference_pallas_kernel(c, n):
     x, err = _inputs(c, n)
     assert lrn_pallas.usable(x.shape, n, 0.75)
@@ -157,8 +165,9 @@ def test_each_kernel_library_hashes_only_its_own_source(tmp_path,
 
 
 def test_check_config_bounds_both_kernels_at_the_layer():
-    """The largest C is the backward's: 12 bytes of shared memory an
-    element in f32 within 227 KiB a block; the layer rejects more at
+    """The largest C is the backward row path's: a row's f32 squares, t
+    and e*d, 12 bytes a channel of shared memory within 227 KiB a block
+    (the vector path has no limit of its own); the layer rejects more at
     its shape, before any launch."""
     assert lrn_cuda.MAX_CHANNELS == 232448 // 12 == 19370
     lrn_cuda.check_config(lrn_cuda.MAX_CHANNELS, 5)

@@ -20,29 +20,44 @@
 // powf.  The elementwise steps use round-to-nearest intrinsics so that
 // nvcc does not contract them into fused multiply-adds: the kernel then
 // rounds at the same places as the plain PyTorch version it is held
-// against (veles_tpu_torch/ops/lrn_cuda.py:lrn_bwd_plain).
+// against (veles_tpu_torch/ops/lrn_cuda.py:lrn_bwd_plain), and both sums
+// add their taps in ascending channel order.
 //
 // Bound: memory.  The op reads x and e once and writes the result once
-// (3 * numel * itemsize bytes) and does about 2n + 12 flops per element.
+// (3 * numel * itemsize bytes) and does about 3n + 11 flops per element.
 // AlexNet's first norm at batch 128, (128*55*55, 96) in bf16, moves 223 MB:
-// 66.6 us at 3.35 TB/s.
+// 66.6 us at 3.35 TB/s.  At about 45 instructions an element, the
+// instruction rate of 132 SMs comes close to that, so the design also
+// counts them.
 //
-// Design (simple and right first): one block owns a tile of whole rows, so
-// both windows stay inside the block and any row count works (the last
-// tile is shorter).
-//   1. Stage: x and e are read from device memory once, 16 bytes per
-//      thread per load where rows are 16-byte multiples and the pointers
-//      16-byte aligned.  Shared memory per element: e*d (f32), x and e
-//      (input dtype): 8 bytes in bf16, 12 in f32, so a block takes rows of
-//      up to 232448 / 12 = 19370 channels in f32.
-//   2. Pass 1: one thread per (row, channel) sums the forward window of
-//      rounded squares, writes e*d, and overwrites its own e with the
-//      rounded t (no other thread reads that e).  Barrier.
-//   3. Pass 2: one thread per (row, channel) sums t over the adjoint
-//      window and writes the result; consecutive threads take consecutive
-//      channels, so stores coalesce.
+// Design, vector path (C a multiple of VEC = 16 / sizeof(T), x, e and out
+// 16-byte aligned, n <= 5; every AlexNet layer): one pass, no shared
+// memory and no barrier.  Each lane owns one 16-byte vector of VEC
+// consecutive channels (8 bf16 or 4 f32) of x and of e, loaded and stored
+// with 16-byte accesses.  It squares its own x once and takes the
+// squares' halo (2 each side) from the neighbouring lanes by warp
+// shuffles; forms s, d, d1, e*d and the rounded t for its own channels;
+// then takes t's halo by a second round of shuffles and sums t over the
+// adjoint window.  A halo from another row is zeroed.  A warp loads 32
+// consecutive vectors and stores the middle 30: lane 0's last n-1-n/2 t
+// values need squares only from lanes 0 and 1, and lane 31's first n/2
+// only from lanes 30 and 31 (n - 1 <= VEC, which n <= 5 keeps in f32), so
+// the edge lanes feed both halos and no row ever needs a value from
+// another warp, whatever C is.  A grid of at most as many blocks as the
+// card holds at once walks the vectors in a grid-stride loop with two
+// tiles' loads in flight per warp.  The windows' bounds are arguments:
+// each sum unrolls over the 5 offsets around a channel, each predicated on
+// its window, so no loop bound depends on the data.  At n = 5 that is one
+// square, one rsqrt chain and two 5-tap sums an element, and 4 shuffles a
+// vector for each halo.
+// Row path (any other config): a row is held by a warp or more threads
+// (row_width) and a block holds 256 / width rows, in a grid-stride loop;
+// each row's f32 squares go to shared memory, a barrier, its t and e*d
+// to shared memory (12 bytes a channel in all), a barrier, and the
+// result.
 // The wrapper (veles_tpu_torch/ops/lrn_cuda.py) allocates the result,
-// checks shapes and dtypes, and raises on a nonzero return.
+// checks shapes and dtypes, passes the SM count, and raises on a nonzero
+// return.
 
 #include "lrn_common.cuh"
 
@@ -50,158 +65,200 @@ namespace {
 
 using namespace veles_lrn;
 
-// VEC: elements per 16-byte load (16 / sizeof(T)), or 1 where a row is
-// not a multiple of 16 bytes or a pointer is not 16-byte aligned
-template <typename T, int VEC>
+// d = den^-beta and d1 = den^-(beta+1): the rsqrt chain for beta = 3/4,
+// powf for any other beta
+__device__ __forceinline__ void powers34(float den, float& d, float& d1) {
+  const float rs = rsqrtf(den);
+  d = __fmul_rn(rs, sqrtf(rs));
+  d1 = __fmul_rn(__fmul_rn(d, rs), rs);
+}
+__device__ __forceinline__ void powers_any(float den, float beta, float& d,
+                                           float& d1) {
+  d = powf(den, -beta);
+  d1 = powf(den, -beta - 1.f);
+}
+__device__ __forceinline__ void powers(float den, float beta, float& d,
+                                       float& d1) {
+  if (beta == 0.75f)
+    powers34(den, d, d1);
+  else
+    powers_any(den, beta, d, d1);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-lrn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ e,
-               T* __restrict__ out, long long rows, int c,
-               int rows_per_block, int lo, int hi, float k, float alpha,
-               float beta, float coef) {
-  extern __shared__ float4 smem[];
-  const long long row0 = static_cast<long long>(blockIdx.x) * rows_per_block;
-  const long long left = rows - row0;
-  const int nr = left < rows_per_block ? static_cast<int>(left)
-                                       : rows_per_block;
-  const long long base = row0 * c;
-  const int count = nr * c;
-  const size_t tile = static_cast<size_t>(rows_per_block) * c;
-  // e*d first (f32, 16-byte aligned), then x, then e (later t); with VEC
-  // > 1, C is a multiple of VEC, so each array starts 16-byte aligned
-  float* ed = reinterpret_cast<float*>(smem);
-  T* xs = reinterpret_cast<T*>(ed + tile);
-  T* es = xs + tile;
-
-  if constexpr (VEC > 1) {
-    const uint4* xsrc = reinterpret_cast<const uint4*>(x + base);
-    const uint4* esrc = reinterpret_cast<const uint4*>(e + base);
-    uint4* xdst = reinterpret_cast<uint4*>(xs);
-    uint4* edst = reinterpret_cast<uint4*>(es);
-    const int nvec = count / VEC;
-#pragma unroll 4
-    for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
-      xdst[v] = xsrc[v];
-      edst[v] = esrc[v];
+lrn_bwd_vec(const T* __restrict__ x, const T* __restrict__ e,
+            T* __restrict__ out, long long nvec, int vpr, int lo, int hi,
+            float k, float alpha, float beta, float coef) {
+  constexpr int VEC = kVec<T>;
+  VecSlots at(vpr);
+  while (at.live(nvec)) {
+    uint4 xu[kTilesInFlight], eu[kTilesInFlight];
+#pragma unroll
+    for (int u = 0; u < kTilesInFlight; ++u) {
+      const bool in = at.v[u] >= 0 && at.v[u] < nvec;
+      xu[u] = load_vec(x, at.v[u], in);
+      eu[u] = load_vec(e, at.v[u], in);
     }
-  } else {
-#pragma unroll 4
-    for (int i = threadIdx.x; i < count; i += blockDim.x) {
-      xs[i] = x[base + i];
-      es[i] = e[base + i];
+#pragma unroll
+    for (int u = 0; u < kTilesInFlight; ++u) {
+      float xf[VEC], ef[VEC], sq[VEC];
+      unpack(xu[u], xf);
+      unpack(eu[u], ef);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) sq[i] = __fmul_rn(xf[i], xf[i]);
+      round_to(sq);
+      const bool first = at.col[u] == 0;
+      const bool last = at.col[u] == vpr - 1;
+      const Window<VEC> sqw(sq, first, last);
+      float d[VEC], d1[VEC];  // den, then its two powers
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)  // the forward window [i - lo, i + hi]
+        d[i] = __fadd_rn(k, __fmul_rn(alpha, sqw.sum(i, lo, hi)));
+      // one branch on beta for the whole vector, not one per element:
+      // the VEC power chains then interleave
+      if (beta == 0.75f) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) powers34(d[i], d[i], d1[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) powers_any(d[i], beta, d[i], d1[i]);
+      }
+      float ed[VEC], t[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        ed[i] = __fmul_rn(ef[i], d[i]);
+        t[i] = __fmul_rn(__fmul_rn(ef[i], xf[i]), d1[i]);
+      }
+      round_to(t);
+      const Window<VEC> tw(t, first, last);
+      float o[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)  // the adjoint window [i - hi, i + lo]
+        o[i] = __fsub_rn(ed[i],
+                         __fmul_rn(__fmul_rn(coef, xf[i]), tw.sum(i, hi, lo)));
+      if (out_lane() && at.v[u] < nvec)
+        reinterpret_cast<uint4*>(out)[at.v[u]] = pack(o);
     }
-  }
-  __syncthreads();
-
-  const int step_r = blockDim.x / c;
-  const int step_c = blockDim.x - step_r * c;
-  const int r0 = threadIdx.x / c;
-  const int ch0 = threadIdx.x - r0 * c;
-
-  // pass 1: e*d and the rounded t
-  int r = r0, ch = ch0;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    const T* row = xs + r * c;
-    const int j0 = max(ch - lo, 0);
-    const int j1 = min(ch + hi, c - 1);
-    float s = 0.f;
-    for (int j = j0; j <= j1; ++j) s = __fadd_rn(s, square(row[j]));
-    const float den = __fadd_rn(k, __fmul_rn(alpha, s));
-    float d, d1;
-    if (beta == 0.75f) {
-      const float rs = rsqrtf(den);
-      d = __fmul_rn(rs, sqrtf(rs));
-      d1 = __fmul_rn(__fmul_rn(d, rs), rs);
-    } else {
-      d = powf(den, -beta);
-      d1 = powf(den, -beta - 1.f);
-    }
-    const float xf = to_f32(xs[i]);
-    const float ef = to_f32(es[i]);
-    ed[i] = __fmul_rn(ef, d);
-    es[i] = from_f32<T>(__fmul_rn(__fmul_rn(ef, xf), d1));
-    ch += step_c;
-    r += step_r;
-    if (ch >= c) {
-      ch -= c;
-      ++r;
-    }
-  }
-  __syncthreads();
-
-  // pass 2: the adjoint window sum of t and the result
-  r = r0;
-  ch = ch0;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    const T* trow = es + r * c;
-    const int j0 = max(ch - hi, 0);
-    const int j1 = min(ch + lo, c - 1);
-    float wt = 0.f;
-    for (int j = j0; j <= j1; ++j) wt = __fadd_rn(wt, to_f32(trow[j]));
-    const float xf = to_f32(xs[i]);
-    out[base + i] =
-        from_f32<T>(__fsub_rn(ed[i], __fmul_rn(__fmul_rn(coef, xf), wt)));
-    ch += step_c;
-    r += step_r;
-    if (ch >= c) {
-      ch -= c;
-      ++r;
-    }
+    at.advance(vpr);
   }
 }
 
-template <typename T, int VEC>
-int launch(const void* x, const void* e, void* out, long long rows, int c,
-           int n, float k, float alpha, float beta, float coef,
-           cudaStream_t stream) {
-  const int rpb = tile_rows(rows, c);
-  const size_t smem =
-      static_cast<size_t>(rpb) * c * (sizeof(float) + 2 * sizeof(T));
+// width threads a row, blockDim.x / width rows a block (row_width)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lrn_bwd_rows(const T* __restrict__ x, const T* __restrict__ e,
+             T* __restrict__ out, long long rows, int c, int width, int lo,
+             int hi, float k, float alpha, float beta, float coef) {
+  extern __shared__ float smem[];
+  const int per_block = blockDim.x / width;
+  const int slot = threadIdx.x / width;
+  const int t0 = threadIdx.x % width;
+  float* sq = smem + 3 * slot * c;  // this row's rounded squares,
+  float* trow = sq + c;             // its rounded t
+  float* edrow = trow + c;          // and its e * d
+  for (long long r0 = static_cast<long long>(blockIdx.x) * per_block;
+       r0 < rows; r0 += static_cast<long long>(gridDim.x) * per_block) {
+    const long long r = r0 + slot;
+    const bool live = r < rows;
+    const T* xr = x + r * c;
+    const T* er = e + r * c;
+    if (live)
+      for (int i = t0; i < c; i += width) sq[i] = square(xr[i]);
+    __syncthreads();
+    if (live)
+      for (int i = t0; i < c; i += width) {
+        float s = 0.f;
+        for (int j = max(i - lo, 0); j <= min(i + hi, c - 1); ++j)
+          s = __fadd_rn(s, sq[j]);
+        float d, d1;
+        powers(__fadd_rn(k, __fmul_rn(alpha, s)), beta, d, d1);
+        const float ef = to_f32(er[i]);
+        edrow[i] = __fmul_rn(ef, d);
+        trow[i] = to_f32(
+            from_f32<T>(__fmul_rn(__fmul_rn(ef, to_f32(xr[i])), d1)));
+      }
+    __syncthreads();
+    if (live)
+      for (int i = t0; i < c; i += width) {
+        float wt = 0.f;
+        for (int j = max(i - hi, 0); j <= min(i + lo, c - 1); ++j)
+          wt = __fadd_rn(wt, trow[j]);
+        out[r * c + i] = from_f32<T>(__fsub_rn(
+            edrow[i], __fmul_rn(__fmul_rn(coef, to_f32(xr[i])), wt)));
+      }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_vec(const void* x, const void* e, void* out, long long rows,
+               int c, int lo, int hi, float k, float alpha, float beta,
+               float coef, int sms, cudaStream_t stream) {
+  const int vpr = c / kVec<T>;
+  const long long nvec = rows * vpr;
+  const long long blocks = vec_grid<lrn_bwd_vec<T>>(nvec, sms);
+  lrn_bwd_vec<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(e),
+      static_cast<T*>(out), nvec, vpr, lo, hi, k, alpha, beta, coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_rows(const void* x, const void* e, void* out, long long rows,
+                int c, int lo, int hi, float k, float alpha, float beta,
+                float coef, int sms, cudaStream_t stream) {
+  const int width = row_width(c);
+  const int per_block = kThreads / width;
+  const size_t smem = 3 * static_cast<size_t>(per_block) * c * sizeof(float);
   if (smem > 48 * 1024) {
-    const cudaError_t err = allow_large_smem<lrn_bwd_kernel<T, VEC>>();
+    const cudaError_t err = allow_large_smem<lrn_bwd_rows<T>>();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const long long blocks = (rows + rpb - 1) / rpb;
-  const int lo = n / 2;
-  const int hi = n - 1 - lo;
-  lrn_bwd_kernel<T, VEC><<<static_cast<unsigned>(blocks), kThreads, smem,
-                           stream>>>(
+  const long long groups = (rows + per_block - 1) / per_block;
+  lrn_bwd_rows<T><<<static_cast<unsigned>(row_grid(groups, sms)), kThreads,
+                    smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(e),
-      static_cast<T*>(out), rows, c, rpb, lo, hi, k, alpha, beta, coef);
+      static_cast<T*>(out), rows, c, width, lo, hi, k, alpha, beta, coef);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* x, const void* e, void* out, long long rows, int c,
-             int n, float k, float alpha, float beta, float coef,
+             int n, float k, float alpha, float beta, float coef, int sms,
              cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  const bool aligned = c % kVec == 0 &&
-                       reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(e) % 16 == 0;
-  return aligned ? launch<T, kVec>(x, e, out, rows, c, n, k, alpha, beta,
-                                   coef, stream)
-                 : launch<T, 1>(x, e, out, rows, c, n, k, alpha, beta, coef,
-                                stream);
+  // taps beyond C - 1 on either side are clipped anyway
+  const int lo = std::min(n / 2, c - 1);
+  const int hi = std::min(n - 1 - n / 2, c - 1);
+  const bool vec = c % kVec<T> == 0 && lo <= kHalo &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(e) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return vec ? launch_vec<T>(x, e, out, rows, c, lo, hi, k, alpha, beta,
+                             coef, sms, stream)
+             : launch_rows<T>(x, e, out, rows, c, lo, hi, k, alpha, beta,
+                              coef, sms, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, e and out share it).  coef is
-// 2 * alpha * beta, rounded once by the caller.  Returns a cudaError_t
-// (0 = launched).
+// 2 * alpha * beta, rounded once by the caller.  sms: the device's SM
+// count.  Returns a cudaError_t (0 = launched).
 extern "C" int veles_lrn_bwd(const void* x, const void* e, void* out,
                              long long rows, int c, int n, float k,
                              float alpha, float beta, float coef, int dtype,
-                             void* stream) {
-  if (rows <= 0 || c <= 0 || n <= 0)
+                             int sms, void* stream) {
+  if (rows <= 0 || c <= 0 || n <= 0 || sms <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch<float>(x, e, out, rows, c, n, k, alpha, beta, coef, s);
+      return dispatch<float>(x, e, out, rows, c, n, k, alpha, beta, coef,
+                             sms, s);
     case 1:
       return dispatch<__nv_bfloat16>(x, e, out, rows, c, n, k, alpha, beta,
-                                     coef, s);
+                                     coef, sms, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -18,22 +18,31 @@
 // Bound: memory.  The op reads x once and writes y once
 // (2 * numel * itemsize bytes) and does about n + 6 flops per element,
 // far below the card's ratio of flops to bytes.  AlexNet's first norm at
-// batch 64, (64*55*55, 96) in bf16, moves 74 MB: 22 us at 3.35 TB/s.
+// batch 128, (128*55*55, 96) in bf16, moves 149 MB: 44.4 us at 3.35 TB/s.
 //
-// Design: one block owns a tile of whole rows, so the channel window
-// never leaves the block and no block waits on another (the TPU's grid
-// split rows the same way, but needed a row count with a multiple-of-8
-// divisor; here the last tile is simply shorter).
-//   1. Stage: the tile is read from device memory once, 16 bytes per
-//      thread per load where rows are 16-byte multiples (VEC elements
-//      a load), several loads in flight per thread; shared memory keeps
-//      both x (input dtype) and its rounded squares (f32).
-//   2. Output: one thread per (row, channel), consecutive threads on
-//      consecutive channels, so shared-memory reads do not conflict and
-//      stores coalesce.  The (row, channel) index advances by a fixed
-//      step, with no division in the loop.
+// Design, vector path (C a multiple of VEC = 16 / sizeof(T), x and y
+// 16-byte aligned, n <= 5; every AlexNet layer): no shared memory and no
+// barrier.  Each lane owns one 16-byte vector of VEC consecutive channels
+// (8 bf16 or 4 f32), loaded and stored with one 16-byte access.  It
+// squares its own channels once; the window's halo (2 each side) comes
+// from the neighbouring lanes by warp shuffles, zeroed where the
+// neighbour lies in another row.  A warp loads 32 consecutive vectors and
+// stores the middle 30, so lanes 0 and 31 only feed the halo and no row
+// ever needs a value from another warp, whatever C is (C = 96 in bf16 is
+// 12 vectors a row, rows straddle warps freely).  A grid of at most as
+// many blocks as the card holds at once walks the vectors in a
+// grid-stride loop with two tiles' loads in flight per warp, so occupancy
+// is set by registers and the loads of one step overlap the arithmetic of
+// the other.  The window's bounds are arguments: each sum unrolls over
+// the 5 offsets around a channel, each predicated on the window, so no
+// loop bound depends on the data.
+// Row path (any other config): a row is held by a warp or more threads
+// (row_width: at most 8 channels a thread below C = 2048) and a block
+// holds 256 / width rows, in a grid-stride loop; each row's f32 squares
+// go to shared memory (4 bytes a channel), a barrier, then each thread
+// sums its outputs' clipped taps.
 // The wrapper (veles_tpu_torch/ops/lrn_cuda.py) allocates y, checks
-// shapes and dtypes, and raises on a nonzero return.
+// shapes and dtypes, passes the SM count, and raises on a nonzero return.
 
 #include "lrn_common.cuh"
 
@@ -41,124 +50,150 @@ namespace {
 
 using namespace veles_lrn;
 
-// VEC: elements per 16-byte load (16 / sizeof(T)), or 1 where a row is
-// not a multiple of 16 bytes or a pointer is not 16-byte aligned
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-lrn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, long long rows,
-               int c, int rows_per_block, int lo, int hi, float k,
-               float alpha, float beta) {
-  extern __shared__ float4 smem[];
-  const long long row0 = static_cast<long long>(blockIdx.x) * rows_per_block;
-  const long long left = rows - row0;
-  const int nr = left < rows_per_block ? static_cast<int>(left)
-                                       : rows_per_block;
-  const long long base = row0 * c;
-  const int count = nr * c;
-  // squares first (f32, 16-byte aligned), then x; both tile-sized
-  float* sq = reinterpret_cast<float*>(smem);
-  T* xs = reinterpret_cast<T*>(sq + static_cast<size_t>(rows_per_block) * c);
-
-  if constexpr (VEC > 1) {
-    const uint4* src = reinterpret_cast<const uint4*>(x + base);
-    uint4* xdst = reinterpret_cast<uint4*>(xs);
-    float4* sdst = reinterpret_cast<float4*>(sq);
-    const int nvec = count / VEC;
-#pragma unroll 4
-    for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
-      const uint4 u = src[v];
-      xdst[v] = u;
-      const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int q = 0; q < VEC; q += 4) {
-        sdst[v * (VEC / 4) + q / 4] =
-            make_float4(square(e[q]), square(e[q + 1]), square(e[q + 2]),
-                        square(e[q + 3]));
-      }
-    }
-  } else {
-#pragma unroll 4
-    for (int i = threadIdx.x; i < count; i += blockDim.x) {
-      const T v = x[base + i];
-      xs[i] = v;
-      sq[i] = square(v);
-    }
+__device__ __forceinline__ float power(float den, float beta) {
+  if (beta == 0.75f) {
+    const float rs = rsqrtf(den);
+    return rs * sqrtf(rs);
   }
-  __syncthreads();
+  return powf(den, -beta);
+}
 
-  const int step_r = blockDim.x / c;
-  const int step_c = blockDim.x - step_r * c;
-  int r = threadIdx.x / c;
-  int ch = threadIdx.x - r * c;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    const float* row = sq + r * c;
-    const int j0 = max(ch - lo, 0);
-    const int j1 = min(ch + hi, c - 1);
-    float s = 0.f;
-    for (int j = j0; j <= j1; ++j) s += row[j];
-    const float den = k + alpha * s;
-    float d;
-    if (beta == 0.75f) {
-      const float rs = rsqrtf(den);
-      d = rs * sqrtf(rs);
-    } else {
-      d = powf(den, -beta);
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lrn_fwd_vec(const T* __restrict__ x, T* __restrict__ y, long long nvec,
+            int vpr, int lo, int hi, float k, float alpha, float beta) {
+  constexpr int VEC = kVec<T>;
+  VecSlots at(vpr);
+  while (at.live(nvec)) {
+    uint4 xu[kTilesInFlight];
+#pragma unroll
+    for (int u = 0; u < kTilesInFlight; ++u)
+      xu[u] = load_vec(x, at.v[u], at.v[u] >= 0 && at.v[u] < nvec);
+#pragma unroll
+    for (int u = 0; u < kTilesInFlight; ++u) {
+      float xf[VEC], sq[VEC];
+      unpack(xu[u], xf);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) sq[i] = xf[i] * xf[i];
+      round_to(sq);
+      const Window<VEC> sqw(sq, at.col[u] == 0, at.col[u] == vpr - 1);
+      float yf[VEC];  // den, then y
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) yf[i] = k + alpha * sqw.sum(i, lo, hi);
+      // one branch on beta for the whole vector, not one per element:
+      // the VEC power chains then interleave
+      if (beta == 0.75f) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float rs = rsqrtf(yf[i]);
+          yf[i] = xf[i] * (rs * sqrtf(rs));
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) yf[i] = xf[i] * powf(yf[i], -beta);
+      }
+      if (out_lane() && at.v[u] < nvec)
+        reinterpret_cast<uint4*>(y)[at.v[u]] = pack(yf);
     }
-    y[base + i] = from_f32<T>(to_f32(xs[i]) * d);
-    ch += step_c;
-    r += step_r;
-    if (ch >= c) {
-      ch -= c;
-      ++r;
-    }
+    at.advance(vpr);
   }
 }
 
-template <typename T, int VEC>
-int launch(const void* x, void* y, long long rows, int c, int n, float k,
-           float alpha, float beta, cudaStream_t stream) {
-  const int rpb = tile_rows(rows, c);
-  const size_t smem = static_cast<size_t>(rpb) * c *
-                      (sizeof(float) + sizeof(T));
+// width threads a row, blockDim.x / width rows a block (row_width)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lrn_fwd_rows(const T* __restrict__ x, T* __restrict__ y, long long rows,
+             int c, int width, int lo, int hi, float k, float alpha,
+             float beta) {
+  extern __shared__ float smem[];
+  const int per_block = blockDim.x / width;
+  const int slot = threadIdx.x / width;
+  const int t0 = threadIdx.x % width;
+  float* sq = smem + slot * c;  // this row's f32 squares
+  for (long long r0 = static_cast<long long>(blockIdx.x) * per_block;
+       r0 < rows; r0 += static_cast<long long>(gridDim.x) * per_block) {
+    const long long r = r0 + slot;
+    const bool live = r < rows;
+    const T* xr = x + r * c;
+    T* yr = y + r * c;
+    if (live)
+      for (int i = t0; i < c; i += width) sq[i] = square(xr[i]);
+    __syncthreads();
+    if (live)
+      for (int i = t0; i < c; i += width) {
+        const int j0 = max(i - lo, 0);
+        const int j1 = min(i + hi, c - 1);
+        float s = 0.f;
+        for (int j = j0; j <= j1; ++j) s += sq[j];
+        yr[i] = from_f32<T>(to_f32(xr[i]) * power(k + alpha * s, beta));
+      }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_vec(const void* x, void* y, long long rows, int c, int lo, int hi,
+               float k, float alpha, float beta, int sms,
+               cudaStream_t stream) {
+  const int vpr = c / kVec<T>;
+  const long long nvec = rows * vpr;
+  const long long blocks = vec_grid<lrn_fwd_vec<T>>(nvec, sms);
+  lrn_fwd_vec<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), nvec, vpr, lo, hi, k,
+      alpha, beta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_rows(const void* x, void* y, long long rows, int c, int lo,
+                int hi, float k, float alpha, float beta, int sms,
+                cudaStream_t stream) {
+  const int width = row_width(c);
+  const int per_block = kThreads / width;
+  const size_t smem = static_cast<size_t>(per_block) * c * sizeof(float);
   if (smem > 48 * 1024) {
-    const cudaError_t e = allow_large_smem<lrn_fwd_kernel<T, VEC>>();
+    const cudaError_t e = allow_large_smem<lrn_fwd_rows<T>>();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const long long blocks = (rows + rpb - 1) / rpb;
-  const int lo = n / 2;
-  const int hi = n - 1 - lo;
-  lrn_fwd_kernel<T, VEC><<<static_cast<unsigned>(blocks), kThreads, smem,
-                           stream>>>(static_cast<const T*>(x),
-                                     static_cast<T*>(y), rows, c,
-                                     rpb, lo, hi, k, alpha, beta);
+  const long long groups = (rows + per_block - 1) / per_block;
+  lrn_fwd_rows<T><<<static_cast<unsigned>(row_grid(groups, sms)), kThreads,
+                    smem, stream>>>(static_cast<const T*>(x),
+                                    static_cast<T*>(y), rows, c, width, lo,
+                                    hi, k, alpha, beta);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* x, void* y, long long rows, int c, int n, float k,
-             float alpha, float beta, cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  const bool aligned =
-      c % kVec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  return aligned
-             ? launch<T, kVec>(x, y, rows, c, n, k, alpha, beta, stream)
-             : launch<T, 1>(x, y, rows, c, n, k, alpha, beta, stream);
+             float alpha, float beta, int sms, cudaStream_t stream) {
+  // taps beyond C - 1 on either side are clipped anyway
+  const int lo = std::min(n / 2, c - 1);
+  const int hi = std::min(n - 1 - n / 2, c - 1);
+  const bool vec = c % kVec<T> == 0 && lo <= kHalo &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  return vec ? launch_vec<T>(x, y, rows, c, lo, hi, k, alpha, beta, sms,
+                             stream)
+             : launch_rows<T>(x, y, rows, c, lo, hi, k, alpha, beta, sms,
+                              stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  sms: the device's SM count.  Returns
+// a cudaError_t (0 = launched).
 extern "C" int veles_lrn_fwd(const void* x, void* y, long long rows, int c,
                              int n, float k, float alpha, float beta,
-                             int dtype, void* stream) {
-  if (rows <= 0 || c <= 0 || n <= 0)
+                             int dtype, int sms, void* stream) {
+  if (rows <= 0 || c <= 0 || n <= 0 || sms <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch<float>(x, y, rows, c, n, k, alpha, beta, s);
+      return dispatch<float>(x, y, rows, c, n, k, alpha, beta, sms, s);
     case 1:
-      return dispatch<__nv_bfloat16>(x, y, rows, c, n, k, alpha, beta, s);
+      return dispatch<__nv_bfloat16>(x, y, rows, c, n, k, alpha, beta, sms,
+                                     s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

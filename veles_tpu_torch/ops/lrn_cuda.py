@@ -7,24 +7,30 @@ Source notes.
   ``veles_tpu/ops/lrn_pallas.py:_fwd_kernel`` (``lrn_fwd``), which
   computes ``y = x * (k + alpha * (x*x) @ B) ** -0.75`` over x reshaped
   to (rows, C), B = ``band_matrix(C, n)``.  The op is bound by memory: it
-  must read x once and write y once, 2 * numel * itemsize bytes (74 MB,
-  about 22 us at 3.35 TB/s, for AlexNet's first norm at batch 64 in
-  bf16), and its flops are a few per element.  Design: one block per
-  tile of whole rows, read from device memory once with 16-byte loads
-  into shared memory (x and its f32 squares), then one thread per
-  output summing its exactly-n taps from there; no intermediate touches
-  device memory, and any row count works (the ragged last tile is
-  masked), where the TPU kernel needed a multiple-of-8 divisor.
+  must read x once and write y once, 2 * numel * itemsize bytes (149 MB,
+  about 44 us at 3.35 TB/s, for AlexNet's first norm at batch 128 in
+  bf16), and its flops are a few per element.
 - ``csrc/lrn_bwd.cu`` replaces ``veles_tpu/ops/lrn_pallas.py:_bwd_kernel``
   (``lrn_bwd``): ``err_input = e*d - 2*alpha*beta * x * (t @ B^T)`` with
   ``d = den^-beta``, ``t = e*x*den^-(beta+1)`` rounded to the input
   dtype, den recomputed from x, and B^T the adjoint window.  Also bound
   by memory: x and e read once, the result written once, 3 * numel *
   itemsize bytes (223 MB, 66.6 us at 3.35 TB/s, for the first norm at
-  batch 128 in bf16).  Design: one block per tile of whole rows, x and e
-  staged once with 16-byte loads, a first pass writing e*d and the
-  rounded t to shared memory, a barrier, and a second pass summing t over
-  the adjoint window; nothing but the result touches device memory.
+  batch 128 in bf16), at some 45 instructions an element, which the
+  card's instruction rate only just covers.
+- Both share one design (``csrc/lrn_common.cuh``).  Vector path, taken
+  where C is a multiple of the 16-byte vector (8 bf16, 4 f32), the
+  pointers are 16-byte aligned and n <= 5 (every AlexNet
+  layer): one pass with no shared memory and no barrier; each lane owns
+  one 16-byte vector of channels, loaded and stored whole; the window's
+  halo comes from the neighbouring lanes by warp shuffles (for the
+  backward, a second round carries t's halo for the adjoint window); a
+  warp loads 32 vectors and stores the middle 30, so rows may straddle
+  warps; a grid sized from the SM count walks the vectors with two
+  tiles' loads in flight per warp.  Row path, any other config: a warp
+  or more threads per row and several rows per block, each row's squares
+  (and the backward's t and e*d) in shared memory, which bounds C at
+  :data:`MAX_CHANNELS` (a row of that width takes a whole block).
   Details are in the ``.cu`` files.
 
 - :func:`lrn_fwd` / :func:`lrn_bwd` are the wrappers.  On a CUDA tensor
@@ -70,15 +76,17 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 #: kernel name -> the argument types of its C entry ``veles_<name>``
 KERNELS = {
-    # x, y, rows, C, n, k, alpha, beta, dtype, stream
-    "lrn_fwd": [_P, _P, _LL, _I, _I, _F, _F, _F, _I, _P],
-    # x, e, out, rows, C, n, k, alpha, beta, 2*alpha*beta, dtype, stream
-    "lrn_bwd": [_P, _P, _P, _LL, _I, _I, _F, _F, _F, _F, _I, _P],
+    # x, y, rows, C, n, k, alpha, beta, dtype, SMs, stream
+    "lrn_fwd": [_P, _P, _LL, _I, _I, _F, _F, _F, _I, _I, _P],
+    # x, e, out, rows, C, n, k, alpha, beta, 2*alpha*beta, dtype, SMs,
+    # stream
+    "lrn_bwd": [_P, _P, _P, _LL, _I, _I, _F, _F, _F, _F, _I, _I, _P],
 }
 
-#: the largest C a block's shared memory (227 KiB) admits for both
-#: kernels: the backward keeps 12 bytes an element in f32 (e*d in f32,
-#: x and e), the forward 8 (x and its f32 square)
+#: the largest C a block's shared memory (227 KiB) admits on the row
+#: path of both kernels, where such a row has a block to itself: the
+#: backward keeps a row's f32 squares, its t and its e*d, 12 bytes a
+#: channel, the forward 4 (the vector path has no limit of its own)
 MAX_CHANNELS = 232448 // 12
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -242,6 +250,12 @@ def check_config(c: int, n: int) -> None:
                          f"1..{MAX_CHANNELS}")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The device's SM count, which sizes the vector path's grid."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check_cuda(what: str, *ts: torch.Tensor) -> None:
     x = ts[0]
     if x.device.type != "cuda":
@@ -284,7 +298,8 @@ def lrn_fwd(x: torch.Tensor, n: int, k: float, alpha: float,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.veles_lrn_fwd(x.data_ptr(), y.data_ptr(), rows, c, n,
                                float(k), float(alpha), float(beta),
-                               _DTYPES[x.dtype], stream)
+                               _DTYPES[x.dtype], _sm_count(x.device.index),
+                               stream)
     _launched("lrn_fwd", rc, rows, c, n, x.dtype)
     with _lock:
         lrn_fwd.launches += 1
@@ -315,7 +330,8 @@ def lrn_bwd(x: torch.Tensor, err: torch.Tensor, n: int, k: float,
         rc = lib.veles_lrn_bwd(x.data_ptr(), err.data_ptr(), out.data_ptr(),
                                rows, c, n, float(k), float(alpha),
                                float(beta), float(2.0 * alpha * beta),
-                               _DTYPES[x.dtype], stream)
+                               _DTYPES[x.dtype], _sm_count(x.device.index),
+                               stream)
     _launched("lrn_bwd", rc, rows, c, n, x.dtype)
     with _lock:
         lrn_bwd.launches += 1
