@@ -49,8 +49,33 @@ nothing of JAX and nothing of the JAX package.
    pool (argmax) and ReLU (mask), each choice it would have made
    otherwise a near tie: every param's change agrees within 1e-3
    relative.
-6. Summary: ``serve`` and ``train`` JSON lines, the card line, the
-   ``kernels`` line, then the device line last.
+6. Stream: the training run of phase 4 twice more, resident and with
+   ``root.alexnet.loader.max_resident_bytes=0`` (every superstep
+   assembled on the host and streamed in bf16 through the pinned
+   double buffer), both with cuDNN's deterministic algorithms.  Every
+   minibatch ran both kernels; the loader did not go resident; the
+   streamed bytes are the bf16 samples and int64 labels of every
+   minibatch; the streamed run equals the resident one (see
+   ``same_run``).  Then, per path, train supersteps timed with CUDA
+   events (each right after a synchronised validation firing, so the
+   streamed one includes whatever host assembly the prefetch thread
+   had not finished), the host assembly, staging and H2D ms and bytes
+   per superstep, the assembly's steps timed one by one, and
+   ``save_workflow`` / ``load_workflow`` of the full-width workflow
+   uncompressed and as ``.gz``.
+7. Preempt-resume: a workflow file written to the scratch directory
+   builds ``models/alexnet.py``'s workflow (superstep 4, so that a
+   TRAIN class spans two firings) and, on the supervisor's first
+   attempt only, sends its own process SIGTERM after its second firing,
+   in the middle of TRAIN.  ``python -m veles_tpu_torch --supervise``
+   runs it on the card with a snapshotter: the child must exit 14
+   after a final snapshot, the supervisor must resume it from that
+   snapshot to rc 0, and the run must equal an uninterrupted run of
+   the same file and seed in this process (``same_run``); the resumed
+   child's launch counts must show both kernels on every minibatch it
+   ran.
+8. Summary: ``serve``, ``train``, ``stream`` and ``preempt`` JSON lines,
+   the card line, the ``kernels`` line, then the device line last.
 """
 
 from __future__ import annotations
@@ -58,6 +83,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -751,32 +777,36 @@ class _Capture:
         del self.gd.backward_from_saved
 
 
+ALEXNET_FILE = os.path.join(HERE, "veles_tpu_torch", "models", "alexnet.py")
+SAMPLE_NUMEL = int(np.prod(SAMPLE_SHAPE))
+
+
+def _launches() -> dict:
+    from veles_tpu_torch.ops import lrn_cuda
+    return {"lrn_fwd": lrn_cuda.lrn_fwd.launches,
+            "lrn_bwd": lrn_cuda.lrn_bwd.launches}
+
+
+def _zero_launches() -> None:
+    from veles_tpu_torch.ops import lrn_cuda
+    lrn_cuda.lrn_fwd.launches = lrn_cuda.lrn_bwd.launches = 0
+
+
+def _want_launches(train_mb: int, valid_mb: int) -> dict:
+    """Both norm layers on every minibatch forward, on every train
+    minibatch backward."""
+    return {"lrn_fwd": 2 * (train_mb + valid_mb), "lrn_bwd": 2 * train_mb}
+
+
 def train_phase(card: str) -> dict:
     """Full-width AlexNet, 2 epochs, through the port's entry path."""
     import torch
 
-    from veles_tpu_torch.config import parse_overrides, root
-    from veles_tpu_torch.launcher import Launcher, drive_workflow
     from veles_tpu_torch.loader.base import TRAIN
     from veles_tpu_torch.ops import lrn_cuda
     from veles_tpu_torch.ops.lrn import GDLRNormalizer
 
-    saved_root = dict(root.__dict__)
-    parse_overrides(TRAIN_OVERRIDES)
-    try:
-        launcher = Launcher(backend="cuda", seed=SEED)
-        # the training path's counts: zeroed just before, read just after
-        lrn_cuda.lrn_fwd.launches = lrn_cuda.lrn_bwd.launches = 0
-        t0 = time.perf_counter()
-        drive_workflow(launcher, os.path.join(
-            HERE, "veles_tpu_torch", "models", "alexnet.py"))
-        torch.cuda.synchronize()
-        total_s = time.perf_counter() - t0
-        launches = {"lrn_fwd": lrn_cuda.lrn_fwd.launches,
-                    "lrn_bwd": lrn_cuda.lrn_bwd.launches}
-    finally:
-        root.__dict__.clear()
-        root.__dict__.update(saved_root)
+    launcher, launches, total_s = _drive(TRAIN_OVERRIDES)
     w = launcher.workflow
     ld, fused = w.loader, w.fused
     check(ld.max_minibatch_size == TRAIN_BATCH and
@@ -787,11 +817,9 @@ def train_phase(card: str) -> dict:
     n_norm = sum(isinstance(gd, GDLRNormalizer) for gd in w.gds)
     train_mb = N_EPOCHS * N_TRAIN // TRAIN_BATCH
     valid_mb = N_EPOCHS * -(-N_VALID // TRAIN_BATCH)
-    check(n_norm == 2 and launches == {
-        "lrn_bwd": n_norm * train_mb,
-        "lrn_fwd": n_norm * (train_mb + valid_mb)},
-        f"training path launches {launches} with {n_norm} norm layers, "
-        f"{train_mb} train and {valid_mb} validation minibatches")
+    check(n_norm == 2 and launches == _want_launches(train_mb, valid_mb),
+          f"training path launches {launches} with {n_norm} norm layers, "
+          f"{train_mb} train and {valid_mb} validation minibatches")
     hist = w.decision.history
     check([(r["class"], r["count"]) for r in hist] ==
           [("validation", N_VALID), ("train", N_TRAIN)] * N_EPOCHS,
@@ -1049,7 +1077,360 @@ def card_vs_cpu_phase() -> dict:
             "loss_card": m_card[1], "loss_cpu": m_cpu[1]}
 
 
-# -- phase 6: summary -------------------------------------------------------
+# -- phases 6 and 7: streaming, preemption and resume ---------------------
+
+def same_run(hist_a, params_a, hist_b, params_b, init) -> dict:
+    """Two runs of one configuration on the card.  Bitwise (the history
+    and every param equal) is reported; what is held is the card-vs-CPU
+    phase's rule: the same classes and counts in the history, and every
+    param's change from ``init`` within 1e-3 relative."""
+    rows = [(r["epoch"], r["class"], r["count"]) for r in hist_a]
+    check(rows == [(r["epoch"], r["class"], r["count"]) for r in hist_b],
+          f"different histories: {hist_a} vs {hist_b}")
+    rel = _rel_delta_diff(init, params_a, params_b)
+    worst = max(rel.values())
+    check(worst <= 1e-3, f"a param's change differs by {worst:.3g} "
+          f"(relative, limit 1e-3) between the two runs: {rel}")
+    bitwise = all(np.array_equal(params_a[f][p], params_b[f][p])
+                  for f in params_a for p in params_a[f])
+    return {"history_equal": hist_a == hist_b, "params_bitwise": bitwise,
+            "max_rel_delta_diff": worst}
+
+
+def _initial_params(w) -> dict:
+    """The params the run started from: the ``"weights"`` stream drawn
+    again from SEED, as the launcher's run drew it."""
+    from veles_tpu_torch import prng
+    prng.seed_all(SEED)
+    return {f.name: f.fill_params() for f in w.forwards}
+
+
+def _drive(overrides, backend="cuda", workflow_file=ALEXNET_FILE):
+    """One run through Launcher + drive_workflow with the config cut
+    by ``overrides``; the launch counts zeroed just before, read just
+    after.  Returns (launcher, launches, seconds)."""
+    import torch
+
+    from veles_tpu_torch.config import parse_overrides, root
+    from veles_tpu_torch.launcher import Launcher, drive_workflow
+    saved_root = dict(root.__dict__)
+    parse_overrides(overrides)
+    try:
+        launcher = Launcher(backend=backend, seed=SEED)
+        _zero_launches()
+        t0 = time.perf_counter()
+        drive_workflow(launcher, workflow_file)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launches()
+    finally:
+        root.__dict__.clear()
+        root.__dict__.update(saved_root)
+    return launcher, launches, seconds
+
+
+def _time_train_supersteps(w, n: int) -> list:
+    """Per train firing (loader, lr_adjust, fused step), ``n`` of them,
+    each started right after the validation firing before it has
+    finished on the card: (ms between CUDA events around it, host ms
+    spent staging and queueing its upload, host ms its assembly took).
+    The last two are 0 on the resident path."""
+    import torch
+
+    from veles_tpu_torch.loader.base import TRAIN
+    ld, fused = w.loader, w.fused
+    out = []
+    while len(out) < n:
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        stage_s, assemble_s = fused.stream_transfer_seconds, \
+            ld.assemble_seconds
+        start.record()
+        ld.run()
+        w.lr_adjust.run()
+        fused.run()
+        end.record()
+        torch.cuda.synchronize()
+        if ld.class_ended:
+            fused.take_class_metrics()
+        if ld.minibatch_class == TRAIN:
+            check(ld.superstep_k == SUPERSTEP, f"train k {ld.superstep_k}")
+            out.append((start.elapsed_time(end),
+                        (fused.stream_transfer_seconds - stage_s) * 1e3,
+                        (ld.assemble_seconds - assemble_s) * 1e3))
+    ld.stop()
+    return out
+
+
+def _assembly_breakdown(ld) -> dict:
+    """Host ms of each step of one train superstep's assembly, on the
+    rows of the current epoch's first superstep: the gather as the
+    loader does it (``index_select``) into a new tensor and into one
+    already touched, numpy's ``take`` beside it, the bf16 cast into a new
+    tensor and into a touched one, and the copy into a pinned buffer."""
+    import torch
+
+    from veles_tpu_torch.loader.base import TRAIN
+    idx = ld._order[TRAIN][:SUPERSTEP * TRAIN_BATCH]
+    host, tidx = torch.from_numpy(ld.host_data), torch.from_numpy(idx)
+    out = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        out[name] = (time.perf_counter() - t0) * 1e3
+        return res
+    rows = timed("gather_new", lambda: host.index_select(0, tidx))
+    timed("gather_touched", lambda: torch.index_select(host, 0, tidx,
+                                                       out=rows))
+    timed("numpy_take_new", lambda: np.take(ld.host_data, idx, axis=0))
+    bf = timed("cast_new", lambda: rows.to(torch.bfloat16))
+    timed("cast_touched", lambda: bf.copy_(rows))
+    pinned = torch.empty(bf.shape, dtype=bf.dtype, pin_memory=True)
+    timed("stage_pinned", lambda: pinned.copy_(bf))
+    out["threads"] = torch.get_num_threads()
+    return out
+
+
+def stream_phase(card: str, workdir: str) -> dict:
+    """Full-width AlexNet trained resident and streamed from the host,
+    the same cut data, config and seed."""
+    import torch
+
+    from veles_tpu_torch.snapshotter import load_workflow, save_workflow
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for path, extra in (("resident", []), ("stream", [
+                "root.alexnet.loader.max_resident_bytes=0"])):
+            launcher, launches, seconds = _drive(TRAIN_OVERRIDES + extra)
+            w = launcher.workflow
+            runs[path] = {"w": w, "launches": launches, "drive_s": seconds,
+                          "history": list(w.decision.history),
+                          "params": w.fused.host_params()}
+        ws, wr = runs["stream"]["w"], runs["resident"]["w"]
+        ld, fused = ws.loader, ws.fused
+        check(not ld.device_resident and ld.original_data is None
+              and fused.streaming and ld.stream_dtype == torch.bfloat16
+              and wr.loader.device_resident and not wr.fused.streaming,
+              "the stream phase's runs are not streamed and resident")
+        train_mb = N_EPOCHS * N_TRAIN // TRAIN_BATCH
+        valid_mb = N_EPOCHS * -(-N_VALID // TRAIN_BATCH)
+        for path, run in runs.items():
+            check(run["launches"] == _want_launches(train_mb, valid_mb),
+                  f"{path} run launched {run['launches']} for {train_mb} "
+                  f"train and {valid_mb} validation minibatches")
+        check(ld.assembled_minibatches == train_mb + valid_mb,
+              f"{ld.assembled_minibatches} minibatches streamed")
+        row_bytes = SAMPLE_NUMEL * 2 + 8          # bf16 samples, int64 label
+        want_bytes = (train_mb + valid_mb) * TRAIN_BATCH * row_bytes
+        streamed_bytes = fused.stream_transfer_bytes
+        check(streamed_bytes == want_bytes,
+              f"streamed {streamed_bytes} bytes, want "
+              f"{want_bytes} (bf16 samples and int64 labels)")
+        init = _initial_params(ws)
+        same = same_run(runs["stream"]["history"], runs["stream"]["params"],
+                        runs["resident"]["history"],
+                        runs["resident"]["params"], init)
+        for r in runs["stream"]["history"]:
+            check(np.isfinite(r["loss"]), f"non-finite loss {r}")
+
+        timed = {}
+        for path in ("resident", "stream"):
+            timed[path] = _time_train_supersteps(runs[path]["w"], 3)
+        h2d_ms = fused.last_copy_ms()
+        breakdown = _assembly_breakdown(ld)
+        assemble_ms = float(np.mean([t[2] for t in timed["stream"]]))
+        stage_ms = float(np.mean([t[1] for t in timed["stream"]]))
+        timed = {p: [t[0] for t in ts] for p, ts in timed.items()}
+        del runs["resident"]["w"], wr
+        torch.cuda.empty_cache()
+
+        snap = {}
+        for suffix in (".pickle", ".pickle.gz"):
+            path = os.path.join(workdir, "stream" + suffix)
+            t0 = time.perf_counter()
+            save_workflow(ws, path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = load_workflow(path)
+            load_s = time.perf_counter() - t0
+            check(back.fused.restored and back.fused._acc_carry is None,
+                  f"{suffix}: not a snapshot with params")
+            snap[suffix] = {"bytes": os.path.getsize(path),
+                            "save_s": save_s, "load_s": load_s}
+            os.remove(path)
+            del back
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out = {"epochs": N_EPOCHS, "minibatch": TRAIN_BATCH,
+           "superstep": SUPERSTEP, "launches": runs["stream"]["launches"],
+           "resident_launches": runs["resident"]["launches"],
+           "same_run": same, "history": runs["stream"]["history"],
+           "stream_transfer_bytes": streamed_bytes,
+           "host_assembly_breakdown_ms": breakdown,
+           "streamed_superstep_ms": timed["stream"],
+           "resident_superstep_ms": timed["resident"],
+           "host_assembly_ms_per_superstep": assemble_ms,
+           "stage_and_queue_ms_per_superstep": stage_ms,
+           "h2d_ms_per_superstep": h2d_ms,
+           "h2d_bytes_per_superstep": SUPERSTEP * TRAIN_BATCH * row_bytes,
+           "h2d_gb_s": SUPERSTEP * TRAIN_BATCH * row_bytes / h2d_ms / 1e6,
+           "drive_s": {p: r["drive_s"] for p, r in runs.items()},
+           "snapshot": snap, "card": card}
+    print(f"stream: superstep ms streamed {timed['stream']} resident "
+          f"{timed['resident']}; host assembly {assemble_ms:.1f} ms, "
+          f"stage+queue {stage_ms:.1f} ms, H2D {h2d_ms:.2f} ms for "
+          f"{out['h2d_bytes_per_superstep']} bytes per superstep; assembly "
+          f"steps {breakdown}  [{card}]", flush=True)
+    return out
+
+
+#: the preempt-resume phase's workflow: AlexNet with a superstep of 4, so
+#: that TRAIN spans two firings, and on the supervisor's first attempt a
+#: SIGTERM to its own process after the second firing (inside TRAIN)
+PREEMPT_WORKFLOW = """
+import json
+import os
+import signal
+
+import numpy as np
+import torch
+
+from veles_tpu_torch.loader.base import TRAIN
+from veles_tpu_torch.models import alexnet
+from veles_tpu_torch.ops import lrn_cuda
+from veles_tpu_torch.ops.fused import FusedStepRunner
+
+# deterministic cuDNN: this run is held bitwise against another
+torch.backends.cudnn.deterministic = True
+HERE = os.path.dirname(os.path.abspath(__file__))
+ATTEMPT = os.environ.get("VELES_SUPERVISE_ATTEMPT")
+SUPERSTEP = %(superstep)d
+STOP_AFTER = 2
+
+
+def run(launcher):
+    w = launcher.create_workflow(alexnet.create_workflow)
+    if launcher.snapshot is None:
+        w.superstep = SUPERSTEP
+    launcher.initialize()
+    if ATTEMPT == "0":
+        fire, count = FusedStepRunner.run, [0]
+
+        def preempting(runner):
+            fire(runner)
+            count[0] += 1
+            ld = runner.loader
+            if count[0] == STOP_AFTER:
+                assert ld.minibatch_class == TRAIN and not ld.class_ended
+                os.kill(os.getpid(), signal.SIGTERM)
+        FusedStepRunner.run = preempting
+    lrn_cuda.lrn_fwd.launches = lrn_cuda.lrn_bwd.launches = 0
+    launcher.run()
+    torch.cuda.synchronize()
+    tag = ATTEMPT or "straight"
+    params = w.fused.host_params()
+    np.savez(os.path.join(HERE, f"result_{tag}.npz"),
+             **{f"{f}|{p}": a for f, ps in params.items()
+                for p, a in ps.items()})
+    with open(os.path.join(HERE, f"result_{tag}.json"), "w") as f:
+        json.dump({"history": w.decision.history,
+                   "launches": {"lrn_fwd": lrn_cuda.lrn_fwd.launches,
+                                "lrn_bwd": lrn_cuda.lrn_bwd.launches},
+                   "snapshot": launcher.snapshot,
+                   "snapshot_load_s": launcher.snapshot_load_seconds}, f)
+"""
+PREEMPT_SUPERSTEP = 4
+
+
+def _preempt_result(workdir: str, tag: str):
+    with open(os.path.join(workdir, f"result_{tag}.json")) as f:
+        meta = json.load(f)
+    arrays = np.load(os.path.join(workdir, f"result_{tag}.npz"))
+    params = {}
+    for key in arrays.files:
+        fn, pn = key.split("|")
+        params.setdefault(fn, {})[pn] = arrays[key]
+    return meta, params
+
+
+def preempt_phase(card: str, workdir: str) -> dict:
+    """SIGTERM in the middle of TRAIN, the final snapshot, exit 14, the
+    supervisor's resume to rc 0, against an uninterrupted run."""
+    import torch
+    wf = os.path.join(workdir, "preempt_wf.py")
+    with open(wf, "w") as f:
+        f.write(PREEMPT_WORKFLOW % {"superstep": PREEMPT_SUPERSTEP})
+    snaps = os.path.join(workdir, "preempt_snaps")
+    overrides = TRAIN_OVERRIDES + [
+        "root.alexnet.snapshotter={'directory': %r, 'prefix': 'pr', "
+        "'compression': '', 'keep': 1}" % snaps]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    for key in ("VELES_SUPERVISE_ATTEMPT", "VELES_RESUME_MANIFEST",
+                "VELES_PREEMPT_GRACE"):
+        env.pop(key, None)
+    err_path = os.path.join(workdir, "supervise.stderr")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.run(
+            [sys.executable, "-m", "veles_tpu_torch", "--supervise", "-b",
+             "cuda", "-s", str(SEED), wf] + overrides, cwd=HERE, env=env,
+            stdout=err, stderr=subprocess.STDOUT, timeout=600)
+    supervise_s = time.perf_counter() - t0
+    with open(err_path) as f:
+        log = f.read()
+    check(proc.returncode == 0, f"--supervise rc {proc.returncode}; log "
+          f"tail:\n{log[-3000:]}")
+    check("child exited 14 (preempt)" in log and log.count("restarting")
+          == 1, f"no single preemption restart in the log:\n{log[-3000:]}")
+    m = re.search(r"preempted: final snapshot (\S+) \(([0-9.]+)s\)", log)
+    check(m is not None, f"no final snapshot in the log:\n{log[-3000:]}")
+    final, final_s = m.group(1), float(m.group(2))
+    check(os.path.basename(final).startswith("pr_final_preempt-SIGTERM_pid")
+          and final.endswith(".pickle"), f"final snapshot {final}")
+    check(not os.path.exists(os.path.join(workdir, "result_0.json")),
+          "the first child ran to its end")
+    meta, params = _preempt_result(workdir, "1")
+    check(meta["snapshot"] == final, f"resumed from {meta['snapshot']}, "
+          f"not the final snapshot {final}")
+    # the resumed child: the second train firing of epoch 0, then epoch 1
+    train_mb = N_EPOCHS * N_TRAIN // TRAIN_BATCH - PREEMPT_SUPERSTEP
+    valid_mb = N_EPOCHS * -(-N_VALID // TRAIN_BATCH) - 1
+    check(meta["launches"] == _want_launches(train_mb, valid_mb),
+          f"resumed child launched {meta['launches']} for {train_mb} train "
+          f"and {valid_mb} validation minibatches")
+
+    launcher, launches, straight_s = _drive(overrides[:-1] + [
+        overrides[-1].replace("preempt_snaps", "straight_snaps")],
+        workflow_file=wf)
+    torch.backends.cudnn.deterministic = False
+    smeta, sparams = _preempt_result(workdir, "straight")
+    check(smeta["launches"] == _want_launches(
+        N_EPOCHS * N_TRAIN // TRAIN_BATCH,
+        N_EPOCHS * -(-N_VALID // TRAIN_BATCH)),
+        f"straight run launched {smeta['launches']}")
+    check([(r["class"], r["count"]) for r in smeta["history"]] ==
+          [("validation", N_VALID), ("train", N_TRAIN)] * N_EPOCHS,
+          f"straight history {smeta['history']}")
+    same = same_run(meta["history"], params, smeta["history"], sparams,
+                    _initial_params(launcher.workflow))
+    out = {"supervise_rc": proc.returncode, "supervise_s": supervise_s,
+           "straight_s": straight_s, "final_snapshot_bytes":
+           os.path.getsize(final), "final_snapshot_save_s": final_s,
+           "final_snapshot_load_s": meta["snapshot_load_s"],
+           "resumed_launches": meta["launches"], "same_run": same,
+           "history": meta["history"], "card": card}
+    print(f"preempt: child exit 14 after a final snapshot of "
+          f"{out['final_snapshot_bytes']} bytes in {final_s:.2f}s, resumed "
+          f"(load {meta['snapshot_load_s']:.2f}s) to rc 0; "
+          f"same run: {same}  [{card}]", flush=True)
+    return out
+
+
+# -- phase 8: summary -------------------------------------------------------
 
 def summary_kernel(name: str, replaces: str, rows, launches: dict,
                    card: str) -> dict:
@@ -1139,6 +1520,9 @@ def main() -> int:
         t0 = time.perf_counter()
         train["f32_card_vs_cpu"] = card_vs_cpu_phase()
         train["f32_card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+        # phases 6 and 7: streaming, and preemption with resume
+        stream = stream_phase(card, workdir)
+        preempt = preempt_phase(card, workdir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1148,11 +1532,19 @@ def main() -> int:
     kernels = [
         summary_kernel("lrn_fwd", "veles_tpu/ops/lrn_pallas.py:132", rows,
                        {"train": train["launches"]["lrn_fwd"],
-                        "serve": serve_launches}, card),
+                        "serve": serve_launches,
+                        "stream": stream["launches"]["lrn_fwd"],
+                        "resume": preempt["resumed_launches"]["lrn_fwd"]},
+                       card),
         summary_kernel("lrn_bwd", "veles_tpu/ops/lrn_pallas.py:151", rows,
-                       {"train": train["launches"]["lrn_bwd"]}, card)]
+                       {"train": train["launches"]["lrn_bwd"],
+                        "stream": stream["launches"]["lrn_bwd"],
+                        "resume": preempt["resumed_launches"]["lrn_bwd"]},
+                       card)]
     print("serve " + json.dumps(serve))
     print("train " + json.dumps(train))
+    print("stream " + json.dumps(stream))
+    print("preempt " + json.dumps(preempt))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

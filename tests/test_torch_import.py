@@ -43,8 +43,11 @@ def test_every_port_module_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    want = sum(1 for _ in pkgutil.walk_packages([PKG], "veles_tpu_torch."))
-    assert int(proc.stdout.strip()) == want > 10
+    names = [m.name for m in pkgutil.walk_packages([PKG],
+                                                   "veles_tpu_torch.")]
+    assert int(proc.stdout.strip()) == len(names) > 10
+    assert {"veles_tpu_torch.snapshotter", "veles_tpu_torch.supervisor",
+            "veles_tpu_torch.launcher"} <= set(names)
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -60,6 +63,24 @@ def test_no_jax_or_reference_import_in_source(path):
                 and node.module and _forbidden(node.module):
             bad.append(node.module)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_supervisor_and_snapshot_envelope_import_without_torch():
+    """The supervisor sits beside a training child for the whole run: it
+    must not load torch, and neither may what it probes snapshots with
+    (the CRC envelope, read without unpickling)."""
+    code = (
+        "import sys\n"
+        "for m in ('torch', 'jax', 'jaxlib', 'veles_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from veles_tpu_torch import supervisor, snapshotter\n"
+        "from veles_tpu_torch import __main__\n"
+        "assert not snapshotter.verify_snapshot('no such file')\n"
+        "print(supervisor.EXIT_PREEMPTED)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "14"
 
 
 def test_make_device_auto_raises_without_a_card(monkeypatch):

@@ -1,10 +1,27 @@
-"""The launcher: the device and seed around a workflow, and loading
-workflow modules and config files.
+"""The launcher: the device and seed around a workflow, resume from a
+snapshot, the graceful stop, and loading workflow modules and config
+files.
 
 Counterpart of ``veles_tpu/launcher.py`` (``Launcher``,
 ``drive_workflow``, ``load_workflow_module``, ``apply_config_file``),
-standalone mode only: no snapshots, no data-parallel mesh, no
-master/slave, no profiler.
+standalone mode:
+
+- ``Launcher(snapshot=PATH)``: :meth:`Launcher.create_workflow`
+  resumes the pickled workflow (``load_workflow(PATH, fallback=True)``:
+  a torn file resumes from its newest intact sibling) instead of
+  building a new one.
+- :meth:`Launcher.run` installs SIGTERM/SIGINT handlers (from the main
+  thread only).  A signal asks the workflow to stop before its next
+  firing (``request_stop``) and starts a watchdog; once the loop has
+  stopped, :meth:`Launcher.final_snapshot` writes the workflow into the
+  Snapshotter's lineage, the resume manifest is pointed at it, and the
+  process exits 14 (``PREEMPT_EXIT``), which the supervisor always
+  resumes.  If the stop has not landed within ``$VELES_PREEMPT_GRACE``
+  seconds (25), the watchdog writes the final snapshot itself and
+  exits 14; a second signal exits 14 at once.
+
+Left out: the multihost abort path, master/slave, the data-parallel
+mesh, the profiler and telemetry.
 """
 
 from __future__ import annotations
@@ -12,8 +29,12 @@ from __future__ import annotations
 import importlib.util
 import logging
 import os
+import re
+import signal
 import sys
-from typing import Any
+import threading
+import time
+from typing import Any, Optional
 
 from veles_tpu_torch import prng
 from veles_tpu_torch.backends import make_device
@@ -27,23 +48,139 @@ class Launcher:
     (``make_device``: the card unless ``backend="cpu"``; a missing card
     raises)."""
 
-    def __init__(self, backend: str = "auto", seed: int = 1234) -> None:
+    #: exit code of a graceful stop after a preemption signal
+    PREEMPT_EXIT = 14
+    PREEMPT_GRACE_ENV = "VELES_PREEMPT_GRACE"
+    PREEMPT_GRACE_DEFAULT = 25.0
+
+    def __init__(self, backend: str = "auto", seed: int = 1234,
+                 snapshot: Optional[str] = None) -> None:
         self.backend = backend
+        self.snapshot = snapshot
         prng.seed_all(seed)
         self.device = make_device(backend)
         self.workflow = None
+        #: seconds the resume's load_workflow took, and the last final
+        #: snapshot's save
+        self.snapshot_load_seconds: Optional[float] = None
+        self.final_snapshot_seconds: Optional[float] = None
+        self._preempt_signum: Optional[int] = None
+        self._preempt_done = threading.Event()
         log.info("launcher: backend=%s device=%r", backend, self.device)
 
     def create_workflow(self, factory, **kwargs: Any):
-        """``factory(launcher, **kwargs)`` -> workflow."""
-        self.workflow = factory(self, **kwargs)
+        """``factory(launcher, **kwargs)`` -> workflow, or the workflow
+        resumed from ``snapshot``."""
+        if self.snapshot:
+            from veles_tpu_torch.snapshotter import load_workflow
+            log.info("resuming from %s", self.snapshot)
+            t0 = time.perf_counter()
+            self.workflow = load_workflow(self.snapshot, fallback=True)
+            self.snapshot_load_seconds = time.perf_counter() - t0
+        else:
+            self.workflow = factory(self, **kwargs)
         return self.workflow
 
     def initialize(self) -> None:
         self.workflow.initialize(device=self.device, train=True)
 
     def run(self) -> None:
-        self.workflow.run()
+        uninstall = self._install_preempt_handlers()
+        try:
+            self.workflow.run()
+        finally:
+            uninstall()
+        if self._preempt_signum is not None:
+            self._finish_preempt()   # never returns
+
+    # -- the graceful stop ------------------------------------------------
+
+    def _install_preempt_handlers(self):
+        """SIGTERM/SIGINT -> graceful stop; only the main thread can
+        install them.  Returns the uninstaller."""
+        if threading.current_thread() is not threading.main_thread():
+            return lambda: None
+        prev = {sig: signal.signal(sig, self._on_preempt_signal)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+
+        def uninstall() -> None:
+            for sig, handler in prev.items():
+                signal.signal(sig, handler)
+        return uninstall
+
+    def _on_preempt_signal(self, signum, frame) -> None:
+        # the interrupted main thread may hold any lock (logging's
+        # among them): set flags here, talk from the watchdog thread
+        if self._preempt_signum is not None:
+            os.write(2, b"veles: second preempt signal - hard exit\n")
+            os._exit(self.PREEMPT_EXIT)
+        self._preempt_signum = signum
+        self.workflow.request_stop()
+        threading.Thread(target=self._preempt_watchdog, daemon=True,
+                         name="preempt-watchdog").start()
+
+    def preempt_grace(self) -> float:
+        return float(os.environ.get(self.PREEMPT_GRACE_ENV,
+                                    self.PREEMPT_GRACE_DEFAULT))
+
+    def _signal_name(self) -> str:
+        return signal.Signals(self._preempt_signum).name
+
+    def _preempt_watchdog(self) -> None:
+        grace = self.preempt_grace()
+        name = self._signal_name()
+        log.warning("preemption requested (%s): stopping at the next "
+                    "firing; final snapshot due within %.0fs ($%s)",
+                    name, grace, self.PREEMPT_GRACE_ENV)
+        if self._preempt_done.wait(grace):
+            return
+        # the loop is wedged inside a firing: snapshot from here, bounded
+        log.error("graceful stop missed the %.0fs grace; final snapshot "
+                  "from the watchdog", grace)
+        t = threading.Thread(target=self.final_snapshot,
+                             args=(f"preempt-{name}",), daemon=True)
+        t.start()
+        t.join(timeout=max(10.0, grace))
+        self._exit()
+
+    def _finish_preempt(self) -> None:
+        """The loop stopped between firings: write the final snapshot
+        and exit 14."""
+        path = self.final_snapshot(f"preempt-{self._signal_name()}")
+        self._preempt_done.set()
+        log.warning("preempted: final snapshot %s (%.2fs); exiting %d",
+                    path or "FAILED", self.final_snapshot_seconds or 0.0,
+                    self.PREEMPT_EXIT)
+        self._exit()
+
+    def _exit(self) -> None:
+        logging.shutdown()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(self.PREEMPT_EXIT)
+
+    def final_snapshot(self, reason: str) -> Optional[str]:
+        """Write the workflow into the Snapshotter's lineage
+        (``<prefix>_final_<reason>_pid<pid>`` in its directory, with its
+        compression) and point the resume manifest at it.  Returns the
+        path, or None when it could not be written: the exit must land
+        regardless."""
+        from veles_tpu_torch.snapshotter import (Snapshotter, save_workflow,
+                                                 write_resume_manifest)
+        snap = getattr(self.workflow, "snapshotter", None) or Snapshotter()
+        safe = re.sub(r"[^A-Za-z0-9._-]+", "-", reason)
+        path = os.path.join(
+            snap.directory,
+            f"{snap.prefix}_final_{safe}_pid{os.getpid()}{snap.suffix}")
+        try:
+            t0 = time.perf_counter()
+            save_workflow(self.workflow, path)
+            self.final_snapshot_seconds = time.perf_counter() - t0
+            write_resume_manifest(path, reason=reason)
+        except Exception as e:  # noqa: BLE001 — the exit must land
+            log.exception("final snapshot (%s) failed: %s", reason, e)
+            return None
+        return path
 
 
 def load_workflow_module(path: str):

@@ -1,30 +1,49 @@
 """Loader base: data set splits, epochs, superstep bookkeeping.
 
-Counterpart of ``veles_tpu/loader/base.py:Loader``, resident path only.
-Samples are laid out test | valid | train (TEST=0, VALID=1, TRAIN=2).
-Each epoch the TRAIN order is shuffled through the ``"loader"`` numpy
-stream (bitwise the reference's draws, so minibatch order is the
-reference's), and each firing (:meth:`run`) emits up to ``superstep``
-same-class minibatches as INDICES only: ``superstep_indices`` and
-``superstep_mask`` of shape (k, mb).  The last minibatch of a class is
-padded to the static size with ``np.resize`` (the class's first rows
-again) and its padded rows are masked out.  The gather happens on the
-device, in the fused step.
+Counterpart of ``veles_tpu/loader/base.py:Loader``.  Samples are laid
+out test | valid | train (TEST=0, VALID=1, TRAIN=2).  Each epoch the
+TRAIN order is shuffled through the ``"loader"`` numpy stream (bitwise
+the reference's draws, so minibatch order is the reference's), and each
+firing (:meth:`run`) emits up to ``superstep`` same-class minibatches as
+INDICES: ``superstep_indices`` and ``superstep_mask`` of shape (k, mb).
+The last minibatch of a class is padded to the static size with
+``np.resize`` (the class's first rows again) and its padded rows are
+masked out.
+
+- Resident (``device_resident``): the fused step gathers the rows on
+  the device.
+- Streaming (``device_resident`` False, a data set over the residency
+  budget, ``loader/fullbatch.py``): each firing also assembles its rows
+  on the host (:meth:`assemble_rows`) into ``superstep_data`` /
+  ``superstep_labels``, CPU tensors of shape (k, mb, ...) / (k, mb),
+  the data cast to ``stream_dtype`` (the fused runner sets the compute
+  dtype, so bf16 is what crosses PCIe).  A prefetch thread assembles
+  the NEXT group (:meth:`_next_group`, known once a firing returns)
+  while the device computes this one; a prefetched group whose
+  indices differ from the real one (after a resume) is thrown away.
 
 Flags, plain booleans here (the reference's ``mutable.Bool``):
 ``class_ended`` (the firing ended a class), ``last_minibatch`` (it
 ended TRAIN), ``epoch_ended`` (it ended the epoch; ``epoch_number`` is
 then already the next one).
 
-Not ported: streaming with prefetch, the host ``fill_minibatch`` path,
-quantized ingest, normalization, and the master/slave hooks.
+Snapshots: the epoch order, class cursor, position and epoch number
+ride along; the device, the prefetch thread and the assembled batches
+do not.  ``load_data`` runs again on every ``initialize`` (the port's
+loaders regenerate their data), and a resumed loader keeps its pickled
+order instead of drawing a new shuffle.
+
+Not ported: the host ``fill_minibatch`` path, quantized ingest,
+normalization, and the master/slave hooks.
 """
 
 from __future__ import annotations
 
-from typing import Any, List
+import time
+from typing import Any, List, Optional
 
 import numpy as np
+import torch
 
 from veles_tpu_torch import prng
 
@@ -61,11 +80,42 @@ class Loader:
         self._pos = 0
         self._class_cursor = 0
         self._present_classes: List[int] = []
+        #: False: the fused step consumes host-assembled batches
+        self.device_resident = True
+        #: torch dtype the streamed data is cast to on the host (None:
+        #: the loader's own)
+        self.stream_dtype: Optional[torch.dtype] = None
+        self.superstep_data: Optional[torch.Tensor] = None    # (k, mb, ..)
+        self.superstep_labels: Optional[torch.Tensor] = None  # (k, mb)
+        #: host seconds spent assembling streamed minibatches, and their
+        #: count
+        self.assemble_seconds = 0.0
+        self.assembled_minibatches = 0
+        self._prefetch_pool = None
+        self._prefetch_future = None       # (key, Future)
+
+    #: process-local state a snapshot drops
+    _unpicklable = ("device", "_prefetch_pool", "_prefetch_future",
+                    "superstep_data", "superstep_labels")
+
+    def __getstate__(self) -> dict:
+        d = dict(self.__dict__)
+        for key in self._unpicklable:
+            d[key] = None
+        return d
 
     # -- subclass contract --------------------------------------------
 
     def load_data(self) -> None:
         raise NotImplementedError
+
+    def assemble_rows(self, indices: np.ndarray):
+        """(data, labels) host rows (numpy arrays or CPU tensors) for
+        GLOBAL sample ``indices``: the streaming path's assembly
+        primitive."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has device_resident=False but does "
+            f"not implement assemble_rows()")
 
     # -- helpers -------------------------------------------------------
 
@@ -88,7 +138,11 @@ class Loader:
             raise ValueError(f"{self.name}: load_data produced no samples")
         self._present_classes = [c for c in (TEST, VALID, TRAIN)
                                  if self.class_lengths[c] > 0]
-        self._reset_epoch()
+        # a resumed loader is mid-epoch: a new shuffle would both leave
+        # the straight run's order and consume the stream twice
+        if any(len(self._order[c]) != self.class_lengths[c]
+               for c in (TEST, VALID, TRAIN)):
+            self._reset_epoch()
 
     def _reset_epoch(self) -> None:
         self._class_cursor = 0
@@ -102,32 +156,40 @@ class Loader:
 
     # -- the firing ----------------------------------------------------
 
+    def _next_group(self):
+        """(indices, mask, position after it) of the group the next
+        firing emits: up to ``superstep`` minibatches of the current
+        class, (k, mb) each, the last one padded and masked."""
+        order = self._order[self._present_classes[self._class_cursor]]
+        n = len(order)
+        mb = self.max_minibatch_size
+        pos = self._pos
+        k = max(1, min(self.superstep, -(-(n - pos) // mb)))
+        idxs = np.empty((k, mb), np.int64)
+        masks = np.zeros((k, mb), np.float32)
+        for j in range(k):
+            stop = min(pos + mb, n)
+            raw = order[pos:stop]
+            # pad to the static shape; padded rows are masked out
+            idxs[j] = np.resize(raw, mb)
+            masks[j, :len(raw)] = 1.0
+            pos = stop
+        return idxs, masks, pos
+
     def run(self) -> None:
         self.epoch_ended = False
         self.last_minibatch = False
         self.class_ended = False
 
         klass = self._present_classes[self._class_cursor]
-        order = self._order[klass]
-        n = len(order)
-        mb = self.max_minibatch_size
-        remaining = -(-(n - self._pos) // mb)  # minibatches left
-        k = max(1, min(self.superstep, remaining))
-
-        idxs = np.empty((k, mb), np.int64)
-        masks = np.zeros((k, mb), np.float32)
-        for j in range(k):
-            start = self._pos
-            stop = min(start + mb, n)
-            raw = order[start:stop]
-            # pad to the static shape; padded rows are masked out
-            idxs[j] = np.resize(raw, mb)
-            masks[j, :len(raw)] = 1.0
-            self._pos = stop
+        n = len(self._order[klass])
+        idxs, masks, self._pos = self._next_group()
         self.superstep_indices = idxs
         self.superstep_mask = masks
-        self.superstep_k = k
+        self.superstep_k = len(idxs)
         self.minibatch_class = klass
+        if not self.device_resident:
+            self._fill_superstep_streaming(idxs)
 
         if self._pos >= n:  # class exhausted
             self.class_ended = True
@@ -139,3 +201,63 @@ class Loader:
                 self.epoch_ended = True
                 self.epoch_number += 1
                 self._reset_epoch()
+        # the next group is now fully determined: assemble it while the
+        # device computes this one
+        if not self.device_resident:
+            self._start_prefetch()
+
+    # -- streaming superstep assembly (device_resident False) ----------
+
+    def _assemble_superstep(self, idxs: np.ndarray):
+        """(k, mb) global indices -> ((k, mb, ...) data, (k, mb)
+        labels) CPU tensors, the data cast to ``stream_dtype``, and the
+        seconds it took."""
+        t0 = time.perf_counter()
+        k, mb = idxs.shape
+        data, labels = self.assemble_rows(idxs.reshape(-1))
+        data = torch.as_tensor(data)
+        if self.stream_dtype is not None and data.is_floating_point():
+            # torch's CPU cast rounds to nearest even, as the device's
+            # .to(bfloat16) does in the resident path
+            data = data.to(self.stream_dtype)
+        labels = torch.as_tensor(labels, dtype=torch.int64)
+        return (data.reshape((k, mb) + tuple(data.shape[1:])),
+                labels.reshape(k, mb), time.perf_counter() - t0)
+
+    def _fill_superstep_streaming(self, idxs: np.ndarray) -> None:
+        key = idxs.tobytes()
+        res = None
+        if self._prefetch_future is not None:
+            pkey, fut = self._prefetch_future
+            self._prefetch_future = None
+            if pkey == key:
+                res = fut.result()
+            else:
+                # the peek missed (control flow changed between
+                # firings, as after a resume): assemble afresh
+                fut.cancel()
+        if res is None:
+            res = self._assemble_superstep(idxs)
+        self.superstep_data, self.superstep_labels, dt = res
+        self.assemble_seconds += dt
+        self.assembled_minibatches += len(idxs)
+
+    def _start_prefetch(self) -> None:
+        if self._prefetch_future is not None:
+            return
+        idxs = self._next_group()[0]
+        if self._prefetch_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._prefetch_pool = ThreadPoolExecutor(
+                1, thread_name_prefix=f"{self.name}-prefetch")
+        self._prefetch_future = (
+            idxs.tobytes(),
+            self._prefetch_pool.submit(self._assemble_superstep, idxs))
+
+    def stop(self) -> None:
+        """Shut the prefetch thread down (a later firing starts a new
+        one)."""
+        if self._prefetch_pool is not None:
+            self._prefetch_pool.shutdown(wait=False, cancel_futures=True)
+            self._prefetch_pool = None
+            self._prefetch_future = None

@@ -7,7 +7,8 @@ shift, seed) and generated by ``veles_tpu_torch/datasets.py``, bitwise
 the reference's.  Construction materializes nothing: serving reads only
 :attr:`sample_shape`.  The data is generated in :meth:`load_data`, which
 only the training path's ``initialize`` calls, and then uploaded once
-(``loader/fullbatch.py``).
+or streamed (``loader/fullbatch.py``).  A snapshot carries only the
+generator's arguments: a resumed run generates the same data again.
 """
 
 from __future__ import annotations

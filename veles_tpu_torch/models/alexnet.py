@@ -12,7 +12,10 @@ lr_adjust and loss config.  Train it with
         [config.py ...] [root.alexnet.k=v ...]
 
 on the synthetic stand-in data set (227x227x3, 1000 classes).  The
-prepared-ImageNet loader (``loader.data_dir``) is not ported.
+loader keys ``max_resident_bytes`` (0 streams every superstep from the
+host) and ``on_device`` go to the loader, and ``snapshotter`` (a dict of
+``Snapshotter`` arguments) turns snapshots on.  The prepared-ImageNet
+loader (``loader.data_dir``) is not ported.
 """
 
 from __future__ import annotations
@@ -98,8 +101,6 @@ def create_workflow(launcher, **overrides):
     if lcfg.pop("data_dir", None):
         raise ValueError("loader.data_dir (prepared ImageNet) is not "
                          "ported yet")
-    if cfg.get("snapshotter"):
-        raise ValueError("snapshots are not ported yet")
     w = StandardWorkflow(
         loader_factory=lambda wf: SyntheticClassificationLoader(
             wf, name="loader", **lcfg),
@@ -108,6 +109,7 @@ def create_workflow(launcher, **overrides):
         loss_function="softmax",
         decision_config=cfg["decision"],
         lr_adjust_config=cfg.get("lr_adjust"),
+        snapshotter_config=cfg.get("snapshotter"),
         name="AlexNetWorkflow")
     launcher.workflow = w
     return w

@@ -6,7 +6,8 @@ runner (one host fetch), appends a ``history`` row, tracks the best
 validation error (``improved``), and sets ``complete`` once
 ``max_epochs`` is reached or validation has not improved for
 ``fail_iterations`` epochs.  ``improved`` and ``complete`` are plain
-booleans: the port has no ``mutable.Bool`` graph.
+booleans: the port has no ``mutable.Bool`` graph.  All of it is plain
+state that rides in a snapshot as it is.
 """
 
 from __future__ import annotations

@@ -2,16 +2,31 @@
 
 Counterpart of ``veles_tpu/ops/fused.py``:
 
-- :class:`FusedStepRunner` (resident single-device path): the whole
-  training iteration per minibatch, gather the rows from the
-  device-resident data set, forward in the compute dtype (bf16 on CUDA)
-  against f32 master params, the evaluator's metrics on the f32 output,
-  and on TRAIN the reverse walk of gradient units with the SGD update.
-  One firing runs the loader's superstep of k same-class minibatches;
-  ``[n_err, loss_sum, count]`` accumulate on the device and reach the
-  host once per class end (:meth:`~FusedStepRunner.take_class_metrics`).
-  The reference's ``lax.scan`` is a Python loop here.  Not ported:
-  streaming, mesh and data-sharded placement, the confusion matrix,
+- :class:`FusedStepRunner` (single device): the whole training
+  iteration per minibatch: its rows, forward in the compute dtype (bf16
+  on CUDA) against f32 master params, the evaluator's metrics on the
+  f32 output, and on TRAIN the reverse walk of gradient units with the
+  SGD update.  One firing runs the loader's superstep of k same-class
+  minibatches; ``[n_err, loss_sum, count]`` accumulate on the device
+  and reach the host once per class end
+  (:meth:`~FusedStepRunner.take_class_metrics`).  The reference's
+  ``lax.scan`` is a Python loop here.
+
+  - Resident: the rows are gathered from the device-resident data set.
+  - Streaming (the loader is not device-resident): the loader's
+    host-assembled superstep, already in the compute dtype, is copied
+    up and minibatch j is ``batch[j]`` (:meth:`_upload_superstep`).  On
+    CUDA it goes through one of two pinned staging buffers, allocated
+    once, on a copy stream of its own; the compute stream waits on the
+    copy's event, and a staging buffer is refilled only once the
+    firing that last used it has finished on the device, so at most
+    two supersteps are in flight.  A failed pin or copy raises.  On the
+    CPU the batch is used as it is.
+
+  A snapshot pickles the runner with its params, velocities and partial
+  class metrics as host arrays, its dropout counter and its counters;
+  ``initialize`` rebuilds the chains and re-binds the device.  Not
+  ported: mesh and data-sharded placement, the confusion matrix,
   telemetry.
 - :class:`EnsembleEvalEngine`, the serving half of the reference's
   class.  Every member's params are stacked along a leading member axis
@@ -30,6 +45,7 @@ Counterpart of ``veles_tpu/ops/fused.py``:
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -72,16 +88,70 @@ class FusedStepRunner:
         #: samples dispatched (mask sums), train and eval apart
         self.processed_images = 0.0
         self.processed_eval_images = 0.0
+        #: True when the runner came from a snapshot with its params
+        self.restored = False
+        self.streaming = False
+        #: bytes streamed host -> device (data and labels), and the host
+        #: seconds spent staging and queueing those copies
+        self.stream_transfer_bytes = 0
+        self.stream_transfer_seconds = 0.0
+        self._host_opt: Optional[Dict[str, Dict[str, np.ndarray]]] = None
+        self._acc_carry: Optional[np.ndarray] = None
+        self._stream_state = None
+
+    #: rebuilt by initialize, never pickled
+    _unpicklable = ("device", "_params", "_opt", "_acc", "_ingest",
+                    "_forward", "_backward", "_cast", "_stream_state")
+
+    def _to_host(self, d: dict) -> None:
+        """Write the live device state into ``d`` as host arrays: params,
+        velocities and the partial class metrics (a stop may land in the
+        middle of a class)."""
+        if self._params is not None:
+            d["_host_params"] = self.host_params()
+            d["_host_opt"] = {g: {p: self.device.get(t)
+                                  for p, t in ps.items()}
+                              for g, ps in self._opt.items()}
+        if self._acc is not None:
+            d["_acc_carry"] = self.device.get(self._acc)
+
+    def __getstate__(self) -> dict:
+        d = dict(self.__dict__)
+        self._to_host(d)
+        for key in self._unpicklable:
+            d.pop(key, None)
+        return d
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        for key in self._unpicklable:
+            self.__dict__[key] = None
+        self.restored = self._host_params is not None
 
     def initialize(self, device: Any,
-                   params: Dict[str, Dict[str, np.ndarray]]) -> None:
-        """Bind the device and the initial host params (port layout);
-        they are uploaded at the first firing."""
+                   params: Optional[Dict[str, Dict[str, np.ndarray]]] = None
+                   ) -> None:
+        """Bind the device and the initial host params (port layout),
+        which are uploaded at the first firing.  ``params=None`` keeps
+        what a snapshot restored: params, velocities and the partial
+        class metrics."""
+        if params is not None:
+            self._host_params, self._host_opt = params, None
+            self._acc_carry = None
+        else:
+            self._to_host(self.__dict__)
+            if self._host_params is None:
+                raise ValueError(f"{self.name}: no params to start from")
         self.device = device
         self.compute_dtype = batching.resolve_compute_dtype(
             self.compute_dtype, device)
-        self._host_params = params
-        self._params = self._opt = None
+        self._params = self._opt = self._acc = None
+        self._stream_state = None
+        self.streaming = not getattr(self.loader, "device_resident", True)
+        if self.streaming and getattr(self.loader, "dequant", None) is None:
+            # the forward's first op is this cast: doing it on the host
+            # halves the bytes that cross PCIe in bf16
+            self.loader.stream_dtype = self.compute_dtype
         seed = prng.get(RNG_STREAM).seed
         self._ingest = engine_core.build_ingest(
             getattr(self.loader, "dequant", None))
@@ -92,7 +162,8 @@ class FusedStepRunner:
         self._cast = batching.make_caster(self.compute_dtype)
 
     def _ensure_params(self) -> None:
-        """f32 master params and zero velocities on the device."""
+        """f32 master params on the device, and the velocities: the
+        restored ones, else zeros."""
         if self._params is not None:
             return
         self._params = {fn: {pn: self.device.put(
@@ -100,9 +171,15 @@ class FusedStepRunner:
             for fn, ps in self._host_params.items()}
         self._opt = {}
         for f, gd in zip(self.forwards, self.gds):
-            if gd is not None and gd.gradient_moment:
+            if gd is None or not gd.gradient_moment:
+                continue
+            if self._host_opt is not None:
+                self._opt[gd.name] = {pn: self.device.put(a) for pn, a in
+                                      self._host_opt[gd.name].items()}
+            else:
                 self._opt[gd.name] = {pn: torch.zeros_like(t) for pn, t in
                                       self._params[f.name].items()}
+        self._host_params = self._host_opt = None
 
     def _lr_rows(self, k: int) -> List[List[List[float]]]:
         """This superstep's (k, n_gd, 2) rates, each rounded to f32 as the
@@ -128,10 +205,11 @@ class FusedStepRunner:
         self._ensure_params()
         dev = self.device
         if self._acc is None:
-            self._acc = dev.zeros(3)
-        indices = dev.put(ld.superstep_indices)
+            self._acc = dev.zeros(3) if self._acc_carry is None else \
+                dev.put(self._acc_carry)
+            self._acc_carry = None
         mask = dev.put(ld.superstep_mask)
-        k = indices.shape[0]
+        k = mask.shape[0]
         train = ld.minibatch_class == TRAIN
         images = float(np.sum(ld.superstep_mask))
         if train:
@@ -140,10 +218,17 @@ class FusedStepRunner:
         else:
             self.processed_eval_images += images
             cparams = self._cast(self._params)
-        data, labels = ld.original_data, ld.original_labels
+        if self.streaming:
+            xb, tb = self._upload_superstep(k)
+        else:
+            indices = dev.put(ld.superstep_indices)
+            data, labels = ld.original_data, ld.original_labels
         for j in range(k):
-            x = self._ingest(data.index_select(0, indices[j]))
-            target = labels.index_select(0, indices[j])
+            if self.streaming:
+                x, target = self._ingest(xb[j]), tb[j]
+            else:
+                x = self._ingest(data.index_select(0, indices[j]))
+                target = labels.index_select(0, indices[j])
             if train:
                 cparams = self._cast(self._params)
             out, residuals = self._forward(cparams, x,
@@ -156,13 +241,46 @@ class FusedStepRunner:
             self._acc += torch.stack([m["n_err"], m["loss_sum"],
                                       m["count"]])
         self._rng_counter += k
+        if self.streaming and dev.platform == "cuda":
+            # the staging buffer of this firing is free again once the
+            # device has run everything queued so far
+            self._stream_state.release()
+
+    def _upload_superstep(self, k: int):
+        """The loader's host superstep as device tensors ((k, mb, ...)
+        data, (k, mb) labels)."""
+        ld = self.loader
+        xb, tb = ld.superstep_data, ld.superstep_labels
+        if xb is None or tb is None or len(xb) != k:
+            raise RuntimeError(f"{self.name}: streaming, but the loader "
+                               f"assembled no superstep of {k} minibatches")
+        t0 = time.perf_counter()
+        if self.device.platform == "cuda":
+            if self._stream_state is None:
+                self._stream_state = _StagedUpload(
+                    self.device.device, (ld.superstep,) + tuple(xb.shape[1:]),
+                    xb.dtype, tuple(tb.shape[1:]))
+            xb, tb = self._stream_state.upload(xb, tb)
+        self.stream_transfer_bytes += xb.numel() * xb.element_size() + \
+            tb.numel() * tb.element_size()
+        self.stream_transfer_seconds += time.perf_counter() - t0
+        return xb, tb
+
+    def last_copy_ms(self) -> Optional[float]:
+        """Device ms of the last streamed superstep's host-to-device
+        copy (CUDA only; waits for it)."""
+        st = self._stream_state
+        return None if st is None else st.last_copy_ms()
 
     def take_class_metrics(self) -> Tuple[float, float, float]:
         """(n_err, loss_sum, count) accumulated since the last call: ONE
         small device fetch, then reset."""
         if self._acc is None:
-            return 0.0, 0.0, 0.0
-        acc = self.device.get(self._acc)
+            acc, self._acc_carry = self._acc_carry, None
+            if acc is None:
+                return 0.0, 0.0, 0.0
+        else:
+            acc = self.device.get(self._acc)
         self._acc = None
         return float(acc[0]), float(acc[1]), float(acc[2])
 
@@ -179,6 +297,63 @@ class FusedStepRunner:
         self._params = {fn: {pn: self.device.put(
             np.asarray(params[fn][pn], np.float32)) for pn in ps}
             for fn, ps in self._params.items()}
+
+
+class _StagedUpload:
+    """The CUDA side of the streaming firing: two pinned staging buffers
+    (data and labels each), allocated once, a copy stream, and per
+    buffer the event after which it may be refilled."""
+
+    def __init__(self, device: torch.device, data_shape, data_dtype,
+                 label_shape) -> None:
+        self.device = device
+        k = data_shape[0]
+        self.staging = [(torch.empty(data_shape, dtype=data_dtype,
+                                     pin_memory=True),
+                         torch.empty((k,) + label_shape, dtype=torch.int64,
+                                     pin_memory=True)) for _ in range(2)]
+        self.copy_stream = torch.cuda.Stream(device)
+        self.released: List[Optional[torch.cuda.Event]] = [None, None]
+        self.slot = 0
+        self._copy_events = None
+
+    def upload(self, xb: torch.Tensor, tb: torch.Tensor):
+        i = self.slot
+        if self.released[i] is not None:
+            # the firing that last read this buffer's copy is done
+            self.released[i].synchronize()
+        xs, ts = self.staging[i]
+        k = len(xb)
+        xs, ts = xs[:k], ts[:k]
+        xs.copy_(xb)
+        ts.copy_(tb)
+        compute = torch.cuda.current_stream(self.device)
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self.copy_stream):
+            start.record()
+            xd = xs.to(self.device, non_blocking=True)
+            td = ts.to(self.device, non_blocking=True)
+            done.record()
+        compute.wait_event(done)
+        # allocated on the copy stream, read on the compute stream
+        xd.record_stream(compute)
+        td.record_stream(compute)
+        self._copy_events = (start, done)
+        return xd, td
+
+    def release(self) -> None:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self.released[self.slot] = ev
+        self.slot ^= 1
+
+    def last_copy_ms(self) -> Optional[float]:
+        if self._copy_events is None:
+            return None
+        start, done = self._copy_events
+        done.synchronize()
+        return start.elapsed_time(done)
 
 
 class EnsembleEvalEngine:

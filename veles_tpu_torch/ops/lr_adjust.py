@@ -7,7 +7,9 @@ ABSOLUTE (weights, bias) rates per minibatch of the superstep, so a
 per-iteration schedule stays exact inside a superstep.  With
 ``by="epoch"``, when the superstep crossed the epoch boundary (always on
 its last minibatch: TRAIN is the last class) the loader already counts
-the new epoch, and the first k-1 rows belong to the old one.
+the new epoch, and the first k-1 rows belong to the old one.  A
+snapshot carries the iteration count and the base rates, and rebuilds
+the policy from its name and arguments.
 """
 
 from __future__ import annotations
@@ -79,13 +81,22 @@ class LearningRateAdjust:
                  by: str = "epoch") -> None:
         self.workflow = workflow
         self.name = name
-        self.policy = make_policy(policy_name, **(policy_kwargs or {}))
+        self.policy_name = policy_name
+        self.policy_kwargs = dict(policy_kwargs or {})
+        self.policy = make_policy(policy_name, **self.policy_kwargs)
         self.by = by
         self.loader = None
         self.gds: list = []
         self.fused = None
         self._iteration = 0
         self._base_rates: Optional[list] = None
+
+    def __getstate__(self) -> dict:
+        return dict(self.__dict__, policy=None)   # a closure
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self.policy = make_policy(self.policy_name, **self.policy_kwargs)
 
     def run(self) -> None:
         if self._base_rates is None:

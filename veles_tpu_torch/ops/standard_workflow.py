@@ -6,21 +6,26 @@ dicts ``{"type": ..., "->": {forward kwargs}, "<-": {gd kwargs}}``
 becomes a chain of forward units named ``fwd{i}_{kind}`` (the names key
 the members npz, so they must match the reference's), their gradient
 units ``gd{i}_{kind}``, the softmax evaluator, ``DecisionGD``, the
-optional ``LearningRateAdjust`` and the fused step.
+optional ``LearningRateAdjust``, the fused step and the optional
+``Snapshotter`` (``snapshotter_config``).
 
 - :meth:`initialize` with ``train=False`` (what serving calls) only
   gives every forward its shape from the loader's sample shape: no data
   is generated.  With ``train=True`` (the launcher's call) the loader
-  generates and uploads its data, the forwards draw their initial
-  params from the ``"weights"`` stream in order, and the fused step is
-  bound to the device.
+  generates its data (and uploads it, or streams it), the forwards draw
+  their initial params from the ``"weights"`` stream in order, and the
+  fused step is bound to the device.  A workflow resumed from a
+  snapshot keeps its trained params and draws nothing.
 - :meth:`run` is a plain loop in the order the reference's fused wiring
-  gives (``wire_fused``): loader -> lr_adjust -> fused step -> decision,
-  until ``decision.complete``.
+  gives (``wire_fused``): loader -> lr_adjust -> fused step -> decision
+  -> snapshotter (on a validation improvement), until
+  ``decision.complete``, or until :meth:`request_stop` was called: the
+  loop then stops before the next firing of the loader, where every unit
+  has finished the iteration, so a snapshot taken there resumes exactly.
 
 Not ported: the reference's generic unit graph (``workflow.py``,
 ``units.py``, ``mutable.py``) and its eager per-unit wiring, the MSE
-evaluator, snapshots and plotters.
+evaluator and plotters.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from veles_tpu_torch.ops.evaluator import EvaluatorSoftmax
 from veles_tpu_torch.ops.fused import FusedStepRunner
 from veles_tpu_torch.ops.lr_adjust import LearningRateAdjust
 from veles_tpu_torch.ops.registry import forward_registry, gd_registry
+from veles_tpu_torch.snapshotter import Snapshotter
 
 log = logging.getLogger("veles.workflow")
 
@@ -45,6 +51,7 @@ class StandardWorkflow:
                  loss_function: str = "softmax",
                  decision_config: Optional[Dict[str, Any]] = None,
                  lr_adjust_config: Optional[Dict[str, Any]] = None,
+                 snapshotter_config: Optional[Dict[str, Any]] = None,
                  superstep: int = 8,
                  name: str = "StandardWorkflow") -> None:
         self.workflow = workflow
@@ -60,6 +67,7 @@ class StandardWorkflow:
         self.device = None
         #: seconds the last :meth:`run` took
         self.wall_time = 0.0
+        self.stop_requested = False
         self.forwards: List[Any] = []
         self.gds: List[Any] = []
         for i, cfg in enumerate(self.layers_config):
@@ -91,6 +99,20 @@ class StandardWorkflow:
             self.lr_adjust.loader = self.loader
             self.lr_adjust.gds = self.gds
             self.lr_adjust.fused = self.fused
+        self.snapshotter = None
+        if snapshotter_config is not None:
+            self.snapshotter = Snapshotter(self, name="snapshotter",
+                                           **snapshotter_config)
+            self.snapshotter.decision = self.decision
+
+    def __getstate__(self) -> dict:
+        return dict(self.__dict__, device=None)
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        # a graceful stop's snapshot carries its request: never into
+        # the resumed run
+        self.stop_requested = False
 
     def initialize(self, device: Any = None, batch: int = 1,
                    train: bool = False) -> None:
@@ -107,17 +129,31 @@ class StandardWorkflow:
             shape = f.output_shape
         if train:
             self.evaluator.n_classes = int(shape[-1])
-            params = {f.name: f.fill_params() for f in self.forwards}
+            # a resumed runner carries its trained params: drawing the
+            # "weights" stream again would overwrite them
+            params = None if self.fused.restored else \
+                {f.name: f.fill_params() for f in self.forwards}
             self.fused.initialize(device, params)
+
+    def request_stop(self) -> None:
+        """Stop :meth:`run` before the loader's next firing (a
+        preemption: the launcher snapshots right after)."""
+        self.stop_requested = True
 
     def run(self) -> None:
         t0 = time.perf_counter()
-        while not self.decision.complete:
-            self.loader.run()
-            if self.lr_adjust is not None:
-                self.lr_adjust.run()
-            self.fused.run()
-            self.decision.run()
+        self.stop_requested = False
+        try:
+            while not self.decision.complete and not self.stop_requested:
+                self.loader.run()
+                if self.lr_adjust is not None:
+                    self.lr_adjust.run()
+                self.fused.run()
+                self.decision.run()
+                if self.snapshotter is not None and self.decision.improved:
+                    self.snapshotter.run()
+        finally:
+            self.loader.stop()
         self.wall_time = time.perf_counter() - t0
         log.info("wall-clock: %.0f train + %.0f eval images in %.1fs",
                  self.fused.processed_images,

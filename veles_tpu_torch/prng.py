@@ -12,6 +12,12 @@ counterpart: torch cannot reproduce threefry bits.  In its place
 ``(seed, rng_counter, layer)`` triple the reference folds into its keys
 (``fold_in(fold_in(key(seed), rc), i)``), so dropout masks are
 deterministic within the port but differ from the reference's.
+
+:func:`snapshot_state` / :func:`restore_state` carry every named
+stream's numpy state through a snapshot (``snapshotter.py``), so a
+resumed run neither re-draws ``"weights"`` nor re-shuffles
+``"loader"``; the dropout draws resume through the fused runner's
+``rng_counter``, which rides in the snapshot with the runner.
 """
 
 from __future__ import annotations
@@ -29,6 +35,16 @@ class RandomStream:
         self.name = name
         self.seed = seed
         self.numpy: np.random.Generator = np.random.default_rng(seed)
+
+    def __getstate__(self) -> dict:
+        return {"name": self.name, "seed": self.seed,
+                "numpy_state": self.numpy.bit_generator.state}
+
+    def __setstate__(self, state: dict) -> None:
+        self.name = state["name"]
+        self.seed = state["seed"]
+        self.numpy = np.random.default_rng(self.seed)
+        self.numpy.bit_generator.state = state["numpy_state"]
 
 
 _streams: Dict[str, RandomStream] = {}
@@ -59,6 +75,19 @@ def get(name: str = "default", seed: Optional[int] = None) -> RandomStream:
             seed = (_default_seed ^ h) % (2**63)
         _streams[name] = RandomStream(name, seed)
     return _streams[name]
+
+
+def snapshot_state() -> Dict[str, dict]:
+    """Every named stream's state (what a snapshot carries)."""
+    return {n: s.__getstate__() for n, s in _streams.items()}
+
+
+def restore_state(state: Dict[str, dict]) -> None:
+    """Put back the streams :func:`snapshot_state` took."""
+    for n, st in state.items():
+        s = RandomStream.__new__(RandomStream)
+        s.__setstate__(st)
+        _streams[n] = s
 
 
 def _splitmix64(v: int) -> int:
