@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Drives the port's two main paths at the full width of AlexNet, serving
-and training, and holds each hand-written kernel against its plain
-PyTorch version.  Every phase is fatal: the script exits nonzero,
-printing no result line, when any check fails, when there is no CUDA
-device, or when it is run without the repository beside it.  It imports
-nothing of JAX and nothing of the JAX package.
+and training (resident, streamed, resumed, and over uint8 pixels through
+the ingest codec), trains the mnist7 and cifar10 models at their
+published sizes from data files, and holds each hand-written kernel
+against its plain PyTorch version.  Every phase is fatal: the script
+exits nonzero, printing no result line, when any check fails, when
+there is no CUDA device, or when it is run without the repository
+beside it.  It imports nothing of JAX and nothing of the JAX package.
 
 1. Device: the card's name and power limit; build both LRN kernels from
    ``veles_tpu_torch/csrc/`` (one ``nvcc`` each, started together),
@@ -74,12 +76,39 @@ nothing of JAX and nothing of the JAX package.
    the same file and seed in this process (``same_run``); the resumed
    child's launch counts must show both kernels on every minibatch it
    ran.
-8. Summary: ``serve``, ``train``, ``stream`` and ``preempt`` JSON lines,
-   the card line, the ``kernels`` line, then the device line last.
+8. Data: the port's generators write the MNIST IDX files (60 000 +
+   10 000 images) and the CIFAR-10 binary batches (50 000 + 10 000) into
+   the scratch directory; its readers read them back equal to the
+   generators' data, and a partial set is refused.  Bytes and seconds.
+9. MNIST7 time-to-99% (BASELINE's secondary workload, as ``bench.py``
+   times it): ``models/mnist7.py`` through the CLI's path with
+   ``root.common.data_dir`` at those files, ``decision.max_epochs=40``,
+   timed from the end of initialize to the first validation class end
+   at most 1% error, capped at MNIST7_CAP_S; epochs, train img/s per
+   epoch, the resident data set's bytes.  Every param and the data set
+   must be on the card, and validation error must fall.
+10. CIFAR-10: ``models/cifar10.py`` at 50 000 + 10 000 images from the
+   binary batches, 2 epochs; img/s, and the ``inv`` policy's rates by
+   iteration checked on the last train superstep.
+11. Quantized: full-width AlexNet over the phase-4 data set rounded to
+   uint8 (``bench.py``'s rule), the loader's ``linear`` normalizer
+   folded into the on-device dequantization, 2 epochs each under
+   deterministic cuDNN: (a) streamed at 1 byte a pixel, (b) resident as
+   uint8, (c) the same bytes with ``quantized_ingest=False`` streamed in
+   bf16.  (a) equals (b) bitwise; (a) against (c) within the
+   reference's bar (validation loss within 5e-3, n_err equal); every
+   run launches both kernels on every minibatch; the wire and the
+   resident set are exactly their bytes.  Superstep, host assembly,
+   staging and H2D times per path.
+12. Summary: ``serve``, ``train``, ``stream``, ``preempt``, ``data``,
+   ``mnist7``, ``cifar10`` and ``quantized`` JSON lines, the total
+   minutes, the card line, the ``kernels`` line, then the device line
+   last.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import os
@@ -1105,18 +1134,24 @@ def _initial_params(w) -> dict:
     return {f.name: f.fill_params() for f in w.forwards}
 
 
-def _drive(overrides, backend="cuda", workflow_file=ALEXNET_FILE):
+def _drive(overrides, backend="cuda", workflow_file=ALEXNET_FILE,
+           before=None):
     """One run through Launcher + drive_workflow with the config cut
     by ``overrides``; the launch counts zeroed just before, read just
-    after.  Returns (launcher, launches, seconds)."""
+    after; ``before(launcher)``, if given, is called first (to wrap the
+    launcher's steps).  Returns (launcher, launches, seconds)."""
     import torch
 
     from veles_tpu_torch.config import parse_overrides, root
     from veles_tpu_torch.launcher import Launcher, drive_workflow
-    saved_root = dict(root.__dict__)
+    # a deep copy: the overrides write into nodes (root.alexnet.loader)
+    # that earlier phases created, and must not leak into later runs
+    saved_root = copy.deepcopy(dict(root.__dict__))
     parse_overrides(overrides)
     try:
         launcher = Launcher(backend=backend, seed=SEED)
+        if before is not None:
+            before(launcher)
         _zero_launches()
         t0 = time.perf_counter()
         drive_workflow(launcher, workflow_file)
@@ -1430,7 +1465,394 @@ def preempt_phase(card: str, workdir: str) -> dict:
     return out
 
 
-# -- phase 8: summary -------------------------------------------------------
+# -- phases 8-11: real data ----------------------------------------------
+
+#: BASELINE's secondary workload (bench.py's rule): MNIST7 at its
+#: published size until validation error <= 1%, at most 40 epochs
+MNIST_SIZES, CIFAR_SIZES = (60000, 10000), (50000, 10000)
+TARGET_ERROR_PCT = 1.0
+MNIST7_MAX_EPOCHS = 40
+#: the wall cap of the time-to-99% run, from the end of initialize
+MNIST7_CAP_S = 240.0
+CIFAR10_EPOCHS = 2
+MODELS_DIR = os.path.join(HERE, "veles_tpu_torch", "models")
+
+
+def _same_file(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def data_phase(card: str, data_dir: str) -> dict:
+    """The port's generators write the MNIST IDX and CIFAR-10 binary
+    files at their published sizes into ``data_dir``; its readers read
+    them back equal to the generators' own data, and neither generator
+    overwrites a partial set."""
+    from veles_tpu_torch import datasets
+    from veles_tpu_torch.config import root
+
+    out = {}
+    sets = (("mnist", datasets.generate_mnist_idx,
+             datasets.try_load_real_mnist, os.path.join(data_dir, "mnist"),
+             MNIST_SIZES, (28, 28, 1), {"seed": 28281}),
+            ("cifar10", datasets.generate_cifar10_batches,
+             datasets.try_load_real_cifar10,
+             os.path.join(data_dir, "cifar10", "cifar-10-batches-bin"),
+             CIFAR_SIZES, (32, 32, 3), {"noise": 0.5, "seed": 32323}))
+    for name, gen, _, base, sizes, _, _ in sets:
+        t0 = time.perf_counter()
+        gen(base, *sizes)
+        write_s = time.perf_counter() - t0
+        files = sorted(os.listdir(base))
+        out[name] = {"files": len(files), "bytes": sum(
+            os.path.getsize(os.path.join(base, f)) for f in files),
+            "write_s": write_s}
+        # one file of a set alone is a partial set: never overwritten
+        part = os.path.join(data_dir, "partial_" + name)
+        os.makedirs(part)
+        shutil.copy(os.path.join(base, files[0]), part)
+        try:
+            gen(part, 10, 10)
+            refused = False
+        except FileExistsError:
+            refused = True
+        check(refused and os.listdir(part) == [files[0]] and _same_file(
+            os.path.join(part, files[0]), os.path.join(base, files[0])),
+            f"{name}: a partial set was overwritten")
+        shutil.rmtree(part)
+    saved = root.__dict__.get("common")
+    root.common.data_dir = data_dir
+    try:
+        for name, _, load, _, sizes, shape, kw in sets:
+            t0 = time.perf_counter()
+            real = load()
+            out[name]["read_s"] = time.perf_counter() - t0
+            check(real is not None, f"{name}: the files were not read")
+            want = datasets.synthetic_classification(
+                sizes[0], sizes[1], shape, n_classes=10, **kw)
+            for (x, y), (wx, wy) in zip(real, want):
+                # the files hold round(x * 255); the readers give /255
+                wx = np.round(wx * 255.0).astype(np.uint8).astype(
+                    np.float32) / np.float32(255.0)
+                check(x.dtype == np.float32 and x.shape == wx.shape
+                      and np.array_equal(x, wx) and np.array_equal(y, wy),
+                      f"{name}: the files read back differ from the "
+                      f"generator's data")
+    finally:
+        if saved is None:
+            root.__dict__.pop("common", None)
+        else:
+            root.common = saved
+    out["card"] = card
+    print(f"data: {out}", flush=True)
+    return out
+
+
+class _ClassTimer:
+    """Wraps a launcher's ``initialize``: from its end, the seconds of
+    each epoch's TRAIN class (between the class ends before and after
+    it; a class end fetches its metrics, so the card has finished), and,
+    with ``target_pct``, the run stopped at the first validation class
+    end whose error is at most ``target_pct`` (``reached_s``) or at the
+    first class end past ``cap_s`` (``capped``), as ``bench.py``'s
+    secondary metric stops it."""
+
+    def __init__(self, target_pct=None, cap_s=None) -> None:
+        self.target_pct, self.cap_s = target_pct, cap_s
+        self.t0 = self._last = None
+        self.train_s = []
+        self.reached_s = None
+        self.capped = False
+
+    def __call__(self, launcher) -> None:
+        init = launcher.initialize
+
+        def initialize():
+            import torch
+            init()
+            torch.cuda.synchronize()
+            self.t0 = self._last = time.perf_counter()
+            self._wrap(launcher.workflow)
+        launcher.initialize = initialize
+
+    def _wrap(self, w) -> None:
+        from veles_tpu_torch.loader.base import TRAIN, VALID
+        run = w.decision.run
+
+        def decision_run():
+            run()
+            ld = w.loader
+            if not ld.class_ended:
+                return
+            now = time.perf_counter()
+            if ld.minibatch_class == TRAIN:
+                self.train_s.append(now - self._last)
+            self._last = now
+            if self.target_pct is None:
+                return
+            if ld.minibatch_class == VALID and \
+                    w.decision.history[-1]["error_pct"] <= self.target_pct:
+                self.reached_s = now - self.t0
+                w.decision.complete = True
+            elif now - self.t0 > self.cap_s:
+                self.capped = True
+                w.decision.complete = True
+        w.decision.run = decision_run
+
+
+def _on_card(w) -> None:
+    bad = [f"{fn}.{pn}" for fn, ps in w.fused._params.items()
+           for pn, t in ps.items() if t.device.type != "cuda"]
+    check(not bad, f"params not on the card: {bad}")
+    ld = w.loader
+    check(ld.device_resident and ld.original_data.device.type == "cuda",
+          "the data set is not resident on the card")
+
+
+def mnist7_phase(card: str, data_dir: str) -> dict:
+    """BASELINE's secondary workload: ``models/mnist7.py`` through the
+    path ``python -m veles_tpu_torch veles_tpu_torch/models/mnist7.py
+    root.common.data_dir=DIR`` takes, on the card, at 60 000 + 10 000
+    images from the IDX files, ``decision.max_epochs=40``; the time from
+    the end of initialize to the first validation class end with error
+    at most 1%, the run capped at MNIST7_CAP_S."""
+    timer = _ClassTimer(TARGET_ERROR_PCT, MNIST7_CAP_S)
+    launcher, launches, drive_s = _drive(
+        [f"root.common.data_dir={data_dir}",
+         f"root.mnist7.decision.max_epochs={MNIST7_MAX_EPOCHS}"],
+        workflow_file=os.path.join(MODELS_DIR, "mnist7.py"), before=timer)
+    w = launcher.workflow
+    ld = w.loader
+    check(ld.class_lengths == [0, MNIST_SIZES[1], MNIST_SIZES[0]],
+          f"mnist7 class lengths {ld.class_lengths}")
+    _on_card(w)
+    valid = [h["error_pct"] for h in w.decision.history
+             if h["class"] == "validation"]
+    check(len(valid) >= 2 and min(valid[1:]) < valid[0],
+          f"mnist7: validation error did not fall: {valid}")
+    check(timer.reached_s is not None or timer.capped
+          or w.decision.complete, "mnist7 stopped early")
+    od = ld.original_data
+    out = {"time_to_99_s": timer.reached_s,
+           "best_valid_error_pct": min(valid),
+           "capped": timer.capped, "cap_s": MNIST7_CAP_S,
+           "epochs": len(timer.train_s), "valid_error_pct": valid,
+           "train_img_s_per_epoch": [MNIST_SIZES[0] / t
+                                     for t in timer.train_s],
+           "resident_data_bytes": od.numel() * od.element_size(),
+           "resident_data_dtype": str(od.dtype),
+           "launches": launches, "drive_s": drive_s,
+           "setup_s": drive_s - w.wall_time, "card": card}
+    print(f"mnist7: time to 99% {timer.reached_s} s in {out['epochs']} "
+          f"epochs (validation error % {valid}); train img/s per epoch "
+          f"{[round(v) for v in out['train_img_s_per_epoch']]}; resident "
+          f"{out['resident_data_bytes']} bytes  [{card}]", flush=True)
+    return out
+
+
+def cifar10_phase(card: str, data_dir: str) -> dict:
+    """``models/cifar10.py`` on the card at 50 000 + 10 000 images from
+    the binary batches, 2 epochs; the ``inv`` policy by iteration must
+    have given every minibatch of the last train superstep its rate."""
+    from veles_tpu_torch.ops.lr_adjust import make_policy
+    timer = _ClassTimer()
+    launcher, launches, drive_s = _drive(
+        [f"root.common.data_dir={data_dir}",
+         f"root.cifar10.decision.max_epochs={CIFAR10_EPOCHS}"],
+        workflow_file=os.path.join(MODELS_DIR, "cifar10.py"), before=timer)
+    w = launcher.workflow
+    ld, la = w.loader, w.lr_adjust
+    check(ld.class_lengths == [0, CIFAR_SIZES[1], CIFAR_SIZES[0]],
+          f"cifar10 class lengths {ld.class_lengths}")
+    _on_card(w)
+    hist = w.decision.history
+    check([(r["class"], r["count"]) for r in hist] ==
+          [("validation", CIFAR_SIZES[1]), ("train", CIFAR_SIZES[0])]
+          * CIFAR10_EPOCHS and all(np.isfinite(r["loss"]) for r in hist),
+          f"cifar10 history {hist}")
+    # minibatch j of the last train superstep (k of them) is iteration
+    # n_mb - k + j, and its rate base * (1 + gamma t)^-power
+    n_mb = CIFAR10_EPOCHS * -(-CIFAR_SIZES[0] // ld.max_minibatch_size)
+    check(la._iteration == n_mb and la.policy_name == "inv"
+          and la.by == "iteration", f"lr_adjust at {la._iteration} of "
+          f"{n_mb} train minibatches, {la.policy_name} by {la.by}")
+    gamma, power = la.policy_kwargs["gamma"], la.policy_kwargs["power"]
+    policy = make_policy("inv", gamma=gamma, power=power)
+    rows = w.fused.lr_rates
+    for j, row in enumerate(rows):
+        t = n_mb - len(rows) + j
+        for (bw, bb), (rw, rb) in zip(la._base_rates, row):
+            want = bw * (1.0 + gamma * t) ** -power
+            check(rw == policy(bw, t) == want and rb == policy(bb, t),
+                  f"rate {rw} at iteration {t}, want {want}")
+    od = ld.original_data
+    out = {"epochs": CIFAR10_EPOCHS, "history": hist,
+           "train_img_s_per_epoch": [CIFAR_SIZES[0] / t
+                                     for t in timer.train_s],
+           "run_img_s_wall": CIFAR10_EPOCHS * sum(CIFAR_SIZES)
+           / w.wall_time, "inv_last_rate": rows[-1][0][0],
+           "inv_last_iteration": n_mb - 1,
+           "inv_base_rate": la._base_rates[0][0],
+           "resident_data_bytes": od.numel() * od.element_size(),
+           "launches": launches, "drive_s": drive_s,
+           "setup_s": drive_s - w.wall_time, "card": card}
+    print(f"cifar10: train img/s per epoch "
+          f"{[round(v) for v in out['train_img_s_per_epoch']]}; inv rate "
+          f"at iteration {n_mb - 1}: {rows[-1][0][0]:.6g} (base "
+          f"{la._base_rates[0][0]})  [{card}]", flush=True)
+    return out
+
+
+#: the quantized phase's workflow: models/alexnet.py's, with its
+#: synthetic set rounded to bytes as bench.py rounds its quantized set
+QUANT_WORKFLOW = """
+import numpy as np
+
+from veles_tpu_torch.loader.synthetic import SyntheticClassificationLoader
+from veles_tpu_torch.models import alexnet
+
+
+class ByteLoader(SyntheticClassificationLoader):
+    def load_data(self):
+        super().load_data()
+        self.host_data = np.round(np.clip(self.host_data, 0.0, 1.0)
+                                  * 255.0).astype(np.uint8)
+
+
+def create_workflow(launcher, **overrides):
+    saved = alexnet.SyntheticClassificationLoader
+    alexnet.SyntheticClassificationLoader = ByteLoader
+    try:
+        return alexnet.create_workflow(launcher, **overrides)
+    finally:
+        alexnet.SyntheticClassificationLoader = saved
+"""
+QUANT_OVERRIDES = TRAIN_OVERRIDES + [
+    "root.alexnet.loader.normalization_type=linear",
+    "root.alexnet.loader.normalization_parameters={'lo': 0.0, 'hi': 1.0}"]
+#: the reference's bar for quantized against float ingest
+#: (tests/test_ingest_quantized.py): validation loss per class end
+QUANT_LOSS_ATOL = 5e-3
+
+
+def quantized_phase(card: str, workdir: str) -> dict:
+    """Full-width AlexNet over uint8 pixels, 2 epochs each, under
+    deterministic cuDNN: (a) quantized and streamed, (b) quantized and
+    resident, (c) the same bytes with ``quantized_ingest=False``,
+    streamed as a bf16 wire."""
+    import torch
+    wf = os.path.join(workdir, "quant_wf.py")
+    with open(wf, "w") as f:
+        f.write(QUANT_WORKFLOW)
+    stream = ["root.alexnet.loader.max_resident_bytes=0"]
+    paths = (("stream", stream), ("resident", []),
+             ("float", stream + ["root.alexnet.loader.quantized_ingest="
+                                 "False"]))
+    train_mb = N_EPOCHS * N_TRAIN // TRAIN_BATCH
+    valid_mb = N_EPOCHS * -(-N_VALID // TRAIN_BATCH)
+    rows = (train_mb + valid_mb) * TRAIN_BATCH
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for path, extra in paths:
+            launcher, launches, seconds = _drive(QUANT_OVERRIDES + extra,
+                                                 workflow_file=wf)
+            w = launcher.workflow
+            check(launches == _want_launches(train_mb, valid_mb),
+                  f"quantized {path} run launched {launches}")
+            runs[path] = {"w": w, "launches": launches, "drive_s": seconds,
+                          "history": list(w.decision.history),
+                          "params": w.fused.host_params()}
+        ws, wr, wf32 = (runs[p]["w"] for p in ("stream", "resident",
+                                                "float"))
+        check(ws.loader.dequant is not None and not ws.loader.device_resident
+              and ws.fused.streaming and ws.loader.host_data.dtype == np.uint8,
+              "run (a) is not quantized and streamed")
+        check(wr.loader.dequant is not None and wr.loader.device_resident
+              and wr.loader.original_data.dtype == torch.uint8,
+              "run (b) is not quantized and resident")
+        check(wf32.loader.dequant is None and wf32.fused.streaming
+              and wf32.loader.stream_dtype == torch.bfloat16,
+              "run (c) is not a float run streamed in bf16")
+        wire = {p: runs[p]["w"].fused.stream_transfer_bytes
+                for p in ("stream", "float")}
+        want_wire = {"stream": rows * (SAMPLE_NUMEL + 8),
+                     "float": rows * (SAMPLE_NUMEL * 2 + 8)}
+        check(wire == want_wire, f"wire bytes {wire}, want {want_wire}")
+        od = wr.loader.original_data
+        resident_bytes = od.numel() * od.element_size()
+        check(resident_bytes == (N_TRAIN + N_VALID) * SAMPLE_NUMEL,
+              f"resident uint8 set of {resident_bytes} bytes")
+        init = _initial_params(ws)
+        same = same_run(runs["stream"]["history"], runs["stream"]["params"],
+                        runs["resident"]["history"],
+                        runs["resident"]["params"], init)
+        check(same["history_equal"] and same["params_bitwise"],
+              f"streamed and resident quantized runs differ: {same}")
+        vs_float = []
+        for q, f in zip(runs["stream"]["history"], runs["float"]["history"]):
+            check((q["epoch"], q["class"], q["count"]) ==
+                  (f["epoch"], f["class"], f["count"]),
+                  f"quantized vs float histories: {q} vs {f}")
+            vs_float.append({"class": q["class"], "epoch": q["epoch"],
+                             "n_err": [q["n_err"], f["n_err"]],
+                             "loss_diff": abs(q["loss"] - f["loss"])})
+            if q["class"] == "validation":
+                check(q["n_err"] == f["n_err"] and
+                      abs(q["loss"] - f["loss"]) < QUANT_LOSS_ATOL,
+                      f"quantized vs float validation: {q} vs {f}")
+        float_delta = _rel_delta_diff(init, runs["stream"]["params"],
+                                      runs["float"]["params"])
+        timed = {p: _time_train_supersteps(runs[p]["w"], 3)
+                 for p in ("stream", "resident", "float")}
+        h2d_ms = {p: runs[p]["w"].fused.last_copy_ms()
+                  for p in ("stream", "float")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    per_ss = SUPERSTEP * TRAIN_BATCH
+    out = {"epochs": N_EPOCHS, "minibatch": TRAIN_BATCH,
+           "superstep": SUPERSTEP,
+           "launches": {p: r["launches"] for p, r in runs.items()},
+           "wire_bytes": wire, "resident_bytes": resident_bytes,
+           "resident_f32_bytes": resident_bytes * 4,
+           "stream_vs_resident": same, "vs_float": vs_float,
+           "max_rel_delta_diff_vs_float": max(float_delta.values()),
+           "superstep_ms": {p: [t[0] for t in ts]
+                            for p, ts in timed.items()},
+           "host_assembly_ms_per_superstep": {
+               p: float(np.mean([t[2] for t in timed[p]]))
+               for p in ("stream", "float")},
+           "stage_and_queue_ms_per_superstep": {
+               p: float(np.mean([t[1] for t in timed[p]]))
+               for p in ("stream", "float")},
+           "h2d_ms_per_superstep": h2d_ms,
+           "h2d_bytes_per_superstep": {
+               "stream": per_ss * (SAMPLE_NUMEL + 8),
+               "float": per_ss * (SAMPLE_NUMEL * 2 + 8)},
+           "drive_s": {p: r["drive_s"] for p, r in runs.items()},
+           "history": runs["stream"]["history"], "card": card}
+    print(f"quantized: superstep ms {out['superstep_ms']}; host assembly "
+          f"{out['host_assembly_ms_per_superstep']} ms, stage+queue "
+          f"{out['stage_and_queue_ms_per_superstep']} ms, H2D {h2d_ms} ms; "
+          f"wire {wire} bytes; resident uint8 {resident_bytes} bytes  "
+          f"[{card}]", flush=True)
+    del runs, ws, wr, wf32
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 12: summary -------------------------------------------------------
+
+def _data_launches(name: str, mnist7: dict, cifar10: dict,
+                   quantized: dict) -> dict:
+    """A kernel's launches on the real-data phases' paths."""
+    q = quantized["launches"]
+    return {"mnist7": mnist7["launches"][name],
+            "cifar10": cifar10["launches"][name],
+            "quantized_stream": q["stream"][name],
+            "quantized_resident": q["resident"][name],
+            "quantized_float": q["float"][name]}
+
 
 def summary_kernel(name: str, replaces: str, rows, launches: dict,
                    card: str) -> dict:
@@ -1483,6 +1905,7 @@ def main() -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(levelname)s %(name)s: %(message)s")
 
+    t_start = time.perf_counter()
     workdir = os.path.join(HERE, "_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -1523,6 +1946,12 @@ def main() -> int:
         # phases 6 and 7: streaming, and preemption with resume
         stream = stream_phase(card, workdir)
         preempt = preempt_phase(card, workdir)
+        # phases 8-11: real data, the three small models, uint8 ingest
+        data_dir = os.path.join(workdir, "data")
+        data = data_phase(card, data_dir)
+        mnist7 = mnist7_phase(card, data_dir)
+        cifar10 = cifar10_phase(card, data_dir)
+        quantized = quantized_phase(card, workdir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1534,17 +1963,26 @@ def main() -> int:
                        {"train": train["launches"]["lrn_fwd"],
                         "serve": serve_launches,
                         "stream": stream["launches"]["lrn_fwd"],
-                        "resume": preempt["resumed_launches"]["lrn_fwd"]},
+                        "resume": preempt["resumed_launches"]["lrn_fwd"],
+                        **_data_launches("lrn_fwd", mnist7, cifar10,
+                                         quantized)},
                        card),
         summary_kernel("lrn_bwd", "veles_tpu/ops/lrn_pallas.py:151", rows,
                        {"train": train["launches"]["lrn_bwd"],
                         "stream": stream["launches"]["lrn_bwd"],
-                        "resume": preempt["resumed_launches"]["lrn_bwd"]},
+                        "resume": preempt["resumed_launches"]["lrn_bwd"],
+                        **_data_launches("lrn_bwd", mnist7, cifar10,
+                                         quantized)},
                        card)]
     print("serve " + json.dumps(serve))
     print("train " + json.dumps(train))
     print("stream " + json.dumps(stream))
     print("preempt " + json.dumps(preempt))
+    print("data " + json.dumps(data))
+    print("mnist7 " + json.dumps(mnist7))
+    print("cifar10 " + json.dumps(cifar10))
+    print("quantized " + json.dumps(quantized))
+    print(f"total: {(time.perf_counter() - t_start) / 60:.2f} minutes")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

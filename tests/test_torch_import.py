@@ -47,7 +47,12 @@ def test_every_port_module_imports_with_jax_blocked():
                                                    "veles_tpu_torch.")]
     assert int(proc.stdout.strip()) == len(names) > 10
     assert {"veles_tpu_torch.snapshotter", "veles_tpu_torch.supervisor",
-            "veles_tpu_torch.launcher"} <= set(names)
+            "veles_tpu_torch.launcher", "veles_tpu_torch.normalization",
+            "veles_tpu_torch.datasets", "veles_tpu_torch.loader.quantize",
+            "veles_tpu_torch.loader.fullbatch",
+            "veles_tpu_torch.loader.synthetic", "veles_tpu_torch.models.mnist",
+            "veles_tpu_torch.models.mnist7",
+            "veles_tpu_torch.models.cifar10"} <= set(names)
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -63,6 +68,23 @@ def test_no_jax_or_reference_import_in_source(path):
                 and node.module and _forbidden(node.module):
             bad.append(node.module)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_data_files_cli_runs_without_jax(tmp_path):
+    """``python -m veles_tpu_torch.datasets`` writes the files with JAX
+    and the reference blocked."""
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'veles_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "sys.argv = ['datasets', 'make-mnist-idx', sys.argv[1], "
+        "'--n-train', '4', '--n-test', '2']\n"
+        "runpy.run_module('veles_tpu_torch.datasets', run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(os.listdir(tmp_path)) == 4
 
 
 def test_supervisor_and_snapshot_envelope_import_without_torch():

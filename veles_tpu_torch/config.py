@@ -5,7 +5,8 @@ reads: a global ``root`` Config with dot-notation access, auto-vivified
 sub-trees, deep ``update``, and the command line's ``root.x.y=value``
 overrides (:func:`parse_overrides`).  Config files are plain Python
 executed for their side effect on ``root``
-(:func:`launcher.apply_config_file`).
+(:func:`launcher.apply_config_file`).  ``root.common.data_dir`` is where
+``datasets.py`` looks for data files (default ``~/.veles_tpu/data``).
 """
 
 from __future__ import annotations

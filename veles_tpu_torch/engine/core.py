@@ -12,18 +12,30 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from veles_tpu_torch import prng
 from veles_tpu_torch.ops import batching
 
 
-def build_ingest(dequant: Any) -> Callable:
-    """The wire-format prologue: the identity, until quantized loaders
-    are ported."""
-    if dequant is not None:
-        raise NotImplementedError("quantized ingest is not ported")
-    return lambda x: x
+def build_ingest(dequant: Any, device: Any) -> Callable:
+    """The wire-format prologue: the identity for f32 or bf16 batches;
+    for a quantized loader (``dequant``, an ``AffineDequant``) the affine
+    uint8 dequantization ``x.float() * scale + bias`` in f32, the host
+    normalizer's order, with ``scale`` and ``bias`` put on ``device``
+    once.  Per-feature normalizers give arrays of the sample's shape,
+    which broadcast over the (mb, H, W, C) batch.  It runs before the
+    forward's cast to the compute dtype."""
+    if dequant is None:
+        return lambda x: x
+    q_scale = device.put(np.asarray(dequant.scale, np.float32))
+    q_bias = device.put(np.asarray(dequant.bias, np.float32))
+
+    def ingest(x: torch.Tensor) -> torch.Tensor:
+        return x.float() * q_scale + q_bias
+
+    return ingest
 
 
 def build_forward(forwards: List[Any], seed: int,

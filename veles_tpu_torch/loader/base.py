@@ -15,17 +15,23 @@ masked out.
 - Streaming (``device_resident`` False, a data set over the residency
   budget, ``loader/fullbatch.py``): each firing also assembles its rows
   on the host (:meth:`assemble_rows`) into ``superstep_data`` /
-  ``superstep_labels``, CPU tensors of shape (k, mb, ...) / (k, mb),
-  the data cast to ``stream_dtype`` (the fused runner sets the compute
-  dtype, so bf16 is what crosses PCIe).  A prefetch thread assembles
-  the NEXT group (:meth:`_next_group`, known once a firing returns)
-  while the device computes this one; a prefetched group whose
-  indices differ from the real one (after a resume) is thrown away.
+  ``superstep_labels``, CPU tensors of shape (k, mb, ...) / (k, mb).
+  Floating data is cast to ``stream_dtype`` (the fused runner sets the
+  compute dtype, so bf16 is what crosses PCIe); uint8 data of the
+  ingest codec (``dequant`` set, ``loader/fullbatch.py``) crosses as
+  it is, 1 byte a pixel, and the fused step dequantizes it.  A
+  prefetch thread assembles the NEXT group (:meth:`_next_group`, known
+  once a firing returns) while the device computes this one; a
+  prefetched group whose indices differ from the real one (after a
+  resume) is thrown away.
 
 Flags, plain booleans here (the reference's ``mutable.Bool``):
 ``class_ended`` (the firing ended a class), ``last_minibatch`` (it
 ended TRAIN), ``epoch_ended`` (it ended the epoch; ``epoch_number`` is
 then already the next one).
+
+``initialize`` calls ``load_data``, then the :meth:`post_load_data`
+hook (normalization and the codec, ``loader/fullbatch.py``).
 
 Snapshots: the epoch order, class cursor, position and epoch number
 ride along; the device, the prefetch thread and the assembled batches
@@ -33,8 +39,8 @@ do not.  ``load_data`` runs again on every ``initialize`` (the port's
 loaders regenerate their data), and a resumed loader keeps its pickled
 order instead of drawing a new shuffle.
 
-Not ported: the host ``fill_minibatch`` path, quantized ingest,
-normalization, and the master/slave hooks.
+Not ported: the host ``fill_minibatch`` path and the master/slave
+hooks.
 """
 
 from __future__ import annotations
@@ -87,6 +93,10 @@ class Loader:
         self.stream_dtype: Optional[torch.dtype] = None
         self.superstep_data: Optional[torch.Tensor] = None    # (k, mb, ..)
         self.superstep_labels: Optional[torch.Tensor] = None  # (k, mb)
+        #: the uint8 codec's ``AffineDequant`` (set by post_load_data):
+        #: the data stays bytes and the fused step dequantizes it on
+        #: the device
+        self.dequant = None
         #: host seconds spent assembling streamed minibatches, and their
         #: count
         self.assemble_seconds = 0.0
@@ -104,10 +114,18 @@ class Loader:
             d[key] = None
         return d
 
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self.__dict__.setdefault("dequant", None)
+
     # -- subclass contract --------------------------------------------
 
     def load_data(self) -> None:
         raise NotImplementedError
+
+    def post_load_data(self) -> None:
+        """Runs right after :meth:`load_data` (normalization and the
+        codec in ``FullBatchLoader``)."""
 
     def assemble_rows(self, indices: np.ndarray):
         """(data, labels) host rows (numpy arrays or CPU tensors) for
@@ -136,6 +154,7 @@ class Loader:
         self.load_data()
         if not any(self.class_lengths):
             raise ValueError(f"{self.name}: load_data produced no samples")
+        self.post_load_data()
         self._present_classes = [c for c in (TEST, VALID, TRAIN)
                                  if self.class_lengths[c] > 0]
         # a resumed loader is mid-epoch: a new shuffle would both leave
@@ -210,8 +229,8 @@ class Loader:
 
     def _assemble_superstep(self, idxs: np.ndarray):
         """(k, mb) global indices -> ((k, mb, ...) data, (k, mb)
-        labels) CPU tensors, the data cast to ``stream_dtype``, and the
-        seconds it took."""
+        labels) CPU tensors, floating data cast to ``stream_dtype``
+        (uint8 stays uint8), and the seconds it took."""
         t0 = time.perf_counter()
         k, mb = idxs.shape
         data, labels = self.assemble_rows(idxs.reshape(-1))

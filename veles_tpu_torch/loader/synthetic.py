@@ -1,14 +1,24 @@
-"""The synthetic classification loader.
+"""The synthetic classification loader, and the MNIST and CIFAR-10
+loaders over real files.
 
-Counterpart of ``veles_tpu/loader/synthetic.py:
-SyntheticClassificationLoader``: the data set is fully determined by the
+Counterpart of ``veles_tpu/loader/synthetic.py``
+(``SyntheticClassificationLoader``, ``_RealFileMixin``, ``MnistLoader``,
+``Cifar10Loader``).  The synthetic data set is fully determined by the
 constructor arguments (``shape``, ``n_classes``, split sizes, noise,
 shift, seed) and generated by ``veles_tpu_torch/datasets.py``, bitwise
-the reference's.  Construction materializes nothing: serving reads only
-:attr:`sample_shape`.  The data is generated in :meth:`load_data`, which
-only the training path's ``initialize`` calls, and then uploaded once
-or streamed (``loader/fullbatch.py``).  A snapshot carries only the
-generator's arguments: a resumed run generates the same data again.
+the reference's.  ``MnistLoader`` and ``Cifar10Loader`` read the real
+files under the data dir when a complete set is there (``n_train`` and
+``n_valid`` cap them), else generate their stand-ins.  The
+normalization and codec keys (``normalization_type``,
+``normalization_parameters``, ``quantized_ingest``) and the residency
+keys pass through to ``FullBatchLoader``.
+
+Construction materializes nothing: serving reads only
+:attr:`sample_shape`.  The data is made in :meth:`load_data`, which only
+the training path's ``initialize`` calls, and then uploaded once or
+streamed (``loader/fullbatch.py``).  A snapshot carries only the
+generator's arguments (and the fitted normalizer): a resumed run reads
+or generates the same data again.
 """
 
 from __future__ import annotations
@@ -55,3 +65,52 @@ class SyntheticClassificationLoader(FullBatchLoader):
             ys.append(split[1])
         self.host_data = np.concatenate(xs, axis=0)
         self.host_labels = np.concatenate(ys, axis=0)
+
+
+class _RealFileMixin:
+    """``load_data`` over a (train, test) split pair from a
+    ``datasets.try_load_real_*`` function: the real files, capped, when
+    they are there; else the synthetic stand-in."""
+
+    def _load_real_or_synthetic(self, real) -> None:
+        if real is None:
+            super().load_data()
+            return
+        # n_train / n_valid cap the real files too: a config asking for
+        # a 100-sample run must not silently train on every row
+        (tx, ty), (vx, vy), _ = datasets.cap_real(
+            real, self.gen_args["n_train"], self.gen_args["n_valid"])
+        self.class_lengths[TEST] = 0
+        self.class_lengths[VALID] = len(vx)
+        self.class_lengths[TRAIN] = len(tx)
+        self.host_data = np.concatenate([vx, tx], axis=0)
+        self.host_labels = np.concatenate([vy, ty], axis=0)
+
+
+class MnistLoader(_RealFileMixin, SyntheticClassificationLoader):
+    """Real MNIST IDX files under ``<data_dir>/mnist`` if there, else the
+    synthetic 28x28x1 stand-in (seed 28281)."""
+
+    def __init__(self, workflow: Any = None, n_train: int = 60000,
+                 n_valid: int = 10000, **kwargs: Any) -> None:
+        super().__init__(workflow, n_train=n_train, n_valid=n_valid,
+                         shape=(28, 28, 1), seed=28281, **kwargs)
+
+    def load_data(self) -> None:
+        self._load_real_or_synthetic(datasets.try_load_real_mnist())
+
+
+class Cifar10Loader(_RealFileMixin, SyntheticClassificationLoader):
+    """Real CIFAR-10 batch files (binary or python-pickle layout) under
+    ``<data_dir>/cifar10`` if there, else the synthetic 32x32x3 stand-in
+    (noise 0.5, seed 32323)."""
+
+    def __init__(self, workflow: Any = None, n_train: int = 50000,
+                 n_valid: int = 10000, **kwargs: Any) -> None:
+        kwargs.setdefault("noise", 0.5)
+        kwargs.setdefault("seed", 32323)
+        super().__init__(workflow, n_train=n_train, n_valid=n_valid,
+                         shape=(32, 32, 3), **kwargs)
+
+    def load_data(self) -> None:
+        self._load_real_or_synthetic(datasets.try_load_real_cifar10())

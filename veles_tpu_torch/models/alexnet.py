@@ -12,10 +12,13 @@ lr_adjust and loss config.  Train it with
         [config.py ...] [root.alexnet.k=v ...]
 
 on the synthetic stand-in data set (227x227x3, 1000 classes).  The
-loader keys ``max_resident_bytes`` (0 streams every superstep from the
-host) and ``on_device`` go to the loader, and ``snapshotter`` (a dict of
-``Snapshotter`` arguments) turns snapshots on.  The prepared-ImageNet
-loader (``loader.data_dir``) is not ported.
+loader keys go to the loader: ``max_resident_bytes`` (0 streams every
+superstep from the host), ``on_device``, and the normalization and
+codec keys ``normalization_type``, ``normalization_parameters`` and
+``quantized_ingest`` (``loader/fullbatch.py``); ``snapshotter`` (a dict
+of ``Snapshotter`` arguments) turns snapshots on.  The prepared-ImageNet
+loader (``loader.data_dir``) is not ported: it decodes JPEG and PNG
+files, and the card's machine has no image decoder (no PIL).
 """
 
 from __future__ import annotations
@@ -100,7 +103,9 @@ def create_workflow(launcher, **overrides):
     lcfg = dict(cfg["loader"])
     if lcfg.pop("data_dir", None):
         raise ValueError("loader.data_dir (prepared ImageNet) is not "
-                         "ported yet")
+                         "ported: its loader decodes JPEG/PNG files with "
+                         "an image decoder (PIL), which the port does not "
+                         "depend on")
     w = StandardWorkflow(
         loader_factory=lambda wf: SyntheticClassificationLoader(
             wf, name="loader", **lcfg),

@@ -14,14 +14,19 @@ Counterpart of ``veles_tpu/ops/fused.py``:
 
   - Resident: the rows are gathered from the device-resident data set.
   - Streaming (the loader is not device-resident): the loader's
-    host-assembled superstep, already in the compute dtype, is copied
-    up and minibatch j is ``batch[j]`` (:meth:`_upload_superstep`).  On
-    CUDA it goes through one of two pinned staging buffers, allocated
-    once, on a copy stream of its own; the compute stream waits on the
-    copy's event, and a staging buffer is refilled only once the
-    firing that last used it has finished on the device, so at most
-    two supersteps are in flight.  A failed pin or copy raises.  On the
+    host-assembled superstep, already in the compute dtype (or uint8
+    under the ingest codec), is copied up and minibatch j is
+    ``batch[j]`` (:meth:`_upload_superstep`).  On CUDA it goes through
+    one of two pinned staging buffers, allocated once, on a copy stream
+    of its own; the compute stream waits on the copy's event, and a
+    staging buffer is refilled only once the firing that last used it
+    has finished on the device, so at most two supersteps are in
+    flight.  A failed pin or copy raises.  On the
     CPU the batch is used as it is.
+  - A quantized loader (``loader.dequant``): the uint8 rows, gathered
+    on the device or streamed, go through ``engine/core.py``'s
+    ``build_ingest`` prologue (``q.float() * scale + bias`` in f32)
+    before the forward's cast to the compute dtype.
 
   A snapshot pickles the runner with its params, velocities and partial
   class metrics as host arrays, its dropout counter and its counters;
@@ -154,7 +159,7 @@ class FusedStepRunner:
             self.loader.stream_dtype = self.compute_dtype
         seed = prng.get(RNG_STREAM).seed
         self._ingest = engine_core.build_ingest(
-            getattr(self.loader, "dequant", None))
+            getattr(self.loader, "dequant", None), device)
         self._forward = engine_core.build_forward(
             self.forwards, seed, self.compute_dtype)
         self._backward = engine_core.build_backward(
