@@ -5,9 +5,10 @@
 
 Drives the port's two main paths at the full width of AlexNet, serving
 and training (resident, streamed, resumed, and over uint8 pixels through
-the ingest codec), trains the mnist7 and cifar10 models at their
-published sizes from data files, and holds each hand-written kernel
-against its plain PyTorch version.  Every phase is fatal: the script
+the ingest codec), trains the mnist7, cifar10 and mnist_ae models and
+the Kohonen SOM at their published sizes (the first three from data
+files), and holds each hand-written kernel against its plain PyTorch
+version.  Every phase is fatal: the script
 exits nonzero, printing no result line, when any check fails, when
 there is no CUDA device, or when it is run without the repository
 beside it.  It imports nothing of JAX and nothing of the JAX package.
@@ -100,10 +101,26 @@ beside it.  It imports nothing of JAX and nothing of the JAX package.
    run launches both kernels on every minibatch; the wire and the
    resident set are exactly their bytes.  Superstep, host assembly,
    staging and H2D times per path.
-12. Summary: ``serve``, ``train``, ``stream``, ``preempt``, ``data``,
-   ``mnist7``, ``cifar10`` and ``quantized`` JSON lines, the total
-   minutes, the card line, the ``kernels`` line, then the device line
-   last.
+12. MnistAE (BASELINE config #5): ``models/mnist_ae.py`` through the
+   CLI's path on the phase-8 MNIST files, 60 000 + 10 000 images, the
+   published 10 epochs, in f32; per epoch the train and validation MSE
+   and the train img/s, the resident bytes of data and targets (the
+   targets share the data's tensor), set-up seconds.  Validation MSE
+   must fall, every class end count its images with n_err 0, and no LRN
+   kernel launch.  Then the same files cut to 1 000 + 200 images, 2
+   epochs, on the card and on the CPU, f32, TF32 off, deterministic
+   cuDNN: every class end's MSE within 1e-3 relative.
+13. Kohonen (BASELINE config #5): ``models/kohonen.py`` at its published
+   DEFAULTS (5 000 samples of 8x8x1, an 8x8 map, 15 epochs, a whole
+   class per firing) on the card, then on the CPU: the quantization
+   error per epoch, the run's wall seconds and SOM steps per second; the
+   last epoch's error under 0.9x the first; card and CPU within 1e-3
+   relative at every epoch, and the samples whose winner on the two
+   final maps differs, counted.
+14. Summary: ``serve``, ``train``, ``stream``, ``preempt``, ``data``,
+   ``mnist7``, ``cifar10``, ``quantized``, ``mnist_ae`` and ``kohonen``
+   JSON lines, the total minutes, the card line, the ``kernels`` line,
+   then the device line last.
 """
 
 from __future__ import annotations
@@ -1841,17 +1858,209 @@ def quantized_phase(card: str, workdir: str) -> dict:
     return out
 
 
-# -- phase 12: summary -------------------------------------------------------
+# -- phases 12 and 13: BASELINE config #5, MnistAE and the Kohonen SOM -----
+
+MNIST_AE_EPOCHS = 10
+#: the card-vs-CPU runs' cut: images from the same files, and epochs
+AE_CUT, AE_CUT_EPOCHS = {"minibatch_size": 100, "n_train": 1000,
+                         "n_valid": 200}, 2
+#: the card-vs-CPU bar: relative agreement of every class end's loss
+CARD_CPU_RTOL = 1e-3
+KOHONEN_SIZES = (5000, 0)
+
+
+def _in_f32(launcher) -> None:
+    """Wraps a launcher's ``create_workflow``: the workflow it makes
+    computes in f32 (the card's default is bf16)."""
+    import torch
+    create = launcher.create_workflow
+
+    def create_workflow(factory, **kwargs):
+        w = create(factory, **kwargs)
+        w.fused.compute_dtype = torch.float32
+        return w
+    launcher.create_workflow = create_workflow
+
+
+def _agree_by_class(card_hist, cpu_hist, what: str) -> float:
+    """The largest relative loss difference over the two histories,
+    which must have the same classes and counts and agree within
+    CARD_CPU_RTOL at every class end."""
+    check([(r["epoch"], r["class"], r["count"], r["n_err"])
+           for r in card_hist] == [(r["epoch"], r["class"], r["count"],
+                                    r["n_err"]) for r in cpu_hist],
+          f"{what}: card and CPU histories differ: {card_hist} vs "
+          f"{cpu_hist}")
+    worst = max(abs(c["loss"] - p["loss"]) / max(abs(p["loss"]), 1e-30)
+                for c, p in zip(card_hist, cpu_hist))
+    check(worst <= CARD_CPU_RTOL, f"{what}: a class end's loss differs by "
+          f"{worst:.3g} (relative, limit {CARD_CPU_RTOL}) between card "
+          f"and CPU: {card_hist} vs {cpu_hist}")
+    return worst
+
+
+def mnist_ae_phase(card: str, data_dir: str) -> dict:
+    """``models/mnist_ae.py`` through the path ``python -m
+    veles_tpu_torch veles_tpu_torch/models/mnist_ae.py
+    root.common.data_dir=DIR`` takes, on the card in f32, at 60 000 +
+    10 000 images from the IDX files, the published 10 epochs; then the
+    same files cut to 1 000 + 200 images for 2 epochs on the card and on
+    the CPU, in f32 with TF32 off and deterministic cuDNN."""
+    import torch
+    wf = os.path.join(MODELS_DIR, "mnist_ae.py")
+    timer = _ClassTimer()
+    launcher, launches, drive_s = _drive(
+        [f"root.common.data_dir={data_dir}",
+         f"root.mnist_ae.decision.max_epochs={MNIST_AE_EPOCHS}"],
+        workflow_file=wf, before=lambda la: (timer(la), _in_f32(la)))
+    w = launcher.workflow
+    ld = w.loader
+    check(w.fused.compute_dtype == torch.float32, "mnist_ae is not in f32")
+    check(ld.class_lengths == [0, MNIST_SIZES[1], MNIST_SIZES[0]],
+          f"mnist_ae class lengths {ld.class_lengths}")
+    _on_card(w)
+    check(not any(launches.values()), f"mnist_ae launched {launches}")
+    hist = w.decision.history
+    # each epoch validates (the params of the epoch before), then trains
+    check([(r["class"], r["count"], r["n_err"]) for r in hist] ==
+          [("validation", MNIST_SIZES[1], 0),
+           ("train", MNIST_SIZES[0], 0)] * MNIST_AE_EPOCHS
+          and all(np.isfinite(r["loss"]) for r in hist),
+          f"mnist_ae history {hist}")
+    valid = [r["loss"] for r in hist if r["class"] == "validation"]
+    train = [r["loss"] for r in hist if r["class"] == "train"]
+    check(valid[-1] < valid[0], f"mnist_ae: validation MSE did not fall: "
+          f"{valid}")
+    od, ot = ld.original_data, ld.original_targets
+    data_bytes = od.numel() * od.element_size()
+    check(data_bytes == sum(MNIST_SIZES) * 784 * 4,
+          f"mnist_ae: resident data of {data_bytes} bytes")
+    target_bytes = 0 if ot is od else ot.numel() * ot.element_size()
+    # card against CPU on the cut set
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    cut = [f"root.common.data_dir={data_dir}",
+           f"root.mnist_ae.loader={AE_CUT!r}",
+           f"root.mnist_ae.decision.max_epochs={AE_CUT_EPOCHS}"]
+    torch.backends.cudnn.deterministic = True
+    try:
+        hists, params = {}, {}
+        for backend in ("cuda", "cpu"):
+            la, _, _ = _drive(cut, backend=backend, workflow_file=wf,
+                              before=_in_f32)
+            check(la.workflow.loader.class_lengths ==
+                  [0, AE_CUT["n_valid"], AE_CUT["n_train"]]
+                  and la.workflow.device.platform == backend,
+                  f"mnist_ae cut run on {backend}")
+            hists[backend] = list(la.workflow.decision.history)
+            params[backend] = la.workflow.fused.host_params()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst = _agree_by_class(hists["cuda"], hists["cpu"], "mnist_ae")
+    # for the record, not held to a limit: how far the trained params are
+    param_diff = max(float(np.abs(a - params["cpu"][f][p]).max())
+                     for f, ps in params["cuda"].items()
+                     for p, a in ps.items())
+    out = {"epochs": len(timer.train_s), "compute_dtype": "float32",
+           "train_mse": train, "valid_mse": valid,
+           "train_img_s_per_epoch": [MNIST_SIZES[0] / t
+                                     for t in timer.train_s],
+           "resident_data_bytes": data_bytes,
+           "resident_target_bytes_extra": target_bytes,
+           "targets_share_data": ot is od,
+           "launches": launches, "drive_s": drive_s,
+           "setup_s": drive_s - w.wall_time,
+           "card_vs_cpu": {"cut": AE_CUT, "epochs": AE_CUT_EPOCHS,
+                           "max_rel_loss_diff": worst,
+                           "max_abs_param_diff": param_diff,
+                           "valid_mse_card": [
+                               r["loss"] for r in hists["cuda"]
+                               if r["class"] == "validation"],
+                           "valid_mse_cpu": [
+                               r["loss"] for r in hists["cpu"]
+                               if r["class"] == "validation"]},
+           "card": card}
+    print(f"mnist_ae: {out['epochs']} epochs, train MSE {train}, "
+          f"validation MSE {valid}; train img/s per epoch "
+          f"{[round(v) for v in out['train_img_s_per_epoch']]}; resident "
+          f"{data_bytes} + {target_bytes} bytes (targets share the data: "
+          f"{ot is od}); set-up {out['setup_s']:.2f} s; card vs CPU at "
+          f"{AE_CUT['n_train']} + {AE_CUT['n_valid']} images, worst "
+          f"{worst:.3g} relative, params {param_diff:.3g} apart  "
+          f"[{card}]", flush=True)
+    return out
+
+
+def _winners(w) -> np.ndarray:
+    """Each sample's winner on the workflow's final map, on its device."""
+    import torch
+    dev = w.trainer.device
+    x = dev.put(w.loader.normalized_host_rows(slice(None)))
+    d2, _ = w.forward.apply_fwd({"weights": w.trainer.weights}, x)
+    return dev.get(torch.argmin(d2, 1))
+
+
+def kohonen_phase(card: str) -> dict:
+    """``models/kohonen.py`` through the path ``python -m
+    veles_tpu_torch veles_tpu_torch/models/kohonen.py`` takes, at its
+    published DEFAULTS, on the card and then on the CPU."""
+    wf = os.path.join(MODELS_DIR, "kohonen.py")
+    runs = {}
+    for backend in ("cuda", "cpu"):
+        launcher, launches, drive_s = _drive([], backend=backend,
+                                             workflow_file=wf)
+        runs[backend] = (launcher.workflow, launches, drive_s)
+    w, launches, drive_s = runs["cuda"]
+    ld, tr = w.loader, w.trainer
+    check(ld.class_lengths == [0, KOHONEN_SIZES[1], KOHONEN_SIZES[0]]
+          and ld.device_resident and ld.original_data.device.type == "cuda"
+          and tr.weights.device.type == "cuda",
+          "the kohonen set or map is not on the card")
+    check(not any(launches.values()), f"kohonen launched {launches}")
+    qe = [r["loss"] for r in w.decision.history]
+    epochs = w.decision.max_epochs
+    check([(r["class"], r["count"]) for r in w.decision.history] ==
+          [("train", KOHONEN_SIZES[0])] * epochs
+          and tr.steps == epochs * KOHONEN_SIZES[0] // 100,
+          f"kohonen ran {tr.steps} steps: {w.decision.history}")
+    check(qe[-1] < 0.9 * qe[0], f"kohonen: quantization error {qe}")
+    cpu = runs["cpu"][0]
+    worst = _agree_by_class(w.decision.history, cpu.decision.history,
+                            "kohonen")
+    differ = int(np.sum(_winners(w) != _winners(cpu)))
+    out = {"epochs": epochs, "som_shape": [tr.forward.sy, tr.forward.sx],
+           "qe_per_epoch": qe, "run_wall_s": w.wall_time,
+           "som_steps": tr.steps, "steps_per_s": tr.steps / w.wall_time,
+           "launches": launches, "drive_s": drive_s,
+           "setup_s": drive_s - w.wall_time,
+           "card_vs_cpu": {"max_rel_qe_diff": worst,
+                           "qe_cpu": [r["loss"]
+                                      for r in cpu.decision.history],
+                           "cpu_run_wall_s": cpu.wall_time,
+                           "final_winners_differ": differ,
+                           "samples": KOHONEN_SIZES[0]},
+           "card": card}
+    print(f"kohonen: quantization error per epoch {qe}; {tr.steps} SOM "
+          f"steps in {w.wall_time:.3f} s ({out['steps_per_s']:.0f}/s); "
+          f"card vs CPU worst {worst:.3g} relative, {differ} of "
+          f"{KOHONEN_SIZES[0]} samples with another winner on the final "
+          f"map  [{card}]", flush=True)
+    return out
+
+
+# -- phase 14: summary -------------------------------------------------------
 
 def _data_launches(name: str, mnist7: dict, cifar10: dict,
-                   quantized: dict) -> dict:
+                   quantized: dict, mnist_ae: dict, kohonen: dict) -> dict:
     """A kernel's launches on the real-data phases' paths."""
     q = quantized["launches"]
     return {"mnist7": mnist7["launches"][name],
             "cifar10": cifar10["launches"][name],
             "quantized_stream": q["stream"][name],
             "quantized_resident": q["resident"][name],
-            "quantized_float": q["float"][name]}
+            "quantized_float": q["float"][name],
+            "mnist_ae": mnist_ae["launches"][name],
+            "kohonen": kohonen["launches"][name]}
 
 
 def summary_kernel(name: str, replaces: str, rows, launches: dict,
@@ -1952,6 +2161,9 @@ def main() -> int:
         mnist7 = mnist7_phase(card, data_dir)
         cifar10 = cifar10_phase(card, data_dir)
         quantized = quantized_phase(card, workdir)
+        # phases 12 and 13: BASELINE config #5
+        mnist_ae = mnist_ae_phase(card, data_dir)
+        kohonen = kohonen_phase(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1965,14 +2177,14 @@ def main() -> int:
                         "stream": stream["launches"]["lrn_fwd"],
                         "resume": preempt["resumed_launches"]["lrn_fwd"],
                         **_data_launches("lrn_fwd", mnist7, cifar10,
-                                         quantized)},
+                                         quantized, mnist_ae, kohonen)},
                        card),
         summary_kernel("lrn_bwd", "veles_tpu/ops/lrn_pallas.py:151", rows,
                        {"train": train["launches"]["lrn_bwd"],
                         "stream": stream["launches"]["lrn_bwd"],
                         "resume": preempt["resumed_launches"]["lrn_bwd"],
                         **_data_launches("lrn_bwd", mnist7, cifar10,
-                                         quantized)},
+                                         quantized, mnist_ae, kohonen)},
                        card)]
     print("serve " + json.dumps(serve))
     print("train " + json.dumps(train))
@@ -1982,6 +2194,8 @@ def main() -> int:
     print("mnist7 " + json.dumps(mnist7))
     print("cifar10 " + json.dumps(cifar10))
     print("quantized " + json.dumps(quantized))
+    print("mnist_ae " + json.dumps(mnist_ae))
+    print("kohonen " + json.dumps(kohonen))
     print(f"total: {(time.perf_counter() - t_start) / 60:.2f} minutes")
     print(card)
     print(json.dumps({"kernels": kernels}))

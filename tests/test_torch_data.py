@@ -413,11 +413,11 @@ def test_array_loader_post_load_data_is_the_references(norm, quant):
         assert port.original_data.dtype == torch.uint8
     if norm != "none":
         _bitwise(ref.normalizer.state(), port.normalizer.state())
-    # without the codec the port holds f32 where the reference may hold
-    # raw bytes (normalization "none"): the forward's first op casts them
-    want_dtype = np.uint8 if port.dequant is not None else np.float32
+    # the port holds what the reference holds: the codec's bytes, a
+    # normalizer's f32, or (codec off, normalization "none") the stored
+    # bytes, which the forward's first op casts
     got = port.device.get(port.original_data)
-    _bitwise(ref.original_data.map_read().astype(want_dtype), got)
+    _bitwise(ref.original_data.map_read(), got)
     _bitwise(ref.original_labels.map_read().astype(np.int64),
              port.device.get(port.original_labels))
     idx = np.array([3, 0, 60, 17])
@@ -460,18 +460,22 @@ def test_quantized_ingest_true_refusals_are_the_references():
 
 def test_a_byte_set_4x_over_the_float_budget_stays_resident():
     """The budget is charged at the stored dtype's bytes: 16 KiB of
-    bytes is resident under a 16 KiB budget; its f32 form (64 KiB)
-    streams."""
+    bytes is resident under a 16 KiB budget, with the codec and with it
+    off; the same values stored as f32 (64 KiB) stream."""
     train, valid = _bytes(192, 64, (8, 8, 1))
     budget = 256 * 64
-    f32, _ = _loaders(train, valid, max_resident_bytes=budget,
+    as_f32 = [(x.astype(np.float32), y) for x, y in (train, valid)]
+    f32, _ = _loaders(*as_f32, max_resident_bytes=budget,
                       quantized_ingest=False)
     assert not f32.device_resident and f32.host_data.nbytes == 4 * budget
-    u8, _ = _loaders(train, valid, max_resident_bytes=budget)
-    assert u8.device_resident and u8.host_data is None
-    assert u8.original_data.dtype == torch.uint8
-    assert u8.original_data.numel() * u8.original_data.element_size() \
-        == budget
+    for quant in ("auto", False):
+        u8, _ = _loaders(train, valid, max_resident_bytes=budget,
+                         quantized_ingest=quant)
+        assert u8.device_resident and u8.host_data is None
+        assert u8.original_data.dtype == torch.uint8
+        assert (u8.dequant is None) == (quant is False)
+        assert u8.original_data.numel() * \
+            u8.original_data.element_size() == budget
 
 
 def test_loader_state_rides_the_pickle_and_old_snapshots_default():

@@ -52,7 +52,11 @@ def test_every_port_module_imports_with_jax_blocked():
             "veles_tpu_torch.loader.fullbatch",
             "veles_tpu_torch.loader.synthetic", "veles_tpu_torch.models.mnist",
             "veles_tpu_torch.models.mnist7",
-            "veles_tpu_torch.models.cifar10"} <= set(names)
+            "veles_tpu_torch.models.cifar10",
+            "veles_tpu_torch.models.mnist_ae",
+            "veles_tpu_torch.models.kohonen", "veles_tpu_torch.ops.deconv",
+            "veles_tpu_torch.ops.depooling", "veles_tpu_torch.ops.kohonen",
+            "veles_tpu_torch.ops.evaluator"} <= set(names)
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -1,13 +1,17 @@
 """Carrying member weights between the reference's layout and the port's.
 
 The reference (and the members npz, which both frameworks read) keeps
-conv weights HWIO ``(ky, kx, C_in, n_kernels)`` and fully-connected
-weights ``(n_in, n_out)`` with ``n_in`` flattened in NHWC order.  The
-port keeps conv weights OIHW ``(n_kernels, C_in, ky, kx)``, the layout
-``torch.nn.functional.conv2d`` takes; everything else (biases, fc
-weights, which the port flattens in the same NHWC order) is unchanged.
-This module is the ONLY place layouts are converted.  A 4-D ``weights``
-array is a conv kernel: no other layer type of the port has one.
+conv weights HWIO ``(ky, kx, C_in, n_kernels)``, deconv weights
+``(ky, kx, n_kernels, C_in)`` and fully-connected weights ``(n_in,
+n_out)`` with ``n_in`` flattened in NHWC order.  The port keeps conv
+weights OIHW ``(n_kernels, C_in, ky, kx)``, the layout
+``torch.nn.functional.conv2d`` takes, and deconv weights ``(C_in,
+n_kernels, ky, kx)``, the layout ``conv_transpose2d`` takes; everything
+else (biases, fc weights, which the port flattens in the same NHWC
+order) is unchanged.  This module is the ONLY place layouts are
+converted.  A 4-D ``weights`` array is a conv or a deconv kernel (no
+other layer type of the port has one), and the same axis permutation
+carries both: ``(3, 2, 0, 1)`` one way, ``(2, 3, 1, 0)`` back.
 """
 
 from __future__ import annotations

@@ -1,11 +1,15 @@
 """The chains every engine loop runs: forward with residuals, backward
-with the SGD update, and the serving ensemble's inference.
+with the SGD update, the serving ensemble's inference, and the Kohonen
+SOM's group of minibatches.
 
 Counterpart of ``veles_tpu/engine/core.py`` (``build_ingest``,
 ``build_forward``, ``build_backward``, ``build_member_forward``,
-``build_mean_probs``).  The reference's ``ExecutionCore`` (donation,
+``build_mean_probs``, ``build_som_step``, ``build_som_epoch``,
+``build_som_eval``).  The reference's ``ExecutionCore`` (donation,
 sharding, the HBM arbiter) is not ported: PyTorch runs eagerly, and the
-port has one device.
+port has one device.  Each ``lax.scan`` of the reference is a Python
+loop over the group's minibatches here, and the SOM builders have no
+row-sharded gather.
 """
 
 from __future__ import annotations
@@ -40,17 +44,17 @@ def build_ingest(dequant: Any, device: Any) -> Callable:
 
 def build_forward(forwards: List[Any], seed: int,
                   compute_dtype: torch.dtype) -> Callable:
-    """One model's forward chain WITH residuals.  In training mode each
+    """One model's forward chain WITH residuals.  Its first op casts the
+    rows to the compute dtype: bf16 in mixed precision, and in f32 any
+    rows that are not f32 (a byte set with the codec off stays bytes up
+    to here, ``loader/fullbatch.py``).  In training mode each
     stochastic layer ``i`` draws from ``prng.torch_generator(seed,
     rng_counter, i)``, the port's counterpart of the reference's
     ``fold_in(fold_in(key(seed), rc), i)``."""
-    mixed = compute_dtype != torch.float32
-
     def forward_pass(params: Dict[str, Dict[str, torch.Tensor]],
                      x: torch.Tensor, rng_counter: int, train: bool):
         residuals = []
-        if mixed:
-            x = x.to(compute_dtype)
+        x = x.to(compute_dtype)
         for i, f in enumerate(forwards):
             rng = prng.torch_generator(seed, rng_counter, i, x.device) \
                 if f.stochastic and train else None
@@ -139,3 +143,72 @@ def build_mean_probs(forwards: List[Any], n_members: int,
         return acc / n_members
 
     return mean_probs
+
+
+def build_som_step(coords: torch.Tensor) -> Callable:
+    """One masked Kohonen minibatch update (``ops/kohonen.py``'s
+    ``som_step_masked``) on the device grid ``coords`` (N, 2): the
+    closure takes ``(weights, x, alpha, sigma, mask)`` with ``x`` still
+    in the loader's sample shape."""
+    from veles_tpu_torch.ops.kohonen import som_step_masked
+
+    def som_update(weights, x, alpha, sigma, mask):
+        return som_step_masked(weights, x.reshape(x.shape[0], -1), coords,
+                               alpha, sigma, mask)
+
+    return som_update
+
+
+def build_som_epoch(coords: torch.Tensor, resident: bool = True
+                    ) -> Callable:
+    """A whole SOM group (one epoch's class at the SOM's grouping): the
+    weights carried from step to step, step j at ``(alphas[j],
+    sigmas[j])``, and the group's quantization error and row count
+    summed in f32 in step order.  Returns ``(weights, [qe, count])``.
+
+    ``resident=True``: ``epoch(weights, alphas, sigmas, dataset,
+    indices, mask)`` gathers the (k, mb) ``indices`` rows from the
+    device-resident ``dataset``; otherwise ``epoch(weights, alphas,
+    sigmas, xb, mask)`` takes the host-assembled (k, mb, ...) batches
+    already on the device."""
+    som_update = build_som_step(coords)
+
+    def run(weights, alphas, sigmas, batches, mask):
+        qe = cnt = torch.zeros((), dtype=torch.float32,
+                               device=weights.device)
+        for j, x in enumerate(batches):
+            weights, _, qe_b, n_b = som_update(weights, x, alphas[j],
+                                               sigmas[j], mask[j])
+            qe, cnt = qe + qe_b, cnt + n_b
+        return weights, torch.stack([qe, cnt])
+
+    if resident:
+        def epoch(weights, alphas, sigmas, dataset, indices, mask):
+            return run(weights, alphas, sigmas,
+                       (dataset.index_select(0, i) for i in indices), mask)
+        return epoch
+    return run
+
+
+def build_som_eval(resident: bool = True) -> Callable:
+    """The evaluation classes' twin of :func:`build_som_epoch`: the
+    weights untouched, the quantization error and row count summed.
+    ``evaluate(weights, dataset, indices, mask)`` resident, else
+    ``evaluate(weights, xb, mask)``; returns ``[qe, count]``."""
+    from veles_tpu_torch.ops.kohonen import som_qe_masked
+
+    def run(weights, batches, mask):
+        qe = cnt = torch.zeros((), dtype=torch.float32,
+                               device=weights.device)
+        for j, x in enumerate(batches):
+            qe_b, n_b = som_qe_masked(weights, x.reshape(x.shape[0], -1),
+                                      mask[j])
+            qe, cnt = qe + qe_b, cnt + n_b
+        return torch.stack([qe, cnt])
+
+    if resident:
+        def evaluate(weights, dataset, indices, mask):
+            return run(weights,
+                       (dataset.index_select(0, i) for i in indices), mask)
+        return evaluate
+    return run

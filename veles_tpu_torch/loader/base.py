@@ -14,12 +14,16 @@ masked out.
   the device.
 - Streaming (``device_resident`` False, a data set over the residency
   budget, ``loader/fullbatch.py``): each firing also assembles its rows
-  on the host (:meth:`assemble_rows`) into ``superstep_data`` /
-  ``superstep_labels``, CPU tensors of shape (k, mb, ...) / (k, mb).
-  Floating data is cast to ``stream_dtype`` (the fused runner sets the
-  compute dtype, so bf16 is what crosses PCIe); uint8 data of the
-  ingest codec (``dequant`` set, ``loader/fullbatch.py``) crosses as
-  it is, 1 byte a pixel, and the fused step dequantizes it.  A
+  on the host (:meth:`assemble_rows`) into ``superstep_data``,
+  ``superstep_labels`` and, for a set with regression targets,
+  ``superstep_targets``: CPU tensors of shape (k, mb, ...), (k, mb) and
+  (k, mb, ...).  Floating data is cast to ``stream_dtype`` (the fused
+  runner sets the compute dtype, so bf16 is what crosses PCIe); any
+  other data (the ingest codec's uint8, ``dequant`` set, or a byte set
+  with the codec off, ``loader/fullbatch.py``) crosses as it is stored,
+  1 byte a pixel for bytes, and the fused step casts or dequantizes it.
+  Targets are always f32, never cast to ``stream_dtype``: the loss
+  reads them in f32.  A
   prefetch thread assembles the NEXT group (:meth:`_next_group`, known
   once a firing returns) while the device computes this one; a
   prefetched group whose indices differ from the real one (after a
@@ -93,6 +97,7 @@ class Loader:
         self.stream_dtype: Optional[torch.dtype] = None
         self.superstep_data: Optional[torch.Tensor] = None    # (k, mb, ..)
         self.superstep_labels: Optional[torch.Tensor] = None  # (k, mb)
+        self.superstep_targets: Optional[torch.Tensor] = None  # (k, mb, ..)
         #: the uint8 codec's ``AffineDequant`` (set by post_load_data):
         #: the data stays bytes and the fused step dequantizes it on
         #: the device
@@ -106,7 +111,8 @@ class Loader:
 
     #: process-local state a snapshot drops
     _unpicklable = ("device", "_prefetch_pool", "_prefetch_future",
-                    "superstep_data", "superstep_labels")
+                    "superstep_data", "superstep_labels",
+                    "superstep_targets")
 
     def __getstate__(self) -> dict:
         d = dict(self.__dict__)
@@ -117,6 +123,7 @@ class Loader:
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)
         self.__dict__.setdefault("dequant", None)
+        self.__dict__.setdefault("superstep_targets", None)
 
     # -- subclass contract --------------------------------------------
 
@@ -128,9 +135,9 @@ class Loader:
         codec in ``FullBatchLoader``)."""
 
     def assemble_rows(self, indices: np.ndarray):
-        """(data, labels) host rows (numpy arrays or CPU tensors) for
-        GLOBAL sample ``indices``: the streaming path's assembly
-        primitive."""
+        """(data, labels, targets) host rows (numpy arrays or CPU
+        tensors; targets None for a set without them) for GLOBAL sample
+        ``indices``: the streaming path's assembly primitive."""
         raise NotImplementedError(
             f"{type(self).__name__} has device_resident=False but does "
             f"not implement assemble_rows()")
@@ -228,20 +235,27 @@ class Loader:
     # -- streaming superstep assembly (device_resident False) ----------
 
     def _assemble_superstep(self, idxs: np.ndarray):
-        """(k, mb) global indices -> ((k, mb, ...) data, (k, mb)
-        labels) CPU tensors, floating data cast to ``stream_dtype``
-        (uint8 stays uint8), and the seconds it took."""
+        """(k, mb) global indices -> ((k, mb, ...) data, (k, mb) labels,
+        (k, mb, ...) f32 targets or None) CPU tensors, floating data cast
+        to ``stream_dtype`` (other data stays as stored), and the seconds
+        it took."""
         t0 = time.perf_counter()
         k, mb = idxs.shape
-        data, labels = self.assemble_rows(idxs.reshape(-1))
+        data, labels, targets = self.assemble_rows(idxs.reshape(-1))
         data = torch.as_tensor(data)
         if self.stream_dtype is not None and data.is_floating_point():
             # torch's CPU cast rounds to nearest even, as the device's
             # .to(bfloat16) does in the resident path
             data = data.to(self.stream_dtype)
-        labels = torch.as_tensor(labels, dtype=torch.int64)
-        return (data.reshape((k, mb) + tuple(data.shape[1:])),
-                labels.reshape(k, mb), time.perf_counter() - t0)
+
+        def shape_back(t):
+            return t.reshape((k, mb) + tuple(t.shape[1:]))
+        labels = shape_back(torch.as_tensor(labels, dtype=torch.int64))
+        if targets is not None:
+            targets = shape_back(torch.as_tensor(targets,
+                                                 dtype=torch.float32))
+        return (shape_back(data), labels, targets,
+                time.perf_counter() - t0)
 
     def _fill_superstep_streaming(self, idxs: np.ndarray) -> None:
         key = idxs.tobytes()
@@ -257,7 +271,8 @@ class Loader:
                 fut.cancel()
         if res is None:
             res = self._assemble_superstep(idxs)
-        self.superstep_data, self.superstep_labels, dt = res
+        (self.superstep_data, self.superstep_labels,
+         self.superstep_targets, dt) = res
         self.assemble_seconds += dt
         self.assembled_minibatches += len(idxs)
 

@@ -18,10 +18,27 @@ the bytes of its stored dtype, against the residency budget
   normalizer into the fused step's dequantization (``dequant``);
   ``True`` also re-encodes any byte-ranged source (integers or integral
   floats in [0, 255]) and raises where the codec cannot apply; ``False``
-  always normalizes to f32 on the host.
-- Within the budget, the samples are uploaded ONCE (``original_data``:
-  uint8 under the codec, else f32) with the labels as int64
-  (``original_labels``, the index type ``index_select`` takes); they
+  never encodes.
+- Without the codec the host keeps the dtype ``post_load_data`` leaves
+  (the reference's rule): a normalizer's f32 output, else the stored
+  dtype, so a uint8 set with the codec off (and no normalizer) stays
+  1 byte a pixel on the host, in the budget, on the device and on the
+  streaming wire.  The device holds floating data as f32 (a float64
+  set is charged its 8 bytes an element, as the reference charges it,
+  and uploaded as f32) and any other dtype as stored; the fused step's
+  forward casts the rows to the compute dtype (``engine/core.py``).
+- Regression targets (``host_targets``; ``has_targets``): a loader's
+  ``targets_from_data`` makes them ALIAS the input (an autoencoder's
+  target is its normalized input).  Aliased targets never take the
+  codec (``quantized_ingest=True`` raises: "targets alias the input
+  data") and are the data array again after normalization.  The budget
+  charges the data's bytes only, as the reference does.  Resident,
+  aliased targets SHARE the data's device tensor (the fused step casts
+  the gathered target rows to f32); other targets are uploaded as f32.
+  Streamed, they cross as f32 (``loader/base.py``).
+- Within the budget, the samples are uploaded ONCE (``original_data``)
+  with the labels as int64 (``original_labels``, the index type
+  ``index_select`` takes) and the targets (``original_targets``); they
   stay on the device for the whole run and the fused step gathers its
   minibatches there.
 - Over it, or with ``on_device=False``, nothing is uploaded:
@@ -33,8 +50,7 @@ A snapshot carries no host or device array: ``load_data`` runs again
 at every ``initialize`` (the synthetic and file loaders regenerate or
 re-read their data; an :class:`ArrayLoader` keeps its split arrays).
 Not ported: the reference's mesh placements (row-sharded residency),
-regression targets, ``DeviceArrayLoader`` and the host
-``fill_minibatch`` path.
+``DeviceArrayLoader`` and the host ``fill_minibatch`` path.
 """
 
 from __future__ import annotations
@@ -79,39 +95,61 @@ class FullBatchLoader(Loader):
         #: host arrays from load_data (dropped after a resident upload)
         self.host_data = None
         self.host_labels = None
+        #: regression targets (None: a classifier's set); ``load_data``
+        #: aliases them to ``host_data`` for ``targets_from_data``
+        self.host_targets = None
         #: the resident device tensors
         self.original_data = None
         self.original_labels = None
+        self.original_targets = None
 
     _unpicklable = Loader._unpicklable + (
-        "host_data", "host_labels", "original_data", "original_labels")
+        "host_data", "host_labels", "host_targets", "original_data",
+        "original_labels", "original_targets")
 
     def __setstate__(self, state: dict) -> None:
         super().__setstate__(state)
-        # a snapshot written before normalization and the codec were
-        # ported loads with their defaults
+        # a snapshot written before normalization, the codec and the
+        # regression targets were ported loads with their defaults
         for key, value in (("normalization_type", "none"),
                            ("normalization_parameters", {}),
                            ("normalizer", None),
                            ("quantized_ingest", "auto"),
-                           ("_quant_pre_scale", 1.0)):
+                           ("_quant_pre_scale", 1.0),
+                           ("host_targets", None),
+                           ("original_targets", None)):
             self.__dict__.setdefault(key, value)
+
+    @property
+    def has_targets(self) -> bool:
+        return self.host_targets is not None or \
+            self.original_targets is not None
 
     def post_load_data(self) -> None:
         """Decide the codec BEFORE normalizing (the point is never to
         make the float copy), fit the normalizer on TRAIN unless a
         snapshot brought it, then keep the bytes with the normalizer
-        folded into ``dequant``, or normalize on the host to f32."""
+        folded into ``dequant``, or normalize on the host to f32.
+        Targets that alias the data keep aliasing it."""
+        alias = self.host_targets is not None and \
+            self.host_targets is self.host_data
+        self._encode_or_normalize(alias)
+        if alias:
+            self.host_targets = self.host_data
+
+    def _encode_or_normalize(self, targets_alias_data: bool) -> None:
         self.dequant = None
         pre = self.host_data
         want = self.quantized_ingest
-        quantize = bool(want) and quantizable_source(
-            pre, strict=(want == "auto"))
+        # aliased targets stay float: the loss reads them undequantized
+        quantize = bool(want) and not targets_alias_data and \
+            quantizable_source(pre, strict=(want == "auto"))
         if want is True and not quantize:
+            why = "targets alias the input data" if targets_alias_data \
+                else f"dtype {pre.dtype} is not byte-ranged"
             raise ValueError(
                 f"{self.name}: quantized_ingest=True but the dataset "
-                f"cannot ride the uint8 codec (dtype {pre.dtype} is not "
-                f"byte-ranged)")
+                f"cannot ride the uint8 codec ({why})")
         pre_scale = self._quant_pre_scale
         if self.normalization_type == "none" and self.normalizer is None:
             if quantize:
@@ -170,19 +208,26 @@ class FullBatchLoader(Loader):
 
     def initialize(self, device: Any = None) -> None:
         super().initialize(device)
-        if self.dequant is None:
-            self.host_data = np.asarray(self.host_data, np.float32)
         self.host_labels = np.asarray(self.host_labels, np.int64)
         self._decide_residency()
-        if self.device_resident:
-            self.original_data = device.put(self.host_data)
-            self.original_labels = device.put(self.host_labels)
-            self.host_data = self.host_labels = None
+        if not self.device_resident:
+            return
+        data = self.host_data
+        if data.dtype.kind == "f" and data.dtype != np.float32:
+            data = data.astype(np.float32)
+        self.original_data = device.put(data)
+        self.original_labels = device.put(self.host_labels)
+        if self.host_targets is self.host_data:
+            self.original_targets = self.original_data
+        elif self.host_targets is not None:
+            self.original_targets = device.put(
+                np.asarray(self.host_targets, np.float32))
+        self.host_data = self.host_labels = self.host_targets = None
 
     def normalized_host_rows(self, indices) -> np.ndarray:
         """f32 normalized rows for GLOBAL ``indices`` (or a slice),
-        whatever the codec: host consumers never see raw bytes.  A
-        resident data set is read back from the device."""
+        whatever the codec or the stored dtype: host consumers never see
+        raw bytes.  A resident data set is read back from the device."""
         if self.host_data is not None:
             rows = self.host_data[indices]
         else:
@@ -191,31 +236,43 @@ class FullBatchLoader(Loader):
                                           device=self.original_data.device)
             rows = self.device.get(self.original_data[indices])
         if self.dequant is not None:
-            rows = self.dequant.apply_host(rows)
-        return rows
+            return self.dequant.apply_host(rows)
+        return np.asarray(rows, np.float32)
 
     def assemble_rows(self, indices: np.ndarray):
         """The rows of the host arrays (a multi-threaded torch gather):
-        normalized f32, or raw uint8 under the codec, which IS the wire
-        format (the fused step dequantizes on the device)."""
+        normalized data, or the stored bytes (under the codec, the wire
+        format the fused step dequantizes on the device), with their
+        labels and targets."""
         idx = torch.from_numpy(np.asarray(indices, np.int64))
-        return (torch.from_numpy(self.host_data).index_select(0, idx),
-                self.host_labels[indices])
+
+        def rows(a):
+            return None if a is None else \
+                torch.from_numpy(a).index_select(0, idx)
+        return (rows(self.host_data), rows(self.host_labels),
+                rows(self.host_targets))
 
 
 class ArrayLoader(FullBatchLoader):
     """A FullBatchLoader over in-memory numpy arrays per split:
-    ``train=(x, y)`` required, ``valid`` and ``test`` optional.  Unlike
-    the generated data sets, the split arrays ride the snapshot (there
-    is nothing to regenerate them from)."""
+    ``train=(x, y)`` required, ``valid`` and ``test`` optional;
+    ``targets_from_labels=True`` makes the samples their own regression
+    targets (the reference's name for an autoencoder's targets, aliased
+    as above).  Unlike the generated data sets, the split arrays ride
+    the snapshot (there is nothing to regenerate them from)."""
 
     def __init__(self, workflow: Any = None, train: Optional[tuple] = None,
                  valid: Optional[tuple] = None, test: Optional[tuple] = None,
-                 **kwargs: Any) -> None:
+                 targets_from_labels: bool = False, **kwargs: Any) -> None:
         super().__init__(workflow, **kwargs)
         if train is None:
             raise ValueError(f"{self.name}: train=(x, y) is required")
         self._splits = {TRAIN: train, VALID: valid, TEST: test}
+        self._targets_from_labels = targets_from_labels
+
+    def __setstate__(self, state: dict) -> None:
+        super().__setstate__(state)
+        self.__dict__.setdefault("_targets_from_labels", False)
 
     @property
     def sample_shape(self):
@@ -229,11 +286,12 @@ class ArrayLoader(FullBatchLoader):
                 self.class_lengths[klass] = 0
                 continue
             if len(split) < 2 or split[1] is None:
-                raise ValueError(f"{self.name}: every split needs labels "
-                                 f"(the port trains classifiers only)")
+                raise ValueError(f"{self.name}: every split needs labels")
             x = np.asarray(split[0])
             self.class_lengths[klass] = len(x)
             xs.append(x)
             ys.append(np.asarray(split[1]))
         self.host_data = np.concatenate(xs, axis=0)
         self.host_labels = np.concatenate(ys, axis=0).astype(np.int64)
+        if self._targets_from_labels:
+            self.host_targets = self.host_data

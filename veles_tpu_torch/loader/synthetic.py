@@ -11,7 +11,9 @@ files under the data dir when a complete set is there (``n_train`` and
 ``n_valid`` cap them), else generate their stand-ins.  The
 normalization and codec keys (``normalization_type``,
 ``normalization_parameters``, ``quantized_ingest``) and the residency
-keys pass through to ``FullBatchLoader``.
+keys pass through to ``FullBatchLoader``.  ``targets_from_data=True``
+makes the samples their own regression targets (an autoencoder's),
+aliased as ``FullBatchLoader`` describes.
 
 Construction materializes nothing: serving reads only
 :attr:`sample_shape`.  The data is made in :meth:`load_data`, which only
@@ -37,12 +39,22 @@ class SyntheticClassificationLoader(FullBatchLoader):
                  n_valid: int = 200, n_test: int = 0,
                  shape: Tuple[int, ...] = (28, 28, 1), n_classes: int = 10,
                  noise: float = 0.4, max_shift: int = 2,
-                 seed: int = 20260729, **kwargs: Any) -> None:
+                 seed: int = 20260729, targets_from_data: bool = False,
+                 **kwargs: Any) -> None:
         super().__init__(workflow, **kwargs)
         self.gen_args = dict(n_train=n_train, n_valid=n_valid,
                              n_test=n_test, shape=tuple(shape),
                              n_classes=n_classes, noise=noise,
                              max_shift=max_shift, seed=seed)
+        self.targets_from_data = targets_from_data
+
+    def __setstate__(self, state: dict) -> None:
+        super().__setstate__(state)
+        self.__dict__.setdefault("targets_from_data", False)
+
+    def _set_targets(self) -> None:
+        if self.targets_from_data:
+            self.host_targets = self.host_data
 
     @property
     def sample_shape(self) -> Tuple[int, ...]:
@@ -65,6 +77,7 @@ class SyntheticClassificationLoader(FullBatchLoader):
             ys.append(split[1])
         self.host_data = np.concatenate(xs, axis=0)
         self.host_labels = np.concatenate(ys, axis=0)
+        self._set_targets()
 
 
 class _RealFileMixin:
@@ -85,6 +98,7 @@ class _RealFileMixin:
         self.class_lengths[TRAIN] = len(tx)
         self.host_data = np.concatenate([vx, tx], axis=0)
         self.host_labels = np.concatenate([vy, ty], axis=0)
+        self._set_targets()
 
 
 class MnistLoader(_RealFileMixin, SyntheticClassificationLoader):

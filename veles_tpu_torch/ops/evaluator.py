@@ -1,17 +1,27 @@
-"""The softmax cross-entropy evaluator.
+"""The evaluators: the softmax cross-entropy and the mean squared error.
 
-Counterpart of ``veles_tpu/ops/evaluator.py:EvaluatorSoftmax.metrics_fn``:
-from the net's f32 probabilities, int64 labels and the minibatch mask
-(padded rows are 0) it returns the error seed of the backward pass,
-``err_output = (probs - onehot) * mask / max(mask.sum(), 1)`` (d mean
-CE / d logits, the softmax+CE fusion), and the minibatch's ``n_err``,
-``loss_sum`` (eps 1e-12 under the log) and ``count`` as f32 device
-scalars, which the fused step accumulates on the device.  The confusion
-matrix and ``EvaluatorMSE`` are not ported.
+Counterpart of ``veles_tpu/ops/evaluator.py`` (``EvaluatorSoftmax``,
+``EvaluatorMSE``, their ``metrics_fn``).  From the net's f32 output, the
+minibatch's target and its mask (padded rows are 0) each returns the
+error seed of the backward pass (``err_output``) and the minibatch's
+``n_err``, ``loss_sum`` and ``count`` as f32 device scalars, which the
+fused step accumulates on the device.
+
+- ``EvaluatorSoftmax``: int64 labels; ``err_output = (probs - onehot) *
+  mask / max(mask.sum(), 1)`` (d mean CE / d logits, the softmax+CE
+  fusion), ``loss_sum`` with eps 1e-12 under the log.
+- ``EvaluatorMSE`` (``wants_targets``: the fused step hands it the f32
+  regression targets in place of labels): normalized per ELEMENT, with
+  D the features of a sample, ``err_output = (y - t) * mask /
+  max(n * D, 1)``, ``loss_sum`` the sum over valid rows of ``0.5 *
+  ||y - t||^2 / D``, and ``n_err`` 0.
+
+The confusion matrix is not ported.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -19,6 +29,9 @@ import torch.nn.functional as F
 
 
 class EvaluatorSoftmax:
+    #: the fused step gives this evaluator labels, not targets
+    wants_targets = False
+
     def __init__(self, workflow: Any = None, name: str = "evaluator",
                  n_classes: Optional[int] = None) -> None:
         self.workflow = workflow
@@ -37,3 +50,24 @@ class EvaluatorSoftmax:
         loss_sum = -(torch.log(torch.clamp(p, min=eps)) * mask).sum()
         return {"err_output": err, "n_err": n_err, "loss_sum": loss_sum,
                 "count": n}
+
+
+class EvaluatorMSE:
+    wants_targets = True
+
+    def __init__(self, workflow: Any = None,
+                 name: str = "evaluator") -> None:
+        self.workflow = workflow
+        self.name = name
+
+    def metrics_fn(self, output: torch.Tensor, target: torch.Tensor,
+                   mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        diff = output - target
+        m = mask.reshape((-1,) + (1,) * (diff.dim() - 1))
+        n = mask.sum()
+        d = float(math.prod(output.shape[1:]))
+        err = diff * m / torch.clamp(n * d, min=1.0)
+        per_row = 0.5 * (diff * diff).reshape(len(diff), -1).sum(-1) / d
+        loss_sum = (per_row * mask).sum()
+        return {"err_output": err, "n_err": torch.zeros_like(n),
+                "loss_sum": loss_sum, "count": n}

@@ -10,13 +10,18 @@ Counterpart of ``veles_tpu/ops/fused.py``:
   minibatches; ``[n_err, loss_sum, count]`` accumulate on the device
   and reach the host once per class end
   (:meth:`~FusedStepRunner.take_class_metrics`).  The reference's
-  ``lax.scan`` is a Python loop here.
+  ``lax.scan`` is a Python loop here.  The evaluator's target is the
+  minibatch's labels, or, for an evaluator with ``wants_targets``
+  (``EvaluatorMSE``), its regression targets in f32 (the target store,
+  gathered by the same indices).
 
-  - Resident: the rows are gathered from the device-resident data set.
+  - Resident: the rows and targets are gathered from the
+    device-resident data set.
   - Streaming (the loader is not device-resident): the loader's
-    host-assembled superstep, already in the compute dtype (or uint8
-    under the ingest codec), is copied up and minibatch j is
-    ``batch[j]`` (:meth:`_upload_superstep`).  On CUDA it goes through
+    host-assembled superstep, already in the compute dtype (or as
+    stored, when not floating), with its labels or f32 targets, is
+    copied up and minibatch j is ``batch[j]``
+    (:meth:`_upload_superstep`).  On CUDA it goes through
     one of two pinned staging buffers, allocated once, on a copy stream
     of its own; the compute stream waits on the copy's event, and a
     staging buffer is refilled only once the firing that last used it
@@ -96,8 +101,8 @@ class FusedStepRunner:
         #: True when the runner came from a snapshot with its params
         self.restored = False
         self.streaming = False
-        #: bytes streamed host -> device (data and labels), and the host
-        #: seconds spent staging and queueing those copies
+        #: bytes streamed host -> device (data, and labels or targets),
+        #: and the host seconds spent staging and queueing those copies
         self.stream_transfer_bytes = 0
         self.stream_transfer_seconds = 0.0
         self._host_opt: Optional[Dict[str, Dict[str, np.ndarray]]] = None
@@ -223,17 +228,22 @@ class FusedStepRunner:
         else:
             self.processed_eval_images += images
             cparams = self._cast(self._params)
+        use_targets = self.evaluator.wants_targets
         if self.streaming:
-            xb, tb = self._upload_superstep(k)
+            xb, tb = self._upload_superstep(k, use_targets)
         else:
             indices = dev.put(ld.superstep_indices)
-            data, labels = ld.original_data, ld.original_labels
+            data = ld.original_data
+            store = ld.original_targets if use_targets else \
+                ld.original_labels
         for j in range(k):
             if self.streaming:
                 x, target = self._ingest(xb[j]), tb[j]
             else:
                 x = self._ingest(data.index_select(0, indices[j]))
-                target = labels.index_select(0, indices[j])
+                target = store.index_select(0, indices[j])
+                if use_targets:
+                    target = target.float()
             if train:
                 cparams = self._cast(self._params)
             out, residuals = self._forward(cparams, x,
@@ -251,20 +261,22 @@ class FusedStepRunner:
             # device has run everything queued so far
             self._stream_state.release()
 
-    def _upload_superstep(self, k: int):
+    def _upload_superstep(self, k: int, use_targets: bool):
         """The loader's host superstep as device tensors ((k, mb, ...)
-        data, (k, mb) labels)."""
+        data, and (k, mb) labels or (k, mb, ...) f32 targets)."""
         ld = self.loader
-        xb, tb = ld.superstep_data, ld.superstep_labels
+        xb = ld.superstep_data
+        tb = ld.superstep_targets if use_targets else ld.superstep_labels
         if xb is None or tb is None or len(xb) != k:
-            raise RuntimeError(f"{self.name}: streaming, but the loader "
-                               f"assembled no superstep of {k} minibatches")
+            raise RuntimeError(
+                f"{self.name}: streaming, but the loader assembled no "
+                f"superstep of {k} minibatches "
+                f"({'targets' if use_targets else 'labels'} included)")
         t0 = time.perf_counter()
         if self.device.platform == "cuda":
             if self._stream_state is None:
                 self._stream_state = _StagedUpload(
-                    self.device.device, (ld.superstep,) + tuple(xb.shape[1:]),
-                    xb.dtype, tuple(tb.shape[1:]))
+                    self.device.device, ld.superstep, xb, tb)
             xb, tb = self._stream_state.upload(xb, tb)
         self.stream_transfer_bytes += xb.numel() * xb.element_size() + \
             tb.numel() * tb.element_size()
@@ -306,17 +318,18 @@ class FusedStepRunner:
 
 class _StagedUpload:
     """The CUDA side of the streaming firing: two pinned staging buffers
-    (data and labels each), allocated once, a copy stream, and per
-    buffer the event after which it may be refilled."""
+    (data, and labels or targets, each in the dtype and per-minibatch
+    shape of the first superstep's), allocated once for up to ``k``
+    minibatches, a copy stream, and per buffer the event after which it
+    may be refilled."""
 
-    def __init__(self, device: torch.device, data_shape, data_dtype,
-                 label_shape) -> None:
+    def __init__(self, device: torch.device, k: int, xb: torch.Tensor,
+                 tb: torch.Tensor) -> None:
         self.device = device
-        k = data_shape[0]
-        self.staging = [(torch.empty(data_shape, dtype=data_dtype,
-                                     pin_memory=True),
-                         torch.empty((k,) + label_shape, dtype=torch.int64,
-                                     pin_memory=True)) for _ in range(2)]
+        self.staging = [tuple(
+            torch.empty((k,) + tuple(t.shape[1:]), dtype=t.dtype,
+                        pin_memory=True) for t in (xb, tb))
+            for _ in range(2)]
         self.copy_stream = torch.cuda.Stream(device)
         self.released: List[Optional[torch.cuda.Event]] = [None, None]
         self.slot = 0

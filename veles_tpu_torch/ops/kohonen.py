@@ -1,0 +1,227 @@
+"""The Kohonen self-organizing map: its math and its two units.
+
+Counterpart of ``veles_tpu/ops/kohonen.py`` (``grid_coords``,
+``som_step_masked``, ``som_qe_masked``, ``KohonenForward``,
+``KohonenTrainer``).  Unsupervised: there is no gradient chain; the
+trainer IS the weight update.  The SOM computes in f32 on every device,
+as the reference does.
+
+- :func:`som_step_masked`: one minibatch's update of the ``(N, D)``
+  prototypes on an ``sx * sy`` grid, winners by ``argmin`` of the
+  squared distances, a gaussian neighbourhood of radius ``sigma`` around
+  each winner, the step ``alpha * (h^T x - h.sum * w) / max(mask.sum(),
+  1)``; padded rows (mask 0) are out of the sums and the quantization
+  error.  :func:`som_qe_masked` is the evaluation classes' body.
+- :class:`KohonenForward` holds the map's shape; its ``(N, D)`` weights
+  are drawn from the ``"weights"`` stream as ``uniform(-0.1, 0.1)``,
+  bitwise the reference's, and :meth:`KohonenForward.apply_fwd` returns
+  the ``(B, N)`` squared distances.
+- :class:`KohonenTrainer` owns the weights on the device and the
+  schedule: alpha and sigma decay exponentially from ``alpha0`` /
+  ``sigma0`` (default ``max(sx, sy) / 2``) to ``alpha_min`` /
+  ``sigma_min`` over ``decay_epochs``.  One firing runs the loader's
+  whole group of ``k`` minibatches on the device (``engine/core.py``'s
+  SOM builders, the reference's fused path, which is the port's only
+  one) and sums the group's quantization error and row count in f32 in
+  step order; a TRAIN group updates the weights, an evaluation group
+  only measures.  :meth:`KohonenTrainer.take_class_metrics` hands
+  ``DecisionGD`` the class's ``(0, qe_sum, count)``, the contract of
+  ``FusedStepRunner.take_class_metrics``.
+
+Not ported: ``SOMPopulationEngine`` (ensembles), the eager per-minibatch
+dispatch and its knob, the row-sharded gather, and the telemetry
+counters.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from veles_tpu_torch import prng
+from veles_tpu_torch.engine import core as engine_core
+from veles_tpu_torch.loader.base import TRAIN
+
+
+def grid_coords(sx: int, sy: int) -> np.ndarray:
+    """(N, 2) f32 (y, x) grid coordinates of the N = sx * sy neurons,
+    row-major over y."""
+    ys, xs = np.meshgrid(np.arange(sy), np.arange(sx), indexing="ij")
+    return np.stack([ys.reshape(-1), xs.reshape(-1)], 1).astype(np.float32)
+
+
+def sq_distances(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B, N) squared distances of the (B, D) rows to the (N, D)
+    prototypes, in the reference's expanded form."""
+    return ((x * x).sum(1, keepdim=True) - 2.0 * x @ weights.T
+            + (weights * weights).sum(1)[None, :])
+
+
+def som_step_masked(weights: torch.Tensor, x: torch.Tensor,
+                    coords: torch.Tensor, alpha: torch.Tensor,
+                    sigma: torch.Tensor, mask: torch.Tensor):
+    """One masked SOM update.  ``weights`` (N, D), ``x`` (B, D),
+    ``coords`` (N, 2), ``alpha`` and ``sigma`` f32 scalars, ``mask``
+    (B,).  Returns ``(new_weights, winners, qe_sum, n_valid)``."""
+    d2 = sq_distances(weights, x)
+    winners = d2.argmin(1)
+    qe_sum = (torch.sqrt(torch.clamp(
+        d2.gather(1, winners[:, None])[:, 0], min=0.0)) * mask).sum()
+    wc = coords[winners]
+    gd2 = ((wc[:, None, :] - coords[None, :, :]) ** 2).sum(-1)
+    h = torch.exp(-gd2 / (2.0 * sigma * sigma)) * mask[:, None]
+    num = h.T @ x
+    den = h.sum(0)[:, None]
+    n = torch.clamp(mask.sum(), min=1.0)
+    delta = alpha * (num - den * weights) / n
+    return weights + delta, winners, qe_sum, mask.sum()
+
+
+def som_qe_masked(weights: torch.Tensor, x: torch.Tensor,
+                  mask: torch.Tensor):
+    """One minibatch's masked quantization error (the sum of
+    ``sqrt(min distance)`` over valid rows) and its valid-row count."""
+    d2 = sq_distances(weights, x)
+    qe = (torch.sqrt(torch.clamp(d2.min(1).values, min=0.0)) * mask).sum()
+    return qe, mask.sum()
+
+
+class KohonenForward:
+    """The map: its shape, its initial weights, and the distances of a
+    batch to every prototype (the SOM's serving op)."""
+
+    #: no draws in the forward
+    stochastic = False
+
+    def __init__(self, workflow: Any = None, shape: Tuple[int, int] = (8, 8),
+                 name: str = "kohonen_fwd") -> None:
+        self.workflow = workflow
+        self.name = name
+        self.sy, self.sx = shape
+        self.input_shape: Optional[Tuple[int, ...]] = None
+        self.output_shape: Optional[Tuple[int, ...]] = None
+
+    @property
+    def n_neurons(self) -> int:
+        return self.sx * self.sy
+
+    def initialize(self, input_shape: Tuple[int, ...]) -> None:
+        self.input_shape = tuple(input_shape)
+        self.output_shape = (self.input_shape[0], self.n_neurons)
+
+    def param_shapes(self, input_shape) -> dict:
+        return {"weights": (self.n_neurons,
+                            int(np.prod(input_shape[1:])))}
+
+    def fill_params(self) -> dict:
+        """The reference's draw: ``uniform(-0.1, 0.1)`` of (N, D) from
+        the ``"weights"`` stream, in f32."""
+        gen = prng.get("weights").numpy
+        shape = self.param_shapes(self.input_shape)["weights"]
+        return {"weights": gen.uniform(-0.1, 0.1, shape).astype(np.float32)}
+
+    def apply_fwd(self, params, x: torch.Tensor, rng=None, train=False):
+        """(B, ...) samples -> ((B, N) squared distances, no residual)."""
+        return sq_distances(params["weights"],
+                            x.reshape(x.shape[0], -1)), None
+
+
+class KohonenTrainer:
+    def __init__(self, workflow: Any = None,
+                 forward: Optional[KohonenForward] = None,
+                 name: str = "kohonen_trainer", alpha0: float = 0.3,
+                 alpha_min: float = 0.01, sigma0: Optional[float] = None,
+                 sigma_min: float = 0.5, decay_epochs: int = 20) -> None:
+        self.workflow = workflow
+        self.name = name
+        self.forward = forward
+        self.alpha0, self.alpha_min = alpha0, alpha_min
+        self.sigma0 = sigma0
+        self.sigma_min = sigma_min
+        self.decay_epochs = decay_epochs
+        self.loader = None
+        self.device = None
+        #: the (N, D) f32 prototypes on the device
+        self.weights: Optional[torch.Tensor] = None
+        #: on-device [qe_sum, count] since the last class end
+        self._acc: Optional[torch.Tensor] = None
+        #: samples dispatched (mask sums), train and eval apart
+        self.processed_images = 0.0
+        self.processed_eval_images = 0.0
+        #: SOM steps run (train minibatches)
+        self.steps = 0
+        self._train_epoch = self._eval_epoch = None
+
+    def initialize(self, device: Any, weights: np.ndarray) -> None:
+        """Bind the device, put the initial host ``weights`` there, and
+        build the group's step chains for the loader's residency."""
+        f = self.forward
+        self.device = device
+        if self.sigma0 is None:
+            self.sigma0 = max(f.sx, f.sy) / 2.0
+        self.weights = device.put(np.asarray(weights, np.float32))
+        self._acc = None
+        coords = device.put(grid_coords(f.sx, f.sy))
+        resident = self.loader.device_resident
+        self._train_epoch = engine_core.build_som_epoch(coords, resident)
+        self._eval_epoch = engine_core.build_som_eval(resident)
+
+    def schedule_at(self, epoch: int) -> Tuple[float, float]:
+        t = min(epoch, self.decay_epochs) / max(self.decay_epochs, 1)
+        alpha = self.alpha0 * (self.alpha_min / self.alpha0) ** t
+        sigma = self.sigma0 * (self.sigma_min / self.sigma0) ** t
+        return alpha, sigma
+
+    def schedule_steps(self, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The (k,) f32 (alpha, sigma) rows of this group.  The loader
+        raises ``epoch_number`` inside the firing that emits an epoch's
+        last minibatch, so the reference's steps 0..k-2 of that group
+        train at the old epoch's (alpha, sigma) and only the last step
+        at the new epoch's; this reproduces it."""
+        ld = self.loader
+        e = ld.epoch_number
+        ended = bool(ld.epoch_ended)
+        a_bulk, s_bulk = self.schedule_at(e - 1 if ended else e)
+        alphas = np.full((k,), a_bulk, np.float32)
+        sigmas = np.full((k,), s_bulk, np.float32)
+        if ended:
+            alphas[k - 1], sigmas[k - 1] = self.schedule_at(e)
+        return alphas, sigmas
+
+    @torch.no_grad()
+    def run(self) -> None:
+        """One firing: the loader's group of k same-class minibatches."""
+        ld = self.loader
+        dev = self.device
+        mask_host = ld.superstep_mask
+        k = len(mask_host)
+        mask = dev.put(mask_host)
+        if ld.device_resident:
+            rows = (ld.original_data, dev.put(ld.superstep_indices))
+        else:
+            rows = (ld.superstep_data.to(dev.device),)
+        n = float(np.sum(mask_host))
+        if ld.minibatch_class == TRAIN:
+            alphas, sigmas = self.schedule_steps(k)
+            self.weights, stats = self._train_epoch(
+                self.weights, dev.put(alphas), dev.put(sigmas), *rows, mask)
+            self.processed_images += n
+            self.steps += k
+        else:
+            stats = self._eval_epoch(self.weights, *rows, mask)
+            self.processed_eval_images += n
+        self._acc = stats if self._acc is None else self._acc + stats
+
+    def take_class_metrics(self) -> Tuple[float, float, float]:
+        """(n_err = 0, qe_sum, count) since the last call: one small
+        device fetch, then reset."""
+        if self._acc is None:
+            return 0.0, 0.0, 0.0
+        acc = self.device.get(self._acc)
+        self._acc = None
+        return 0.0, float(acc[0]), float(acc[1])
+
+    def host_weights(self) -> np.ndarray:
+        return self.device.get(self.weights)

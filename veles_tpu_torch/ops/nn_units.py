@@ -77,6 +77,12 @@ class ForwardUnit:
         overrides: HWIO)."""
         return self.param_shapes(input_shape)
 
+    def weight_fan_in(self, shape: Tuple[int, ...]) -> int:
+        """Inputs that feed one output element, from a param's
+        REFERENCE-layout shape: every axis but the last (Deconv
+        overrides: its output-channel axis is not last)."""
+        return int(np.prod(shape[:-1]))
+
     def initialize(self, input_shape: Tuple[int, ...]) -> None:
         self.input_shape = tuple(input_shape)
         self.output_shape = tuple(self.output_shape_for(self.input_shape))
@@ -85,7 +91,8 @@ class ForwardUnit:
             -> Dict[str, np.ndarray]:
         """Port-layout f32 initial params, drawn from ``gen`` (default:
         the ``"weights"`` stream) by the unit's fillings (uniform /
-        gaussian / constant) and stddevs (an unset one is 1/sqrt(fan-in))
+        gaussian / constant) and stddevs (an unset one is
+        1/sqrt(:meth:`weight_fan_in`))
         in the reference's shapes and order, then converted."""
         gen = gen if gen is not None else prng.get("weights").numpy
         out = {}
@@ -96,7 +103,7 @@ class ForwardUnit:
                 else self.bias_filling
             std = self.weights_stddev if weights else self.bias_stddev
             if std is None:
-                std = 1.0 / np.sqrt(int(np.prod(shape[:-1])) or 1)
+                std = 1.0 / np.sqrt(self.weight_fan_in(shape) or 1)
             if filling == "uniform":
                 a = gen.uniform(-std * np.sqrt(3), std * np.sqrt(3), shape)
             elif filling == "gaussian":

@@ -1,14 +1,15 @@
 """Layer-config type name -> forward unit class and gradient unit class.
 
 Counterpart of ``veles_tpu/ops/registry.py`` for the layer types of the
-AlexNet family.
+AlexNet family and MnistAE's decoder (``deconv``, ``depooling``).
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from veles_tpu_torch.ops import all2all, conv, dropout, lrn, pooling
+from veles_tpu_torch.ops import (all2all, conv, deconv, depooling, dropout,
+                                 lrn, pooling)
 
 forward_registry: Dict[str, type] = {
     "conv": conv.Conv,
@@ -22,6 +23,8 @@ forward_registry: Dict[str, type] = {
     "all2all_relu": all2all.All2AllRELU,
     "softmax": all2all.All2AllSoftmax,
     "dropout": dropout.Dropout,
+    "deconv": deconv.Deconv,
+    "depooling": depooling.Depooling,
 }
 
 gd_registry: Dict[str, type] = {
@@ -36,4 +39,6 @@ gd_registry: Dict[str, type] = {
     "all2all_relu": all2all.GDRELU,
     "softmax": all2all.GDSoftmax,
     "dropout": dropout.GDDropout,
+    "deconv": deconv.GradientDescentDeconv,
+    "depooling": depooling.GDDepooling,
 }

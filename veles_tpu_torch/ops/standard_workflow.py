@@ -5,8 +5,9 @@ Counterpart of ``veles_tpu/ops/standard_workflow.py``: a list of layer
 dicts ``{"type": ..., "->": {forward kwargs}, "<-": {gd kwargs}}``
 becomes a chain of forward units named ``fwd{i}_{kind}`` (the names key
 the members npz, so they must match the reference's), their gradient
-units ``gd{i}_{kind}``, the softmax evaluator, ``DecisionGD``, the
-optional ``LearningRateAdjust``, the fused step and the optional
+units ``gd{i}_{kind}``, the evaluator (``loss_function``: ``"softmax"``,
+or ``"mse"`` against the loader's regression targets), ``DecisionGD``,
+the optional ``LearningRateAdjust``, the fused step and the optional
 ``Snapshotter`` (``snapshotter_config``).
 
 - :meth:`initialize` with ``train=False`` (what serving calls) only
@@ -24,8 +25,8 @@ optional ``LearningRateAdjust``, the fused step and the optional
   has finished the iteration, so a snapshot taken there resumes exactly.
 
 Not ported: the reference's generic unit graph (``workflow.py``,
-``units.py``, ``mutable.py``) and its eager per-unit wiring, the MSE
-evaluator and plotters.
+``units.py``, ``mutable.py``) and its eager per-unit wiring, and the
+plotters.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from veles_tpu_torch.ops.decision import DecisionGD
-from veles_tpu_torch.ops.evaluator import EvaluatorSoftmax
+from veles_tpu_torch.ops.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from veles_tpu_torch.ops.fused import FusedStepRunner
 from veles_tpu_torch.ops.lr_adjust import LearningRateAdjust
 from veles_tpu_torch.ops.registry import forward_registry, gd_registry
@@ -81,10 +82,11 @@ class StandardWorkflow:
             self.gds.append(gd_registry[kind](
                 self, forward=fwd, name=f"gd{i}_{kind}",
                 **dict(cfg.get("<-", {}))))
-        if loss_function != "softmax":
-            raise ValueError(f"loss {loss_function!r}: only the softmax "
-                             f"evaluator is ported")
-        self.evaluator = EvaluatorSoftmax(self, name="evaluator")
+        evaluators = {"softmax": EvaluatorSoftmax, "mse": EvaluatorMSE}
+        if loss_function not in evaluators:
+            raise ValueError(f"unknown loss {loss_function!r}; have "
+                             f"{sorted(evaluators)}")
+        self.evaluator = evaluators[loss_function](self, name="evaluator")
         self.decision = DecisionGD(self, name="decision",
                                    **(decision_config or {}))
         self.fused = FusedStepRunner(
@@ -128,7 +130,8 @@ class StandardWorkflow:
             f.initialize(shape)
             shape = f.output_shape
         if train:
-            self.evaluator.n_classes = int(shape[-1])
+            if not self.evaluator.wants_targets:
+                self.evaluator.n_classes = int(shape[-1])
             # a resumed runner carries its trained params: drawing the
             # "weights" stream again would overwrite them
             params = None if self.fused.restored else \
