@@ -5,10 +5,11 @@
 
 Drives the port's two main paths at the full width of AlexNet, serving
 and training (resident, streamed, resumed, and over uint8 pixels through
-the ingest codec), trains the mnist7, cifar10 and mnist_ae models and
-the Kohonen SOM at their published sizes (the first three from data
-files), and holds each hand-written kernel against its plain PyTorch
-version.  Every phase is fatal: the script
+the ingest codec), trains the mnist7, cifar10, mnist_ae, wine,
+mnist_rbm and mnist_dbn models and the Kohonen SOM at their published
+sizes (the MNIST and CIFAR-10 ones from data files), profiles training
+supersteps, and holds each hand-written kernel against its plain
+PyTorch version.  Every phase is fatal: the script
 exits nonzero, printing no result line, when any check fails, when
 there is no CUDA device, or when it is run without the repository
 beside it.  It imports nothing of JAX and nothing of the JAX package.
@@ -117,8 +118,43 @@ beside it.  It imports nothing of JAX and nothing of the JAX package.
    last epoch's error under 0.9x the first; card and CPU within 1e-3
    relative at every epoch, and the samples whose winner on the two
    final maps differs, counted.
-14. Summary: ``serve``, ``train``, ``stream``, ``preempt``, ``data``,
-   ``mnist7``, ``cifar10``, ``quantized``, ``mnist_ae`` and ``kohonen``
+14. Layers: each layer type of the zoo's long tail (the five
+   standalone activations, ``all2all_sigmoid``, the cutter, stochastic
+   pooling in eval and in train mode) forward and backward on the card
+   against the same unit on the CPU at small shapes in f32, the train
+   mode on the CPU generator's uniforms on both (``prng.uniform``);
+   and a ``resizable_all2all`` resized between two runs, on the card
+   and on the CPU.  The worst relative error of each.
+15. Wine: ``models/wine.py`` at its published DEFAULTS (30 epochs); the
+   validation error per epoch and the final confusion matrices, whose
+   rows must count each label of their class and whose trace must be
+   the class's right answers.
+16. MNIST RBM: ``models/mnist_rbm.py`` on the phase-8 MNIST files,
+   60 000 + 10 000 images, the published 10 epochs, in f32; the
+   reconstruction MSE and train img/s per epoch, the resident bytes;
+   the validation MSE must fall below 0.9x the first epoch's (it climbs
+   again later in the published run).  Then the cut set on the card and
+   on the CPU, every draw from the CPU generator on both: every class
+   end's MSE within 1e-3 relative.
+17. MNIST DBN: ``models/mnist_dbn.py`` at its published DEFAULTS:
+   pretraining [196, 64], 3 epochs a stage, chained on the card (the
+   ``stats``: ``device_chain``, 0 bytes host-to-device between the
+   stages, no host copy of a stage's set), then 10 fine-tuning epochs;
+   the validation error per epoch, the final confusion matrix (checked
+   as in 15), and the seconds of each part.
+18. Profile: two train supersteps each of the mnist7 and mnist_ae
+   workflows of phases 9 and 12 and one of phase 4's full-width AlexNet,
+   resident, after one more to warm the card, timed (CUDA events, the
+   host clock), then as many again under ``profiling.trace``
+   (``torch.profiler``): the ten kernels and the ten operators with the
+   most device time, the device's kernel time per minibatch and its
+   busy share of the unprofiled wall time and of the profiled window,
+   the host's own time per minibatch, kernels per minibatch; AlexNet's
+   MFU from the analytic FLOPs at the train phase's and the timed
+   superstep's img/s, against the datasheet's peak.
+19. Summary: ``serve``, ``train``, ``stream``, ``preempt``, ``data``,
+   ``mnist7``, ``cifar10``, ``quantized``, ``mnist_ae``, ``kohonen``,
+   ``layers``, ``wine``, ``mnist_rbm``, ``mnist_dbn`` and ``profile``
    JSON lines, the total minutes, the card line, the ``kernels`` line,
    then the device line last.
 """
@@ -844,8 +880,10 @@ def _want_launches(train_mb: int, valid_mb: int) -> dict:
     return {"lrn_fwd": 2 * (train_mb + valid_mb), "lrn_bwd": 2 * train_mb}
 
 
-def train_phase(card: str) -> dict:
-    """Full-width AlexNet, 2 epochs, through the port's entry path."""
+def train_phase(card: str):
+    """Full-width AlexNet, 2 epochs, through the port's entry path.
+    Returns the readings and the workflow (the profile phase goes on
+    with it)."""
     import torch
 
     from veles_tpu_torch.loader.base import TRAIN
@@ -928,7 +966,7 @@ def train_phase(card: str) -> dict:
             "train_img_s": SUPERSTEP * TRAIN_BATCH / superstep_ms * 1e3,
             "run_wall_s": w.wall_time, "run_img_s_wall":
             images / w.wall_time, "drive_wall_s": total_s,
-            "lrn_bwd_in_situ": in_situ, "card": card}
+            "lrn_bwd_in_situ": in_situ, "card": card}, w
 
 
 # -- phase 5: one step on the card against the CPU plain path -----------
@@ -1626,13 +1664,14 @@ def _on_card(w) -> None:
           "the data set is not resident on the card")
 
 
-def mnist7_phase(card: str, data_dir: str) -> dict:
+def mnist7_phase(card: str, data_dir: str):
     """BASELINE's secondary workload: ``models/mnist7.py`` through the
     path ``python -m veles_tpu_torch veles_tpu_torch/models/mnist7.py
     root.common.data_dir=DIR`` takes, on the card, at 60 000 + 10 000
     images from the IDX files, ``decision.max_epochs=40``; the time from
     the end of initialize to the first validation class end with error
-    at most 1%, the run capped at MNIST7_CAP_S."""
+    at most 1%, the run capped at MNIST7_CAP_S.  Returns the readings and
+    the workflow."""
     timer = _ClassTimer(TARGET_ERROR_PCT, MNIST7_CAP_S)
     launcher, launches, drive_s = _drive(
         [f"root.common.data_dir={data_dir}",
@@ -1664,7 +1703,7 @@ def mnist7_phase(card: str, data_dir: str) -> dict:
           f"epochs (validation error % {valid}); train img/s per epoch "
           f"{[round(v) for v in out['train_img_s_per_epoch']]}; resident "
           f"{out['resident_data_bytes']} bytes  [{card}]", flush=True)
-    return out
+    return out, w
 
 
 def cifar10_phase(card: str, data_dir: str) -> dict:
@@ -1899,13 +1938,14 @@ def _agree_by_class(card_hist, cpu_hist, what: str) -> float:
     return worst
 
 
-def mnist_ae_phase(card: str, data_dir: str) -> dict:
+def mnist_ae_phase(card: str, data_dir: str):
     """``models/mnist_ae.py`` through the path ``python -m
     veles_tpu_torch veles_tpu_torch/models/mnist_ae.py
     root.common.data_dir=DIR`` takes, on the card in f32, at 60 000 +
     10 000 images from the IDX files, the published 10 epochs; then the
     same files cut to 1 000 + 200 images for 2 epochs on the card and on
-    the CPU, in f32 with TF32 off and deterministic cuDNN."""
+    the CPU, in f32 with TF32 off and deterministic cuDNN.  Returns the
+    readings and the published run's workflow."""
     import torch
     wf = os.path.join(MODELS_DIR, "mnist_ae.py")
     timer = _ClassTimer()
@@ -1988,7 +2028,7 @@ def mnist_ae_phase(card: str, data_dir: str) -> dict:
           f"{AE_CUT['n_train']} + {AE_CUT['n_valid']} images, worst "
           f"{worst:.3g} relative, params {param_diff:.3g} apart  "
           f"[{card}]", flush=True)
-    return out
+    return out, w
 
 
 def _winners(w) -> np.ndarray:
@@ -2048,11 +2088,530 @@ def kohonen_phase(card: str) -> dict:
     return out
 
 
-# -- phase 14: summary -------------------------------------------------------
+# -- phases 14-18: the zoo's long tail, and the profiler ---------------------
+
+#: the layers phase's shapes: NHWC activations, and a dense layer's
+LAYER_SHAPE, DENSE_SHAPE = (64, 14, 14, 32), (64, 256, 128)
+#: card against CPU on one unit, f32 (TF32 off): the worst relative
+#: error of its output, err_input and grads (the bar: summation order
+#: and transcendental functions)
+UNIT_RTOL = 1e-5
+#: stochastic pooling: the share of windows whose sample may differ
+#: between card and CPU on the same uniforms (a near tie of log|x| + g)
+IDX_MISMATCH_SHARE = 1e-3
+RESIZE_LAYERS = [
+    {"type": "resizable_all2all", "->": {"output_sample_shape": 8},
+     "<-": {"learning_rate": 0.05, "gradient_moment": 0.9}},
+    {"type": "softmax", "->": {"output_sample_shape": 4},
+     "<-": {"learning_rate": 0.05}}]
+RESIZE_LOADER = dict(minibatch_size=20, n_train=400, n_valid=100,
+                     shape=(6, 6, 1), n_classes=4)
+WINE_SIZES, WINE_EPOCHS, WINE_CLASSES = (140, 38), 30, 3
+MNIST_RBM_EPOCHS = 10
+#: mnist_rbm's card-vs-CPU cut, as mnist_ae's
+RBM_CUT = dict(AE_CUT, targets_from_data=True)
+DBN_HIDDEN, DBN_PRETRAIN_EPOCHS, DBN_EPOCHS = [196, 64], 3, 10
+#: train supersteps profiled per small model, after one to warm
+PROFILE_SUPERSTEPS = 2
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|, in f64 on the host."""
+    got = got.detach().double().cpu()
+    want = want.detach().double().cpu()
+    return float((got - want).abs().max() /
+                 want.abs().max().clamp(min=1e-30))
+
+
+def _units(kind: str, **kw):
+    """A forward unit of a registered layer type and its gradient
+    unit."""
+    from veles_tpu_torch.ops.registry import forward_registry, gd_registry
+    f = forward_registry[kind](None, name=kind, **kw)
+    return f, gd_registry[kind](None, forward=f)
+
+
+def _on_both(f, gd, params, x, err, rngs=(None, None), train=True):
+    """The unit's forward and backward on the card and on the CPU from
+    the same host tensors: per device (output, saved, err_input,
+    grads); no backward in eval mode."""
+    out = []
+    for dev, rng in zip(("cuda", "cpu"), rngs):
+        p = {k: v.to(dev) for k, v in params.items()}
+        y, saved = f.apply_fwd(p, x.to(dev), rng=rng, train=train)
+        e_in, grads = gd.backward_from_saved(p, saved, err.to(dev)) \
+            if train else (None, {})
+        out.append((y, saved, e_in, grads))
+    return out
+
+
+def _worst(card, cpu) -> float:
+    (y, _, e, g), (y0, _, e0, g0) = card, cpu
+    worst = _rel(y, y0)
+    if e is not None:
+        worst = max(worst, _rel(e, e0))
+    for k in g0:
+        worst = max(worst, _rel(g[k], g0[k]))
+    return worst
+
+
+def _resize_run(backend: str):
+    """The resize scenario on one device in f32: 2 epochs, widen the
+    resizable layer 8 -> 12, refill the softmax, train to 4 epochs."""
+    import torch
+
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.backends import make_device
+    from veles_tpu_torch.loader.synthetic import \
+        SyntheticClassificationLoader
+    from veles_tpu_torch.ops.standard_workflow import StandardWorkflow
+    prng.seed_all(SEED)
+    w = StandardWorkflow(loader_factory=lambda wf: \
+        SyntheticClassificationLoader(wf, name="loader", **RESIZE_LOADER),
+        layers=RESIZE_LAYERS, decision_config={"max_epochs": 2},
+        name="resize")
+    w.fused.compute_dtype = torch.float32
+    w.initialize(device=make_device(backend), train=True)
+    w.run()
+    w.forwards[0].resize(12)
+    sm = w.forwards[1]
+    sm.initialize((w.loader.max_minibatch_size, 12))
+    params = w.fused.host_params()
+    params[sm.name] = sm.fill_params()
+    w.fused.set_host_params(params)
+    w.decision.complete = False
+    w.decision.max_epochs = 4
+    w.run()
+    return w
+
+
+def layers_phase(card: str) -> dict:
+    """Each layer type this slice added, forward and backward on the card
+    against the same unit on the CPU at small shapes, in f32."""
+    import torch
+
+    from veles_tpu_torch import prng
+    gen = torch.Generator().manual_seed(SEED)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    x = rand(*LAYER_SHAPE, scale=2.0)
+    err = rand(*LAYER_SHAPE)
+    out = {}
+    for kind in ("activation_tanh", "activation_sigmoid",
+                 "activation_strict_relu", "activation_relu",
+                 "activation_log"):
+        f, gd = _units(kind)
+        out[kind] = _worst(*_on_both(f, gd, {}, x, err))
+    n, n_in, n_out = DENSE_SHAPE
+    f, gd = _units("all2all_sigmoid", output_sample_shape=n_out)
+    out["all2all_sigmoid"] = _worst(*_on_both(
+        f, gd, {"weights": rand(n_in, n_out, scale=0.05),
+                "bias": rand(n_out, scale=0.1)},
+        rand(n, n_in), rand(n, n_out)))
+    f, gd = _units("cutter", padding=(2, 1, 3, 2))
+    out["cutter"] = _worst(*_on_both(
+        f, gd, {}, x, rand(*f.output_shape_for(LAYER_SHAPE))))
+    f, gd = _units("stochastic_pooling", kx=3, ky=3, sliding=2)
+    yshape = f.output_shape_for(LAYER_SHAPE)
+    on_card, on_cpu = _on_both(f, gd, {}, x, rand(*yshape), train=False)
+    out["stochastic_pooling_eval"] = _rel(on_card[0], on_cpu[0])
+    # train: both runs take the CPU generator's uniforms (prng.uniform
+    # moves them to the card)
+    rngs = [prng.torch_generator(SEED, 0, 1, torch.device("cpu"))
+            for _ in range(2)]
+    e = rand(*yshape)
+    on_card, on_cpu = _on_both(f, gd, {}, x, e, rngs=rngs)
+    idx, idx0 = on_card[1][1].cpu(), on_cpu[1][1]
+    differ = int((idx != idx0).sum())
+    check(differ <= IDX_MISMATCH_SHARE * idx0.numel(),
+          f"stochastic pooling: {differ} of {idx0.numel()} windows sampled "
+          f"another element on the card")
+    same = idx == idx0
+    # the routing from the card's samples, on both devices
+    e_cpu, _ = gd.backward_from_saved({}, (x, idx), e)
+    out["stochastic_pooling_train"] = max(
+        _rel(on_card[0].cpu()[same], on_cpu[0][same]),
+        _rel(on_card[2], e_cpu))
+    out["stochastic_pooling_windows_sampled_differently"] = differ
+    # resize between two runs, on the card and on the CPU
+    runs = {b: _resize_run(b) for b in ("cuda", "cpu")}
+    wc, w0 = runs["cuda"], runs["cpu"]
+    check(wc.forwards[0].output_shape[1:] == (12,)
+          and wc.fused.device_params(wc.forwards[0].name)["weights"].shape
+          == (36, 12), "resize: the card's layer is not 12 wide")
+    worst = _agree_by_class(wc.decision.history, w0.decision.history,
+                            "resize")
+    pc, p0 = wc.fused.host_params(), w0.fused.host_params()
+    out["resizable_all2all"] = max(
+        [worst] + [_rel(torch.from_numpy(pc[f][p]), torch.from_numpy(a))
+                   for f, ps in p0.items() for p, a in ps.items()])
+    bad = {k: v for k, v in out.items() if k.startswith(("activation",
+           "all2all", "cutter")) and v > UNIT_RTOL}
+    check(not bad, f"layers: card and CPU differ beyond {UNIT_RTOL}: {bad}")
+    check(out["stochastic_pooling_eval"] <= UNIT_RTOL
+          and out["stochastic_pooling_train"] <= UNIT_RTOL,
+          f"stochastic pooling: card and CPU differ: {out}")
+    check(out["resizable_all2all"] <= CARD_CPU_RTOL,
+          f"resize: card and CPU differ: {out['resizable_all2all']}")
+    out["card"] = card
+    print(f"layers: worst relative error card vs CPU (f32) {out}",
+          flush=True)
+    return out
+
+
+def _check_confusion(w, klass: int, what: str):
+    """The decision's last confusion matrix of ``klass``: its rows count
+    each label of the class, its trace the class's right answers."""
+    from veles_tpu_torch.loader.base import CLASS_NAMES
+    ld = w.loader
+    conf = w.decision.confusion_per_class[klass]
+    n = w.evaluator.n_classes
+    off = ld.class_offset(klass)
+    labels = ld.original_labels[off:off + ld.class_lengths[klass]]
+    rows = np.bincount(labels.cpu().numpy(), minlength=n)
+    last = [h for h in w.decision.history
+            if h["class"] == CLASS_NAMES[klass]][-1]
+    check(conf is not None and conf.shape == (n, n)
+          and conf.dtype == np.int32
+          and np.array_equal(conf.sum(axis=1), rows)
+          and int(np.trace(conf)) == last["count"] - last["n_err"],
+          f"{what}: confusion {conf} against label counts {rows} and "
+          f"{last}")
+    return conf
+
+
+def wine_phase(card: str) -> dict:
+    """``models/wine.py`` through the path ``python -m veles_tpu_torch
+    veles_tpu_torch/models/wine.py`` takes, at its published DEFAULTS,
+    on the card."""
+    from veles_tpu_torch.loader.base import TRAIN, VALID
+    launcher, launches, drive_s = _drive(
+        [], workflow_file=os.path.join(MODELS_DIR, "wine.py"))
+    w = launcher.workflow
+    ld = w.loader
+    check(ld.class_lengths == [0, WINE_SIZES[1], WINE_SIZES[0]],
+          f"wine class lengths {ld.class_lengths}")
+    _on_card(w)
+    check(not any(launches.values()), f"wine launched {launches}")
+    hist = w.decision.history
+    check([(r["class"], r["count"]) for r in hist] ==
+          [("validation", WINE_SIZES[1]), ("train", WINE_SIZES[0])]
+          * WINE_EPOCHS, f"wine history {hist}")
+    valid = [r["error_pct"] for r in hist if r["class"] == "validation"]
+    conf = _check_confusion(w, VALID, "wine validation")
+    _check_confusion(w, TRAIN, "wine train")
+    out = {"epochs": WINE_EPOCHS, "valid_error_pct": valid,
+           "final_valid_confusion": conf.tolist(), "launches": launches,
+           "run_wall_s": w.wall_time, "drive_s": drive_s, "card": card}
+    print(f"wine: validation error % per epoch {valid}; final validation "
+          f"confusion {conf.tolist()} (rows: labels, columns: "
+          f"predictions); {WINE_EPOCHS} epochs in {w.wall_time:.2f} s  "
+          f"[{card}]", flush=True)
+    return out
+
+
+class _CpuDraws:
+    """The draw seam for card-vs-CPU runs: every stochastic layer's
+    generator made on the CPU, so ``prng.uniform`` draws the CPU
+    generator's uniforms on both runs and moves them to the device
+    (CUDA's Philox and the CPU's generator give other streams for one
+    seed)."""
+
+    def __enter__(self):
+        import torch
+
+        from veles_tpu_torch import prng
+        self.make = make = prng.torch_generator
+        prng.torch_generator = lambda seed, counter, layer, device: \
+            make(seed, counter, layer, torch.device("cpu"))
+
+    def __exit__(self, *exc):
+        from veles_tpu_torch import prng
+        prng.torch_generator = self.make
+
+
+def mnist_rbm_phase(card: str, data_dir: str) -> dict:
+    """``models/mnist_rbm.py`` through the path ``python -m
+    veles_tpu_torch veles_tpu_torch/models/mnist_rbm.py
+    root.common.data_dir=DIR`` takes, on the card in f32, at 60 000 +
+    10 000 images from the IDX files, the published 10 epochs; then the
+    cut set for 2 epochs on the card and on the CPU on the same draws."""
+    import torch
+    wf = os.path.join(MODELS_DIR, "mnist_rbm.py")
+    timer = _ClassTimer()
+    launcher, launches, drive_s = _drive(
+        [f"root.common.data_dir={data_dir}"], workflow_file=wf,
+        before=lambda la: (timer(la), _in_f32(la)))
+    w = launcher.workflow
+    ld = w.loader
+    check(w.fused.compute_dtype == torch.float32 and
+          ld.class_lengths == [0, MNIST_SIZES[1], MNIST_SIZES[0]],
+          f"mnist_rbm: {w.fused.compute_dtype}, {ld.class_lengths}")
+    _on_card(w)
+    check(not any(launches.values()), f"mnist_rbm launched {launches}")
+    hist = w.decision.history
+    check([(r["class"], r["count"]) for r in hist] ==
+          [("validation", MNIST_SIZES[1]), ("train", MNIST_SIZES[0])]
+          * MNIST_RBM_EPOCHS and all(np.isfinite(r["loss"]) for r in hist),
+          f"mnist_rbm history {hist}")
+    valid = [r["loss"] for r in hist if r["class"] == "validation"]
+    train = [r["loss"] for r in hist if r["class"] == "train"]
+    # the published setup's curve falls to its least in the first
+    # epochs, then climbs again (the reference's does on XLA:CPU too:
+    # CD-1 learns the binarized digits, the MSE reads the grey ones)
+    check(min(valid[1:]) < 0.9 * valid[0], f"mnist_rbm: validation MSE "
+          f"did not fall after the first epoch: {valid}")
+    od, ot = ld.original_data, ld.original_targets
+    data_bytes = od.numel() * od.element_size()
+    check(ot is od and data_bytes == sum(MNIST_SIZES) * 784 * 4,
+          f"mnist_rbm: resident data of {data_bytes} bytes, targets "
+          f"aliased: {ot is od}")
+    cut = [f"root.common.data_dir={data_dir}",
+           f"root.mnist_rbm.loader={RBM_CUT!r}",
+           f"root.mnist_rbm.decision.max_epochs={AE_CUT_EPOCHS}"]
+    hists = {}
+    with _CpuDraws():
+        for backend in ("cuda", "cpu"):
+            la, _, _ = _drive(cut, backend=backend, workflow_file=wf,
+                              before=_in_f32)
+            hists[backend] = list(la.workflow.decision.history)
+    worst = _agree_by_class(hists["cuda"], hists["cpu"], "mnist_rbm")
+    out = {"epochs": len(timer.train_s), "compute_dtype": "float32",
+           "train_mse": train, "valid_mse": valid,
+           "train_img_s_per_epoch": [MNIST_SIZES[0] / t
+                                     for t in timer.train_s],
+           "resident_data_bytes": data_bytes, "targets_share_data": True,
+           "launches": launches, "drive_s": drive_s,
+           "setup_s": drive_s - w.wall_time,
+           "card_vs_cpu": {"cut": RBM_CUT, "epochs": AE_CUT_EPOCHS,
+                           "max_rel_loss_diff": worst},
+           "card": card}
+    print(f"mnist_rbm: {out['epochs']} epochs, reconstruction MSE train "
+          f"{train}, validation {valid}; train img/s per epoch "
+          f"{[round(v) for v in out['train_img_s_per_epoch']]}; resident "
+          f"{data_bytes} bytes (targets share the data); card vs CPU at "
+          f"{RBM_CUT['n_train']} + {RBM_CUT['n_valid']} images on the same "
+          f"draws, worst {worst:.3g} relative  [{card}]", flush=True)
+    return out
+
+
+def mnist_dbn_phase(card: str, data_dir: str) -> dict:
+    """``models/mnist_dbn.py`` through the path ``python -m
+    veles_tpu_torch veles_tpu_torch/models/mnist_dbn.py
+    root.common.data_dir=DIR`` takes, on the card, at its published
+    DEFAULTS: pretraining chained on the device, then the fine-tune."""
+    from veles_tpu_torch.loader.base import VALID
+    timer = _ClassTimer()
+    launcher, launches, drive_s = _drive(
+        [f"root.common.data_dir={data_dir}"],
+        workflow_file=os.path.join(MODELS_DIR, "mnist_dbn.py"),
+        before=timer)
+    w = launcher.workflow
+    ld = w.loader
+    check(ld.class_lengths == [0, MNIST_SIZES[1], MNIST_SIZES[0]],
+          f"mnist_dbn class lengths {ld.class_lengths}")
+    _on_card(w)
+    check(not any(launches.values()), f"mnist_dbn launched {launches}")
+    stats = w.pretrain_stats
+    check(stats["device_chain"] and stats["interstage_h2d_bytes"] == 0
+          and len(stats["stages"]) == len(DBN_HIDDEN) - 1
+          and all(s["host_free"] and s["h2d_bytes"] == 0
+                  for s in stats["stages"]),
+          f"mnist_dbn: the stages did not chain on the card: {stats}")
+    hist = w.decision.history
+    check([(r["class"], r["count"]) for r in hist] ==
+          [("validation", MNIST_SIZES[1]), ("train", MNIST_SIZES[0])]
+          * DBN_EPOCHS, f"mnist_dbn history {hist}")
+    valid = [r["error_pct"] for r in hist if r["class"] == "validation"]
+    check(min(valid[1:]) < valid[0], f"mnist_dbn: validation error did "
+          f"not fall: {valid}")
+    conf = _check_confusion(w, VALID, "mnist_dbn validation")
+    out = {"hidden": DBN_HIDDEN, "pretrain_epochs": DBN_PRETRAIN_EPOCHS,
+           "epochs": DBN_EPOCHS, "pretrain_stats": stats,
+           "pretrain_s": w.pretrain_seconds, "finetune_s": w.wall_time,
+           "valid_error_pct": valid,
+           "train_img_s_per_epoch": [MNIST_SIZES[0] / t
+                                     for t in timer.train_s],
+           "final_valid_confusion": conf.tolist(),
+           "compute_dtype": str(w.fused.compute_dtype),
+           "launches": launches, "drive_s": drive_s, "card": card}
+    print(f"mnist_dbn: pretrain {stats} in {w.pretrain_seconds:.2f} s; "
+          f"fine-tune {DBN_EPOCHS} epochs in {w.wall_time:.2f} s, "
+          f"validation error % {valid}; final validation confusion "
+          f"{conf.tolist()}  [{card}]", flush=True)
+    return out
+
+
+def _next_train_superstep(w) -> int:
+    """Fire the loader until it hands out a full TRAIN superstep (the
+    firings before it are skipped, not run), and set its rates.
+    Returns its minibatches."""
+    from veles_tpu_torch.loader.base import TRAIN
+    ld = w.loader
+    full = min(w.superstep,
+               -(-ld.class_lengths[TRAIN] // ld.max_minibatch_size))
+    for _ in range(100000):
+        ld.run()
+        if ld.minibatch_class == TRAIN and ld.superstep_k == full:
+            break
+    else:
+        raise SmokeFailure(f"{w.name}: no full train superstep")
+    if w.lr_adjust is not None:
+        w.lr_adjust.run()
+    return full
+
+
+def _self_device_us(avg) -> float:
+    v = getattr(avg, "self_device_time_total", None)
+    if v is None:
+        v = getattr(avg, "self_cuda_time_total", 0.0)
+    return float(v)
+
+
+def _timed_supersteps(w, n: int):
+    """``n`` train supersteps: each one's ms between CUDA events, the
+    host's own seconds in the fused step, the wall seconds and the
+    minibatches."""
+    import torch
+    events, host_s, mbs = [], 0.0, 0
+    t0 = time.perf_counter()
+    for _ in range(n):
+        mbs += _next_train_superstep(w)
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        th = time.perf_counter()
+        w.fused.run()
+        host_s += time.perf_counter() - th
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    return [s.elapsed_time(e) for s, e in events], host_s, wall_s, mbs
+
+
+def _top(avgs, n: int = 10) -> list:
+    return [{"op": a.key, "ms": _self_device_us(a) / 1e3, "calls": a.count}
+            for a in sorted(avgs, key=_self_device_us, reverse=True)[:n]
+            if _self_device_us(a) > 0]
+
+
+def _profiled(w, n: int, log_dir: str) -> dict:
+    """A resident workflow's train supersteps on a warm card: ``n``
+    unprofiled (CUDA events, host clock), then ``n`` under
+    ``profiling.trace``: the device's kernel time and its busy share,
+    of the profiled window and of the unprofiled wall time (the
+    profiler slows the host), the ten kernels and the ten operators
+    with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from veles_tpu_torch import profiling
+    check(w.loader.device_resident, f"{w.name}: not resident")
+    _next_train_superstep(w)
+    w.fused.run()
+    torch.cuda.synchronize()
+    ms, host_s, wall_s, mbs = _timed_supersteps(w, n)
+    with profiling.trace(log_dir) as prof:
+        pms, phost_s, pwall_s, pmbs = _timed_supersteps(w, n)
+    w.fused.take_class_metrics()
+    kernels = sorted((e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+    check(kernels, f"{w.name}: torch.profiler saw no device activity")
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for s, e in kernels:       # the union of the kernels' intervals
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    avgs = prof.key_averages()
+    device_ms = busy_us / 1e3 / pmbs
+    return {"supersteps": n, "minibatches": mbs,
+            "superstep_ms": ms, "wall_ms_per_minibatch": wall_s * 1e3 / mbs,
+            "host_ms_per_minibatch": host_s * 1e3 / mbs,
+            "device_ms_per_minibatch": device_ms,
+            "device_busy_share": device_ms / (wall_s * 1e3 / mbs),
+            "profiled": {"superstep_ms": pms,
+                         "wall_ms_per_minibatch": pwall_s * 1e3 / pmbs,
+                         "host_ms_per_minibatch": phost_s * 1e3 / pmbs,
+                         "device_busy_share": busy_us / (pwall_s * 1e6)},
+            "kernels_per_minibatch": len(kernels) / pmbs,
+            "top_kernels": _top([a for a in avgs if getattr(
+                a, "device_type", None) == DeviceType.CUDA]),
+            "top_ops": _top([a for a in avgs if getattr(
+                a, "device_type", None) != DeviceType.CUDA])}
+
+
+def _brief(top: list, width: int = 80) -> list:
+    return [(t["op"][:width], round(t["ms"], 3), t["calls"]) for t in top]
+
+
+def profile_phase(card: str, workdir: str, alexnet_w, train: dict,
+                  mnist7_w, mnist_ae_w) -> dict:
+    """``torch.profiler`` (through ``profiling.trace``) around
+    PROFILE_SUPERSTEPS train supersteps each of mnist7 and mnist_ae at
+    their published sizes and one of full-width AlexNet, each resident
+    on a warm card, with the AlexNet MFU from the analytic FLOPs."""
+    from veles_tpu_torch import profiling
+    _zero_launches()
+    out = {}
+    for name, w, n in (("mnist7", mnist7_w, PROFILE_SUPERSTEPS),
+                       ("mnist_ae", mnist_ae_w, PROFILE_SUPERSTEPS),
+                       ("alexnet", alexnet_w, 1)):
+        out[name] = _profiled(w, n, os.path.join(workdir, "profile", name))
+    launches = _launches()
+    # AlexNet's warm, timed and profiled supersteps; the small models
+    # have no LRN layer
+    check(launches == _want_launches(3 * SUPERSTEP, 0),
+          f"profile path launches {launches}")
+    a = out["alexnet"]
+    flops = profiling.model_flops_per_sample(alexnet_w.forwards)["train"]
+    peak = profiling.device_peak_flops(alexnet_w.device)
+    check(peak is not None, f"no peak for this card: {card}")
+    a["train_flops_per_image"] = flops
+    a["peak_flops"] = peak
+    a["mfu_train_phase"] = profiling.mfu(train["train_img_s"], flops,
+                                         alexnet_w.device)
+    a["mfu_timed"] = profiling.mfu(
+        SUPERSTEP * TRAIN_BATCH / (a["superstep_ms"][0] / 1e3), flops,
+        alexnet_w.device)
+    out["launches"] = launches
+    out["card"] = card
+    for name in ("mnist7", "mnist_ae", "alexnet"):
+        r = out[name]
+        p = r["profiled"]
+        print(f"profile {name}: per minibatch wall "
+              f"{r['wall_ms_per_minibatch']:.3f} ms (host "
+              f"{r['host_ms_per_minibatch']:.3f} ms in the step), device "
+              f"{r['device_ms_per_minibatch']:.3f} ms in "
+              f"{r['kernels_per_minibatch']:.1f} kernels: busy "
+              f"{r['device_busy_share']:.3f} of the unprofiled wall, "
+              f"{p['device_busy_share']:.3f} of the profiled window (wall "
+              f"{p['wall_ms_per_minibatch']:.3f} ms); top kernels "
+              f"{_brief(r['top_kernels'], 50)}; top operators "
+              f"{_brief(r['top_ops'])}  [{card}]", flush=True)
+    print(f"profile alexnet: MFU {a['mfu_train_phase']:.4f} at the train "
+          f"phase's {train['train_img_s']:.0f} img/s, "
+          f"{a['mfu_timed']:.4f} in the timed superstep; "
+          f"{flops:.4g} train FLOPs an image against the datasheet's "
+          f"{peak:.4g} FLOP/s (dense bf16)  [{card}]", flush=True)
+    return out
+
+
+# -- phase 19: summary -------------------------------------------------------
 
 def _data_launches(name: str, mnist7: dict, cifar10: dict,
-                   quantized: dict, mnist_ae: dict, kohonen: dict) -> dict:
-    """A kernel's launches on the real-data phases' paths."""
+                   quantized: dict, mnist_ae: dict, kohonen: dict,
+                   wine: dict, mnist_rbm: dict, mnist_dbn: dict,
+                   profile: dict) -> dict:
+    """A kernel's launches on the real-data phases' paths, the zoo's and
+    the profiled supersteps'."""
     q = quantized["launches"]
     return {"mnist7": mnist7["launches"][name],
             "cifar10": cifar10["launches"][name],
@@ -2060,7 +2619,11 @@ def _data_launches(name: str, mnist7: dict, cifar10: dict,
             "quantized_resident": q["resident"][name],
             "quantized_float": q["float"][name],
             "mnist_ae": mnist_ae["launches"][name],
-            "kohonen": kohonen["launches"][name]}
+            "kohonen": kohonen["launches"][name],
+            "wine": wine["launches"][name],
+            "mnist_rbm": mnist_rbm["launches"][name],
+            "mnist_dbn": mnist_dbn["launches"][name],
+            "profile": profile["launches"][name]}
 
 
 def summary_kernel(name: str, replaces: str, rows, launches: dict,
@@ -2148,7 +2711,7 @@ def main() -> int:
         # phase 3: the serving path
         serve, serve_launches = serve_phase(card, workdir)
         # phases 4 and 5: the training path
-        train = train_phase(card)
+        train, alexnet_w = train_phase(card)
         t0 = time.perf_counter()
         train["f32_card_vs_cpu"] = card_vs_cpu_phase()
         train["f32_card_vs_cpu"]["seconds"] = time.perf_counter() - t0
@@ -2158,12 +2721,19 @@ def main() -> int:
         # phases 8-11: real data, the three small models, uint8 ingest
         data_dir = os.path.join(workdir, "data")
         data = data_phase(card, data_dir)
-        mnist7 = mnist7_phase(card, data_dir)
+        mnist7, mnist7_w = mnist7_phase(card, data_dir)
         cifar10 = cifar10_phase(card, data_dir)
         quantized = quantized_phase(card, workdir)
         # phases 12 and 13: BASELINE config #5
-        mnist_ae = mnist_ae_phase(card, data_dir)
+        mnist_ae, mnist_ae_w = mnist_ae_phase(card, data_dir)
         kohonen = kohonen_phase(card)
+        # phases 14-18: the zoo's long tail, and the profiler
+        layers = layers_phase(card)
+        wine = wine_phase(card)
+        mnist_rbm = mnist_rbm_phase(card, data_dir)
+        mnist_dbn = mnist_dbn_phase(card, data_dir)
+        profile = profile_phase(card, workdir, alexnet_w, train, mnist7_w,
+                                mnist_ae_w)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2177,14 +2747,18 @@ def main() -> int:
                         "stream": stream["launches"]["lrn_fwd"],
                         "resume": preempt["resumed_launches"]["lrn_fwd"],
                         **_data_launches("lrn_fwd", mnist7, cifar10,
-                                         quantized, mnist_ae, kohonen)},
+                                         quantized, mnist_ae, kohonen,
+                                         wine, mnist_rbm, mnist_dbn,
+                                         profile)},
                        card),
         summary_kernel("lrn_bwd", "veles_tpu/ops/lrn_pallas.py:151", rows,
                        {"train": train["launches"]["lrn_bwd"],
                         "stream": stream["launches"]["lrn_bwd"],
                         "resume": preempt["resumed_launches"]["lrn_bwd"],
                         **_data_launches("lrn_bwd", mnist7, cifar10,
-                                         quantized, mnist_ae, kohonen)},
+                                         quantized, mnist_ae, kohonen,
+                                         wine, mnist_rbm, mnist_dbn,
+                                         profile)},
                        card)]
     print("serve " + json.dumps(serve))
     print("train " + json.dumps(train))
@@ -2196,6 +2770,11 @@ def main() -> int:
     print("quantized " + json.dumps(quantized))
     print("mnist_ae " + json.dumps(mnist_ae))
     print("kohonen " + json.dumps(kohonen))
+    print("layers " + json.dumps(layers))
+    print("wine " + json.dumps(wine))
+    print("mnist_rbm " + json.dumps(mnist_rbm))
+    print("mnist_dbn " + json.dumps(mnist_dbn))
+    print("profile " + json.dumps(profile))
     print(f"total: {(time.perf_counter() - t_start) / 60:.2f} minutes")
     print(card)
     print(json.dumps({"kernels": kernels}))

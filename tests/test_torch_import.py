@@ -56,7 +56,12 @@ def test_every_port_module_imports_with_jax_blocked():
             "veles_tpu_torch.models.mnist_ae",
             "veles_tpu_torch.models.kohonen", "veles_tpu_torch.ops.deconv",
             "veles_tpu_torch.ops.depooling", "veles_tpu_torch.ops.kohonen",
-            "veles_tpu_torch.ops.evaluator"} <= set(names)
+            "veles_tpu_torch.ops.evaluator", "veles_tpu_torch.ops.activation",
+            "veles_tpu_torch.ops.cutter", "veles_tpu_torch.ops.rbm",
+            "veles_tpu_torch.ops.resizable_all2all",
+            "veles_tpu_torch.models.wine", "veles_tpu_torch.models.mnist_rbm",
+            "veles_tpu_torch.models.mnist_dbn",
+            "veles_tpu_torch.profiling"} <= set(names)
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -1,7 +1,8 @@
 """The port's command line.
 
     python -m veles_tpu_torch [--supervise] [-b auto|cuda|cpu] [-s SEED]
-        [--snapshot FILE] WORKFLOW.py [CONFIG.py ...] [root.x.y=value ...]
+        [--snapshot FILE] [--profile DIR] WORKFLOW.py [CONFIG.py ...]
+        [root.x.y=value ...]
     python -m veles_tpu_torch --serve-models NAME=PKG.vpkg [NAME=PKG ...]
         [-b auto|cuda|cpu] [--max-batch N] [--max-wait-ms MS]
 
@@ -14,10 +15,12 @@ that cannot be read is a usage error (exit 2).  SIGTERM or SIGINT stops
 the run before its next firing, writes a final snapshot and exits 14.
 ``--supervise`` runs the same command as a child and resumes it from
 its newest intact snapshot whenever it ends early
-(``veles_tpu_torch/supervisor.py``).  The second form starts the
-serving process (``veles_tpu_torch/serve/hive.py``).  Not ported yet,
-and so refused: ``--dp``, ``--optimize``, ``--ensemble-*``,
-``--profile`` and the fleet router.
+(``veles_tpu_torch/supervisor.py``).  ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of the run and its per-layer FLOPs table
+(``flops_table.json``) into DIR.  The second form starts the serving
+process (``veles_tpu_torch/serve/hive.py``).  Not ported yet, and so
+refused: ``--dp``, ``--optimize``, ``--ensemble-*`` and the fleet
+router.
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--seed", type=int, default=1234)
     p.add_argument("--snapshot", default=None, metavar="FILE",
                    help="resume from this snapshot")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run and a "
+                        "per-layer FLOPs table into DIR")
     return p
 
 
@@ -71,7 +77,7 @@ def main(argv=None) -> int:
         apply_config_file(cf)
     parse_overrides(overrides)
     launcher = Launcher(backend=args.backend, seed=args.seed,
-                        snapshot=args.snapshot)
+                        snapshot=args.snapshot, profile=args.profile)
     try:
         drive_workflow(launcher, workflow_file)
     except SnapshotCorruptError as e:

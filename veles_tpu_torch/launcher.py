@@ -19,14 +19,19 @@ standalone mode:
   resumes.  If the stop has not landed within ``$VELES_PREEMPT_GRACE``
   seconds (25), the watchdog writes the final snapshot itself and
   exits 14; a second signal exits 14 at once.
+- ``Launcher(profile=DIR)``: :meth:`Launcher.run` runs the workflow
+  inside ``profiling.trace(DIR)`` (a ``torch.profiler`` Chrome trace)
+  and then writes the analytic per-layer FLOPs table,
+  ``DIR/flops_table.json``, atomically.
 
 Left out: the multihost abort path, master/slave, the data-parallel
-mesh, the profiler and telemetry.
+mesh and telemetry.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import json
 import logging
 import os
 import re
@@ -36,7 +41,7 @@ import threading
 import time
 from typing import Any, Optional
 
-from veles_tpu_torch import prng
+from veles_tpu_torch import prng, profiling
 from veles_tpu_torch.backends import make_device
 from veles_tpu_torch.config import root
 
@@ -54,9 +59,12 @@ class Launcher:
     PREEMPT_GRACE_DEFAULT = 25.0
 
     def __init__(self, backend: str = "auto", seed: int = 1234,
-                 snapshot: Optional[str] = None) -> None:
+                 snapshot: Optional[str] = None,
+                 profile: Optional[str] = None) -> None:
         self.backend = backend
         self.snapshot = snapshot
+        #: where ``run`` writes its profiler trace and FLOPs table
+        self.profile_dir = profile
         prng.seed_all(seed)
         self.device = make_device(backend)
         self.workflow = None
@@ -87,11 +95,29 @@ class Launcher:
     def run(self) -> None:
         uninstall = self._install_preempt_handlers()
         try:
-            self.workflow.run()
+            with profiling.trace(self.profile_dir):
+                self.workflow.run()
         finally:
             uninstall()
         if self._preempt_signum is not None:
             self._finish_preempt()   # never returns
+        if self.profile_dir:
+            self._dump_flops_table()
+
+    def _dump_flops_table(self) -> None:
+        """The analytic per-layer FLOPs and params table, next to the
+        trace."""
+        forwards = getattr(self.workflow, "forwards", None)
+        if not forwards:
+            return
+        from veles_tpu_torch.snapshotter import atomic_write
+        path = os.path.join(self.profile_dir, "flops_table.json")
+        with atomic_write(path, "w") as f:
+            json.dump({"layers": profiling.layer_flops_table(forwards),
+                       "total": profiling.model_flops_per_sample(forwards)},
+                      f, indent=1)
+        log.info("profile: trace and flops_table.json in %s",
+                 self.profile_dir)
 
     # -- the graceful stop ------------------------------------------------
 

@@ -250,7 +250,8 @@ class Loader:
 
         def shape_back(t):
             return t.reshape((k, mb) + tuple(t.shape[1:]))
-        labels = shape_back(torch.as_tensor(labels, dtype=torch.int64))
+        if labels is not None:
+            labels = shape_back(torch.as_tensor(labels, dtype=torch.int64))
         if targets is not None:
             targets = shape_back(torch.as_tensor(targets,
                                                  dtype=torch.float32))

@@ -46,11 +46,17 @@ the bytes of its stored dtype, against the residency budget
   streams its rows from the host (:meth:`assemble_rows`,
   ``loader/base.py``).
 
+A set without labels (an :class:`ArrayLoader` of ``(x,)`` splits, a
+:class:`DeviceArrayLoader`) trains only against regression targets:
+its ``host_labels`` and ``original_labels`` stay None.
+
 A snapshot carries no host or device array: ``load_data`` runs again
 at every ``initialize`` (the synthetic and file loaders regenerate or
 re-read their data; an :class:`ArrayLoader` keeps its split arrays).
-Not ported: the reference's mesh placements (row-sharded residency),
-``DeviceArrayLoader`` and the host ``fill_minibatch`` path.
+:class:`DeviceArrayLoader` takes splits that are already tensors on the
+device and never makes a host copy.  Not ported: the reference's mesh
+placements (row-sharded residency) and the host ``fill_minibatch``
+path.
 """
 
 from __future__ import annotations
@@ -208,7 +214,8 @@ class FullBatchLoader(Loader):
 
     def initialize(self, device: Any = None) -> None:
         super().initialize(device)
-        self.host_labels = np.asarray(self.host_labels, np.int64)
+        if self.host_labels is not None:
+            self.host_labels = np.asarray(self.host_labels, np.int64)
         self._decide_residency()
         if not self.device_resident:
             return
@@ -216,7 +223,8 @@ class FullBatchLoader(Loader):
         if data.dtype.kind == "f" and data.dtype != np.float32:
             data = data.astype(np.float32)
         self.original_data = device.put(data)
-        self.original_labels = device.put(self.host_labels)
+        if self.host_labels is not None:
+            self.original_labels = device.put(self.host_labels)
         if self.host_targets is self.host_data:
             self.original_targets = self.original_data
         elif self.host_targets is not None:
@@ -253,9 +261,73 @@ class FullBatchLoader(Loader):
                 rows(self.host_targets))
 
 
+class DeviceArrayLoader(FullBatchLoader):
+    """A FullBatchLoader over splits that are already torch tensors on
+    the runner's device (``train`` required, ``valid`` and ``test``
+    optional): the DBN's stage-chaining loader (``models/mnist_dbn.py``).
+    ``load_data`` concatenates them on the device in the canonical
+    [test | valid | train] layout and binds the result as
+    ``original_data``: no host copy exists (``host_data`` stays None)
+    and ``ingest_h2d_bytes``, the device's ``h2d_bytes`` delta across
+    ``load_data``, is 0.  ``targets_from_data=True`` makes
+    ``original_targets`` the same tensor.  A split on another device
+    raises.  The set has no labels and takes no normalization or codec:
+    it trains against its targets."""
+
+    def __init__(self, workflow: Any = None, train: Any = None,
+                 valid: Any = None, test: Any = None,
+                 targets_from_data: bool = False, **kwargs: Any) -> None:
+        super().__init__(workflow, **kwargs)
+        if train is None:
+            raise ValueError(f"{self.name}: a train split is required")
+        self._splits = {TRAIN: train, VALID: valid, TEST: test}
+        self._sample_shape = tuple(train.shape[1:])
+        self.targets_from_data = targets_from_data
+        #: the device's h2d_bytes consumed by load_data
+        self.ingest_h2d_bytes = 0
+
+    _unpicklable = FullBatchLoader._unpicklable + ("_splits",)
+
+    @property
+    def sample_shape(self):
+        return self._sample_shape
+
+    def load_data(self) -> None:
+        dev = self.device
+        before = dev.h2d_bytes
+        xs = []
+        for klass in (TEST, VALID, TRAIN):
+            x = self._splits[klass]
+            if x is None:
+                self.class_lengths[klass] = 0
+                continue
+            if not isinstance(x, torch.Tensor) or x.device != dev.device:
+                where = x.device if isinstance(x, torch.Tensor) \
+                    else type(x).__name__
+                raise ValueError(
+                    f"{self.name}: split on {where}, not on the runner's "
+                    f"device {dev.device}")
+            self.class_lengths[klass] = int(x.shape[0])
+            xs.append(x)
+        data = xs[0] if len(xs) == 1 else torch.cat(xs, dim=0)
+        self.original_data = data
+        if self.targets_from_data:
+            self.original_targets = data
+        self._splits = {TRAIN: None, VALID: None, TEST: None}
+        self.ingest_h2d_bytes = dev.h2d_bytes - before
+
+    def post_load_data(self) -> None:
+        """No normalization and no codec: the set is on the device."""
+
+    def initialize(self, device: Any = None) -> None:
+        Loader.initialize(self, device)
+        self.device_resident = True
+
+
 class ArrayLoader(FullBatchLoader):
     """A FullBatchLoader over in-memory numpy arrays per split:
-    ``train=(x, y)`` required, ``valid`` and ``test`` optional;
+    ``train=(x, y)`` required (``(x,)``: a set without labels, for
+    regression targets), ``valid`` and ``test`` optional;
     ``targets_from_labels=True`` makes the samples their own regression
     targets (the reference's name for an autoencoder's targets, aliased
     as above).  Unlike the generated data sets, the split arrays ride
@@ -285,13 +357,16 @@ class ArrayLoader(FullBatchLoader):
             if split is None:
                 self.class_lengths[klass] = 0
                 continue
-            if len(split) < 2 or split[1] is None:
-                raise ValueError(f"{self.name}: every split needs labels")
             x = np.asarray(split[0])
             self.class_lengths[klass] = len(x)
             xs.append(x)
-            ys.append(np.asarray(split[1]))
+            if len(split) > 1 and split[1] is not None:
+                ys.append(np.asarray(split[1]))
+        if ys and len(ys) != len(xs):
+            raise ValueError(f"{self.name}: some splits have labels and "
+                             f"some do not")
         self.host_data = np.concatenate(xs, axis=0)
-        self.host_labels = np.concatenate(ys, axis=0).astype(np.int64)
+        self.host_labels = np.concatenate(ys, axis=0).astype(np.int64) \
+            if ys else None
         if self._targets_from_labels:
             self.host_targets = self.host_data

@@ -1,7 +1,7 @@
 """Fully-connected (All2All) units and their gradient unit.
 
 Counterpart of ``veles_tpu/ops/all2all.py``: ``y = x @ W + b`` with W
-of shape (n_in, n_out), the relu / tanh / softmax heads, and
+of shape (n_in, n_out), the relu / tanh / sigmoid / softmax heads, and
 ``GradientDescent`` with its per-activation aliases, written as the
 reference's explicit matmuls.  The
 input is flattened in NHWC order, as the reference's ``_flat`` does:
@@ -73,6 +73,16 @@ class All2AllRELU(All2All):
         return torch.relu(v)
 
 
+class All2AllSigmoid(All2All):
+    """Sigmoid dense layer: ``sigmoid(x W + b)`` is the RBM's
+    ``hidden_of``, so a pretrained RBM's (weights, bias) drop into one
+    (``models/mnist_dbn.py``)."""
+    activation_mode = "sigmoid"
+
+    def activation(self, v):
+        return torch.sigmoid(v)
+
+
 class All2AllSoftmax(All2All):
     """Softmax output layer: its gradient unit takes the evaluator's
     err_output as d loss / d logits (the softmax+CE fusion), so nothing
@@ -105,3 +115,4 @@ class GradientDescent(GradientUnit):
 GDTanh = GradientDescent
 GDRELU = GradientDescent
 GDSoftmax = GradientDescent
+GDSigmoid = GradientDescent

@@ -5,7 +5,10 @@ end it takes the class's ``[n_err, loss_sum, count]`` from the fused
 runner (one host fetch), appends a ``history`` row, tracks the best
 validation error (``improved``), and sets ``complete`` once
 ``max_epochs`` is reached or validation has not improved for
-``fail_iterations`` epochs.  ``improved`` and ``complete`` are plain
+``fail_iterations`` epochs.  With an evaluator's confusion matrix, the
+class's matrix is kept in ``confusion_per_class[klass]`` (a host int32
+array, replaced at every end of that class).  ``improved`` and
+``complete`` are plain
 booleans: the port has no ``mutable.Bool`` graph.  All of it is plain
 state that rides in a snapshot as it is.
 """
@@ -41,6 +44,12 @@ class DecisionGD:
         self.min_train_error = float("inf")
         #: per-class-end rows: epoch, class, n_err, loss, error_pct, count
         self.history: List[dict] = []
+        #: the last completed class's confusion matrix, per class
+        self.confusion_per_class: List[Any] = [None, None, None]
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self.__dict__.setdefault("confusion_per_class", [None, None, None])
 
     def run(self) -> None:
         self.improved = False
@@ -48,7 +57,9 @@ class DecisionGD:
         if not ld.class_ended:
             return
         klass = ld.minibatch_class
-        n_err, loss, count = self.metrics_source.take_class_metrics()
+        n_err, loss, count, conf = self.metrics_source.take_class_metrics()
+        if conf is not None:
+            self.confusion_per_class[klass] = conf
         self.epoch_n_err[klass] = n_err
         self.epoch_loss[klass] = loss / max(count, 1.0)
         self.epoch_error_pct[klass] = 100.0 * n_err / max(count, 1.0)

@@ -9,14 +9,15 @@ fused step accumulates on the device.
 
 - ``EvaluatorSoftmax``: int64 labels; ``err_output = (probs - onehot) *
   mask / max(mask.sum(), 1)`` (d mean CE / d logits, the softmax+CE
-  fusion), ``loss_sum`` with eps 1e-12 under the log.
+  fusion), ``loss_sum`` with eps 1e-12 under the log, and ``max_idx``,
+  each row's predicted class.  With ``compute_confusion`` (the default,
+  as in the reference) the fused step accumulates the (n, n) confusion
+  matrix over ``(target, max_idx)`` on the device (``ops/fused.py``).
 - ``EvaluatorMSE`` (``wants_targets``: the fused step hands it the f32
   regression targets in place of labels): normalized per ELEMENT, with
   D the features of a sample, ``err_output = (y - t) * mask /
   max(n * D, 1)``, ``loss_sum`` the sum over valid rows of ``0.5 *
   ||y - t||^2 / D``, and ``n_err`` 0.
-
-The confusion matrix is not ported.
 """
 
 from __future__ import annotations
@@ -33,10 +34,16 @@ class EvaluatorSoftmax:
     wants_targets = False
 
     def __init__(self, workflow: Any = None, name: str = "evaluator",
-                 n_classes: Optional[int] = None) -> None:
+                 n_classes: Optional[int] = None,
+                 compute_confusion: bool = True) -> None:
         self.workflow = workflow
         self.name = name
         self.n_classes = n_classes
+        self.compute_confusion = compute_confusion
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self.__dict__.setdefault("compute_confusion", True)
 
     def metrics_fn(self, output: torch.Tensor, target: torch.Tensor,
                    mask: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -49,7 +56,7 @@ class EvaluatorSoftmax:
         p = output.gather(1, target[:, None])[:, 0]
         loss_sum = -(torch.log(torch.clamp(p, min=eps)) * mask).sum()
         return {"err_output": err, "n_err": n_err, "loss_sum": loss_sum,
-                "count": n}
+                "count": n, "max_idx": pred}
 
 
 class EvaluatorMSE:

@@ -7,8 +7,11 @@ Counterpart of ``veles_tpu/ops/fused.py``:
   on CUDA) against f32 master params, the evaluator's metrics on the
   f32 output, and on TRAIN the reverse walk of gradient units with the
   SGD update.  One firing runs the loader's superstep of k same-class
-  minibatches; ``[n_err, loss_sum, count]`` accumulate on the device
-  and reach the host once per class end
+  minibatches; ``[n_err, loss_sum, count]`` and, for an evaluator
+  with ``compute_confusion``, the (n, n) int32 confusion matrix (each
+  valid row's 1 added at ``(target, max_idx)``, the reference's
+  ``conf.at[target, max_idx].add(mask)``) accumulate on the device and
+  reach the host once per class end
   (:meth:`~FusedStepRunner.take_class_metrics`).  The reference's
   ``lax.scan`` is a Python loop here.  The evaluator's target is the
   minibatch's labels, or, for an evaluator with ``wants_targets``
@@ -34,10 +37,14 @@ Counterpart of ``veles_tpu/ops/fused.py``:
     before the forward's cast to the compute dtype.
 
   A snapshot pickles the runner with its params, velocities and partial
-  class metrics as host arrays, its dropout counter and its counters;
-  ``initialize`` rebuilds the chains and re-binds the device.  Not
-  ported: mesh and data-sharded placement, the confusion matrix,
-  telemetry.
+  class metrics (the confusion matrix among them) as host arrays, its
+  dropout counter and its counters; ``initialize`` rebuilds the chains
+  and re-binds the device.  :meth:`~FusedStepRunner.set_host_params`
+  may change a layer's param shapes (``ResizableAll2All.resize``): the
+  layer's momentum buffers are then reshaped as the reference's
+  ``reconcile_velocities`` does, and :meth:`~FusedStepRunner.
+  invalidate_trace` rebuilds the chains.  Not ported: mesh and
+  data-sharded placement, telemetry.
 - :class:`EnsembleEvalEngine`, the serving half of the reference's
   class.  Every member's params are stacked along a leading member axis
   and uploaded once; a prediction runs each member's forward in the
@@ -90,8 +97,10 @@ class FusedStepRunner:
         self._params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self._opt: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self._rng_counter = 0
-        #: on-device [n_err, loss_sum, count] since the last class end
+        #: on-device [n_err, loss_sum, count] since the last class end,
+        #: and the (n, n) int32 confusion matrix (None: not wanted)
         self._acc: Optional[torch.Tensor] = None
+        self._conf: Optional[torch.Tensor] = None
         #: per-minibatch ABSOLUTE (weights, bias) rates, (k, n_gd, 2),
         #: written by LearningRateAdjust; None = the units' own rates
         self.lr_rates = None
@@ -107,10 +116,11 @@ class FusedStepRunner:
         self.stream_transfer_seconds = 0.0
         self._host_opt: Optional[Dict[str, Dict[str, np.ndarray]]] = None
         self._acc_carry: Optional[np.ndarray] = None
+        self._conf_carry: Optional[np.ndarray] = None
         self._stream_state = None
 
     #: rebuilt by initialize, never pickled
-    _unpicklable = ("device", "_params", "_opt", "_acc", "_ingest",
+    _unpicklable = ("device", "_params", "_opt", "_acc", "_conf", "_ingest",
                     "_forward", "_backward", "_cast", "_stream_state")
 
     def _to_host(self, d: dict) -> None:
@@ -124,6 +134,8 @@ class FusedStepRunner:
                               for g, ps in self._opt.items()}
         if self._acc is not None:
             d["_acc_carry"] = self.device.get(self._acc)
+            d["_conf_carry"] = None if self._conf is None else \
+                self.device.get(self._conf)
 
     def __getstate__(self) -> dict:
         d = dict(self.__dict__)
@@ -134,6 +146,7 @@ class FusedStepRunner:
 
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)
+        self.__dict__.setdefault("_conf_carry", None)
         for key in self._unpicklable:
             self.__dict__[key] = None
         self.restored = self._host_params is not None
@@ -147,7 +160,7 @@ class FusedStepRunner:
         class metrics."""
         if params is not None:
             self._host_params, self._host_opt = params, None
-            self._acc_carry = None
+            self._acc_carry = self._conf_carry = None
         else:
             self._to_host(self.__dict__)
             if self._host_params is None:
@@ -155,21 +168,41 @@ class FusedStepRunner:
         self.device = device
         self.compute_dtype = batching.resolve_compute_dtype(
             self.compute_dtype, device)
-        self._params = self._opt = self._acc = None
+        self._params = self._opt = self._acc = self._conf = None
         self._stream_state = None
         self.streaming = not getattr(self.loader, "device_resident", True)
         if self.streaming and getattr(self.loader, "dequant", None) is None:
             # the forward's first op is this cast: doing it on the host
             # halves the bytes that cross PCIe in bf16
             self.loader.stream_dtype = self.compute_dtype
-        seed = prng.get(RNG_STREAM).seed
         self._ingest = engine_core.build_ingest(
             getattr(self.loader, "dequant", None), device)
+        self._build_chains()
+
+    def _build_chains(self) -> None:
+        seed = prng.get(RNG_STREAM).seed
         self._forward = engine_core.build_forward(
             self.forwards, seed, self.compute_dtype)
         self._backward = engine_core.build_backward(
             self.forwards, self.gds, self.compute_dtype)
         self._cast = batching.make_caster(self.compute_dtype)
+
+    def invalidate_trace(self) -> None:
+        """Rebuild the forward and backward chains after a param shape
+        changed (the counterpart of the reference's
+        ``invalidate_trace``; eager chains hold no shapes, so the params
+        and velocities on the device stay)."""
+        self._build_chains()
+
+    @property
+    def has_params(self) -> bool:
+        """True once :meth:`initialize` gave the runner params."""
+        return self._params is not None or self._host_params is not None
+
+    def _want_confusion(self) -> bool:
+        ev = self.evaluator
+        return bool(getattr(ev, "compute_confusion", False)) and \
+            getattr(ev, "n_classes", None) is not None
 
     def _ensure_params(self) -> None:
         """f32 master params on the device, and the velocities: the
@@ -217,7 +250,12 @@ class FusedStepRunner:
         if self._acc is None:
             self._acc = dev.zeros(3) if self._acc_carry is None else \
                 dev.put(self._acc_carry)
-            self._acc_carry = None
+            if self._want_confusion():
+                n = self.evaluator.n_classes
+                self._conf = dev.zeros((n, n), torch.int32) \
+                    if self._conf_carry is None else \
+                    dev.put(self._conf_carry)
+            self._acc_carry = self._conf_carry = None
         mask = dev.put(ld.superstep_mask)
         k = mask.shape[0]
         train = ld.minibatch_class == TRAIN
@@ -255,6 +293,13 @@ class FusedStepRunner:
                     m["err_output"], lr[j])
             self._acc += torch.stack([m["n_err"], m["loss_sum"],
                                       m["count"]])
+            if self._conf is not None:
+                # a scatter-add into the flat (n, n) matrix:
+                # index_put_(accumulate=True) would check its indices'
+                # range on the host, a device sync every minibatch
+                n = self._conf.shape[0]
+                self._conf.view(-1).index_add_(
+                    0, target * n + m["max_idx"], mask[j].to(torch.int32))
         self._rng_counter += k
         if self.streaming and dev.platform == "cuda":
             # the staging buffer of this firing is free again once the
@@ -289,17 +334,22 @@ class FusedStepRunner:
         st = self._stream_state
         return None if st is None else st.last_copy_ms()
 
-    def take_class_metrics(self) -> Tuple[float, float, float]:
-        """(n_err, loss_sum, count) accumulated since the last call: ONE
-        small device fetch, then reset."""
+    def take_class_metrics(self) -> Tuple[float, float, float,
+                                          Optional[np.ndarray]]:
+        """(n_err, loss_sum, count, confusion) accumulated since the last
+        call, then reset: the metrics and the (n, n) int32 confusion
+        matrix (None when the evaluator computes none) fetched once."""
         if self._acc is None:
-            acc, self._acc_carry = self._acc_carry, None
+            acc, conf = self._acc_carry, self._conf_carry
+            self._acc_carry = self._conf_carry = None
             if acc is None:
-                return 0.0, 0.0, 0.0
+                return 0.0, 0.0, 0.0, None
         else:
             acc = self.device.get(self._acc)
-        self._acc = None
-        return float(acc[0]), float(acc[1]), float(acc[2])
+            conf = None if self._conf is None else \
+                self.device.get(self._conf)
+        self._acc = self._conf = None
+        return float(acc[0]), float(acc[1]), float(acc[2]), conf
 
     def host_params(self) -> Dict[str, Dict[str, np.ndarray]]:
         """Current params as host arrays (port layout); pass them through
@@ -308,12 +358,34 @@ class FusedStepRunner:
         return {fn: {pn: self.device.get(t) for pn, t in ps.items()}
                 for fn, ps in self._params.items()}
 
+    def device_params(self, name: str) -> Dict[str, torch.Tensor]:
+        """Forward ``name``'s live f32 master params on the device (no
+        copy): what stacks the DBN's stages without a host visit."""
+        self._ensure_params()
+        return dict(self._params[name])
+
     def set_host_params(self, params) -> None:
-        """Adopt host params (port layout); velocities stay as they are."""
+        """Adopt host params (port layout).  Velocities stay as they
+        are, unless a param changed shape: its momentum buffer is then
+        reshaped, the overlap keeping its history and new entries
+        starting at zero (the reference's ``reconcile_velocities``)."""
         self._ensure_params()
         self._params = {fn: {pn: self.device.put(
             np.asarray(params[fn][pn], np.float32)) for pn in ps}
             for fn, ps in self._params.items()}
+        for f, gd in zip(self.forwards, self.gds):
+            if gd is None or gd.name not in self._opt:
+                continue
+            vel = self._opt[gd.name]
+            for pn, p in self._params[f.name].items():
+                v = vel[pn]
+                if v.shape == p.shape:
+                    continue
+                new = torch.zeros_like(p)
+                overlap = tuple(slice(0, min(a, b))
+                                for a, b in zip(v.shape, p.shape))
+                new[overlap] = v[overlap]
+                vel[pn] = new
 
 
 class _StagedUpload:

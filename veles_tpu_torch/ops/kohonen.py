@@ -25,7 +25,7 @@ as the reference does.
   one) and sums the group's quantization error and row count in f32 in
   step order; a TRAIN group updates the weights, an evaluation group
   only measures.  :meth:`KohonenTrainer.take_class_metrics` hands
-  ``DecisionGD`` the class's ``(0, qe_sum, count)``, the contract of
+  ``DecisionGD`` the class's ``(0, qe_sum, count, None)``, the contract of
   ``FusedStepRunner.take_class_metrics``.
 
 Not ported: ``SOMPopulationEngine`` (ensembles), the eager per-minibatch
@@ -214,14 +214,14 @@ class KohonenTrainer:
             self.processed_eval_images += n
         self._acc = stats if self._acc is None else self._acc + stats
 
-    def take_class_metrics(self) -> Tuple[float, float, float]:
-        """(n_err = 0, qe_sum, count) since the last call: one small
-        device fetch, then reset."""
+    def take_class_metrics(self) -> Tuple[float, float, float, None]:
+        """(n_err = 0, qe_sum, count, no confusion) since the last call:
+        one small device fetch, then reset."""
         if self._acc is None:
-            return 0.0, 0.0, 0.0
+            return 0.0, 0.0, 0.0, None
         acc = self.device.get(self._acc)
         self._acc = None
-        return 0.0, float(acc[0]), float(acc[1])
+        return 0.0, float(acc[0]), float(acc[1]), None
 
     def host_weights(self) -> np.ndarray:
         return self.device.get(self.weights)

@@ -37,10 +37,11 @@ class ForwardUnit:
     """Base forward unit: input -> output, optional weights/bias."""
 
     #: how a GradientUnit treats this unit's nonlinearity: "linear" |
-    #: "tanh" | "relu" | "softmax" (softmax's derivative is folded into
-    #: the evaluator's err_output)
+    #: "tanh" | "relu" | "sigmoid" | "softmax" (softmax's derivative is
+    #: folded into the evaluator's err_output)
     activation_mode = "linear"
-    #: True when training-mode apply consumes randomness (dropout)
+    #: True when training-mode apply consumes randomness (dropout,
+    #: binarization, stochastic pooling, the RBM's CD sampling)
     stochastic = False
 
     def __init__(self, workflow: Any = None, name: Optional[str] = None,
@@ -167,6 +168,8 @@ class GradientUnit:
             return err_output * (1.0 - output * output)
         if mode == "relu":
             return err_output * (output > 0).to(output.dtype)
+        if mode == "sigmoid":
+            return err_output * output * (1.0 - output)
         raise ValueError(f"unknown activation_mode {mode!r}")
 
     def backward_from_saved(self, params: Dict[str, torch.Tensor],

@@ -13,6 +13,16 @@ counterpart: torch cannot reproduce threefry bits.  In its place
 (``fold_in(fold_in(key(seed), rc), i)``), so dropout masks are
 deterministic within the port but differ from the reference's.
 
+:func:`uniform` is the one seam every other traced draw goes through
+(binarization, CD-k sampling, stochastic pooling): f32 uniforms on
+``[0, 1)`` for a layer's generator and a Gibbs step ``t``, step ``t > 0``
+from a generator keyed by ``(layer's key, t)``, the counterpart of
+``fold_in(rng, t)``.  The units write the reference's formulas on top
+(Bernoulli ``u < p``, Gumbel ``-log(-log(max(u, tiny)))``), so a test
+that replaces :func:`torch_generator` and :func:`uniform` with the
+reference's key chain and ``jax.random.uniform`` draws exactly the
+reference's uniforms.  Dropout keeps its own ``torch.rand`` draw.
+
 :func:`snapshot_state` / :func:`restore_state` carry every named
 stream's numpy state through a snapshot (``snapshotter.py``), so a
 resumed run neither re-draws ``"weights"`` nor re-shuffles
@@ -117,3 +127,19 @@ def torch_generator(seed: int, counter: int, layer: int,
     gen = torch.Generator(device=device)
     gen.manual_seed(generator_seed(seed, counter, layer))
     return gen
+
+
+def uniform(rng: torch.Generator, shape, device: torch.device,
+            t: int = 0) -> torch.Tensor:
+    """f32 uniforms on ``[0, 1)`` of ``shape`` on ``device``: from the
+    layer's generator ``rng`` at Gibbs step ``t == 0``, else from a
+    generator keyed by ``(rng's seed, t)``.  On the card ``rng`` is a
+    CUDA generator and the draw is made there."""
+    if t:
+        gen = torch.Generator(device=rng.device)
+        gen.manual_seed(_splitmix64(rng.initial_seed() ^ (t & _M64))
+                        & ((1 << 63) - 1))
+        rng = gen
+    u = torch.rand(tuple(shape), generator=rng, device=rng.device,
+                   dtype=torch.float32)
+    return u.to(device)
