@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Drives the port's two main paths at the full width of AlexNet, serving
-and training (resident, streamed, resumed, and over uint8 pixels through
-the ingest codec), trains the mnist7, cifar10, mnist_ae, wine,
-mnist_rbm and mnist_dbn models and the Kohonen SOM at their published
-sizes (the MNIST and CIFAR-10 ones from data files), profiles training
-supersteps, and holds each hand-written kernel against its plain
+and training (resident, streamed, resumed, over uint8 pixels through
+the ingest codec, and as a population-batched cohort), trains the
+mnist7, cifar10, mnist_ae, wine, mnist_rbm and mnist_dbn models and the
+Kohonen SOM at their published sizes (the MNIST and CIFAR-10 ones from
+data files), profiles training supersteps, runs the GA and ensembles
+through the CLI, and holds each hand-written kernel against its plain
 PyTorch version.  Every phase is fatal: the script
 exits nonzero, printing no result line, when any check fails, when
 there is no CUDA device, or when it is run without the repository
@@ -152,11 +153,37 @@ beside it.  It imports nothing of JAX and nothing of the JAX package.
    the host's own time per minibatch, kernels per minibatch; AlexNet's
    MFU from the analytic FLOPs at the train phase's and the timed
    superstep's img/s, against the datasheet's peak.
-19. Summary: ``serve``, ``train``, ``stream``, ``preempt``, ``data``,
+19. Cohort: ``PopulationTrainEngine`` over full-width AlexNet, P = 2
+   learning rates (the model's, and half), one epoch of phase 4's cut
+   set, in bf16 and then in f32.  The launch counts are those of ONE
+   member's run (18 ``lrn_fwd``, 16 ``lrn_bwd``): the kernels' member
+   rule folds the members into the rows; the first folded launches of
+   each kernel against its plain version (one bf16 ulp); each member
+   against a per-genome run of its rates (n_err at every class end, the
+   model's params; in f32 also each param's change).  Then a warm bf16
+   cohort under ``torch.profiler``, and each AlexNet convolution grouped
+   (as ``vmap`` batches it) against a loop over the members.
+20. SOM cohort: ``SOMPopulationEngine`` over ``models/kohonen.py``'s
+   DEFAULTS with 4 genomes, against 4 per-member runs on the card.
+21. GA: ``python -m veles_tpu_torch -b cuda --optimize 8:2 --ga-state``
+   on ``models/mnist.py`` (BASELINE #1: 784-100-10, minibatch 60,
+   60 000 + 10 000 images from the phase-8 IDX files) in f32, its two
+   learning rates and the first weight decay as genes, 2 epochs a
+   genome: the evaluator's hello names the card, one cohort a
+   generation ([8], [6], [6]), no fallback; genomes/s and the cohort's
+   ms per minibatch; two genomes of the last generation trained again
+   per genome on the card, their fitness their cohort fitness.
+22. Ensemble: ``--ensemble-train 2 --ensemble-test`` on
+   ``models/mnist7.py`` at full width (1 epoch a member) through the
+   CLI on the card, ``--ensemble-test --ensemble-device host`` on its
+   file (the same error % within one image), and the members' mean
+   probabilities on the card against the CPU.
+23. Summary: ``serve``, ``train``, ``stream``, ``preempt``, ``data``,
    ``mnist7``, ``cifar10``, ``quantized``, ``mnist_ae``, ``kohonen``,
-   ``layers``, ``wine``, ``mnist_rbm``, ``mnist_dbn`` and ``profile``
-   JSON lines, the total minutes, the card line, the ``kernels`` line,
-   then the device line last.
+   ``layers``, ``wine``, ``mnist_rbm``, ``mnist_dbn``, ``profile``,
+   ``cohort``, ``som_cohort``, ``ga`` and ``ensemble`` JSON lines, the
+   total minutes, the card line, the ``kernels`` line, then the device
+   line last.
 """
 
 from __future__ import annotations
@@ -2606,6 +2633,699 @@ def profile_phase(card: str, workdir: str, alexnet_w, train: dict,
 
 # -- phase 19: summary -------------------------------------------------------
 
+# -- phases 19-22: the GA, population-batched cohorts, ensembles --------------
+
+#: the GA phase: BASELINE #1 (models/mnist.py at its DEFAULTS' widths and
+#: minibatch) with liftable genes only, so each generation is one cohort
+GA_POP, GA_GENS, GA_EPOCHS, GA_SEED = 8, 2, 2, 1234
+#: the GA's fitness is an n_err count; a genome re-run per genome must
+#: give its cohort fitness within the CPU tests' bar (tests/
+#: test_torch_population.py)
+GA_FITNESS_ATOL = 1e-3
+GA_WORKFLOW = '''
+import torch
+
+from veles_tpu_torch.models import mnist
+
+
+def create_workflow(launcher):
+    # f32, so that the per-genome re-runs compare like with like
+    w = mnist.create_workflow(launcher)
+    w.fused.compute_dtype = torch.float32
+    return w
+
+
+def run(launcher):
+    launcher.create_workflow(create_workflow)
+    launcher.initialize()
+    launcher.run()
+'''
+GA_CONFIG = '''
+from veles_tpu_torch.config import root
+from veles_tpu_torch.genetics import Tune
+
+root.common.data_dir = {data_dir!r}
+root.mnist.decision = {{"max_epochs": {epochs}, "fail_iterations": 50}}
+root.mnist.layers = [
+    {{"type": "all2all_tanh", "->": {{"output_sample_shape": 100}},
+     "<-": {{"learning_rate": Tune(0.1, 0.01, 1.0),
+            "weight_decay": Tune(0.0, 0.0, 0.001)}}}},
+    {{"type": "softmax", "->": {{"output_sample_shape": 10}},
+     "<-": {{"learning_rate": Tune(0.1, 0.01, 1.0),
+            "weight_decay": 0.0}}}},
+]
+'''
+#: the AlexNet cohort: P learning-rate factors on the model's own rates,
+#: one epoch of the training phase's cut set; in bf16 (the card's
+#: default, the kernels' main path) and again in f32 (TF32 off)
+COHORT_LR_FACTORS = (1.0, 0.5)
+COHORT_OVERRIDES = ["root.alexnet.loader.n_train=1024",
+                    "root.alexnet.loader.n_valid=128",
+                    "root.alexnet.decision.max_epochs=1"]
+#: cohort against per-genome runs: each class end's n_err within 2% of
+#: its count; the whole model's trained params within 1e-4 (bf16: a
+#: grouped convolution rounds to bf16 elsewhere than a plain one) and
+#: 1e-5 (f32) relative, L2 over every param; in f32 also each param's
+#: trained CHANGE within 2e-2 relative (L2).  The changes of one epoch
+#: at chance level are tiny, and a zero-initialized bias's change is a
+#: sum over the batch and every pixel that mostly cancels: summed in
+#: another order it moves by up to 1% (PERF.md); in bf16 by up to
+#: 13%, so no bound on the bf16 changes
+COHORT_NERR_SHARE = 0.02
+COHORT_MODEL_RTOL = {"bfloat16": 1e-4, "float32": 1e-5}
+COHORT_UPDATE_RTOL = {"bfloat16": None, "float32": 2e-2}
+#: the SOM cohort: kohonen's DEFAULTS, P genomes (alpha0, alpha_min,
+#: sigma0, sigma_min); against per-member runs on the card, the same f32
+#: operations batched (bmm for mm): every fitness (the least mean
+#: quantization error) within 1e-4 relative.  The maps are compared, not
+#: bounded, as the kohonen phase compares card and CPU: a near-tie winner
+#: that flips under another summation order moves other prototypes
+#: (PERF.md)
+SOM_GENOMES = ((0.3, 0.01, 4.0, 0.5), (0.5, 0.02, 4.0, 1.0),
+               (0.1, 0.01, 3.0, 0.5), (0.3, 0.05, 2.0, 0.5))
+SOM_FIT_RTOL = 1e-4
+#: ensembles: mnist7 at full width, cut to one epoch a member
+ENSEMBLE_MEMBERS, ENSEMBLE_EPOCHS = 2, 1
+#: card (bf16 engine) against CPU (f32 member loop) on the same members:
+#: mean probabilities within 2e-2 absolute, on the first ENSEMBLE_ROWS
+#: validation images
+ENSEMBLE_PROB_ATOL, ENSEMBLE_ROWS = 2e-2, 512
+
+
+def _cli(args, timeout: float, env=None):
+    """``python -m veles_tpu_torch ARGS`` from the repository root:
+    (rc, stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "veles_tpu_torch", *args],
+                         capture_output=True, text=True, cwd=HERE,
+                         timeout=timeout, env=env)
+    return res.returncode, res.stdout, res.stderr, \
+        time.perf_counter() - t0
+
+
+def _last_json(stdout: str) -> dict:
+    lines = [ln for ln in stdout.strip().splitlines() if ln.startswith("{")]
+    check(bool(lines), f"no JSON result line in {stdout[-500:]!r}")
+    return json.loads(lines[-1])
+
+
+def _per_genome_fitness(wf: str, cfg: str, values: dict, seed: int):
+    """One genome trained on the card in process, as the one-shot worker
+    does it: (fitness, train and validation minibatches, seconds)."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.genetics import substitute_tunes
+    from veles_tpu_torch.launcher import (Launcher, apply_config_file,
+                                          drive_workflow, workflow_fitness)
+    import torch
+    saved_root = copy.deepcopy(dict(root.__dict__))
+    try:
+        apply_config_file(cfg)
+        substitute_tunes(root, values)
+        launcher = Launcher(backend="cuda", seed=seed)
+        t0 = time.perf_counter()
+        drive_workflow(launcher, wf)
+        torch.cuda.synchronize()
+        w = launcher.workflow
+        seconds = w.wall_time
+        mb = sum(-(-h["count"] // w.loader.max_minibatch_size)
+                 for h in w.decision.history)
+        check(w.fused.compute_dtype == torch.float32,
+              f"GA re-run in {w.fused.compute_dtype}")
+        return workflow_fitness(w), mb, seconds, time.perf_counter() - t0
+    finally:
+        root.__dict__.clear()
+        root.__dict__.update(saved_root)
+
+
+def ga_phase(card: str, workdir: str, data_dir: str) -> dict:
+    """``python -m veles_tpu_torch -b cuda --optimize 8:2`` on
+    ``models/mnist.py`` (BASELINE #1) from the IDX files, its two
+    learning rates and the first layer's weight decay as genes (all
+    liftable: one cohort a generation), 2 epochs a genome, in f32; then
+    two genomes of the last generation trained per genome on the card."""
+    gdir = os.path.join(workdir, "ga")
+    os.makedirs(gdir, exist_ok=True)
+    wf, cfg = os.path.join(gdir, "mnist_f32.py"), os.path.join(gdir,
+                                                              "cfg.py")
+    with open(wf, "w") as f:
+        f.write(GA_WORKFLOW)
+    with open(cfg, "w") as f:
+        f.write(GA_CONFIG.format(data_dir=data_dir, epochs=GA_EPOCHS))
+    state = os.path.join(gdir, "ga_state.json")
+    rc, out, err, seconds = _cli(
+        ["-b", "cuda", "--optimize", f"{GA_POP}:{GA_GENS}", "--ga-workers",
+         "2", "--ga-state", state, "-s", str(GA_SEED), wf, cfg],
+        timeout=600)
+    check(rc == 0, f"--optimize exited {rc}: {err[-3000:]}")
+    res = _last_json(out)
+    ev = res.get("evaluator", {})
+    name = card.split(",")[0].strip()
+    check(np.isfinite(res["fitness"]), f"GA best fitness {res['fitness']}")
+    check(ev.get("platform") == "cuda" and ev.get("device") == name,
+          f"the evaluator's hello names {ev.get('device')!r} on "
+          f"{ev.get('platform')!r}, not {name!r}")
+    want_sizes = [[GA_POP]] + [[GA_POP - 2]] * GA_GENS
+    check(res["cohort_sizes"] == want_sizes,
+          f"cohort sizes {res['cohort_sizes']} (want {want_sizes}: one "
+          f"cohort a generation; the 2 elites keep their fitness)")
+    check(res["cohort_fallbacks"] == 0 and ev.get("fallbacks") == 0,
+          f"fallbacks: GA {res['cohort_fallbacks']}, evaluator "
+          f"{ev.get('fallbacks')}")
+    stats = ev["cohort_stats"]
+    check([s["members"] for s in stats] == [sz for g in want_sizes
+                                            for sz in g],
+          f"cohort path: trained chunks {stats}")
+    with open(state) as f:
+        final = json.load(f)["history"][-1]
+    reruns = []
+    for fit, values in final[:2]:
+        got, mb, run_s, drive_s = _per_genome_fitness(wf, cfg, values,
+                                                      GA_SEED)
+        reruns.append({"values": values, "cohort_fitness": fit,
+                       "per_genome_fitness": got,
+                       "ms_per_minibatch": 1e3 * run_s / mb,
+                       "minibatches": mb, "drive_s": drive_s})
+        check(abs(got - fit) <= GA_FITNESS_ATOL,
+              f"genome {values}: per genome {got}, cohort {fit}")
+    cohort_ms = [1e3 * s["seconds"] / s["minibatches"] for s in stats]
+    out = {"population": GA_POP, "generations": GA_GENS,
+           "epochs": GA_EPOCHS, "dtype": "float32", "best": res["best"],
+           "fitness": res["fitness"], "evaluations": res["evaluations"],
+           "eval_seconds": res["eval_seconds"],
+           "genomes_per_s": res["evaluations"] / res["eval_seconds"],
+           "cohort_sizes": res["cohort_sizes"],
+           "cohort_fallbacks": res["cohort_fallbacks"], "evaluator": ev,
+           "cohort_ms_per_minibatch": cohort_ms, "reruns": reruns,
+           "cli_s": seconds, "card": card}
+    print(f"ga: best fitness {res['fitness']} of {res['evaluations']} "
+          f"genomes in {res['eval_seconds']:.1f} s "
+          f"({out['genomes_per_s']:.3f} genomes/s), cohorts "
+          f"{res['cohort_sizes']}, 0 fallbacks; cohort ms per minibatch "
+          f"{[round(v, 3) for v in cohort_ms]} for "
+          f"{[s['members'] for s in stats]} members, one genome's "
+          f"{[round(r['ms_per_minibatch'], 3) for r in reruns]}; re-runs "
+          f"{[(r['cohort_fitness'], r['per_genome_fitness']) for r in reruns]}"
+          f"  [{card}]", flush=True)
+    return out
+
+
+class _Folded:
+    """Wraps ``lrn_cuda``'s kernel launches for one cohort run: keeps the
+    first ``n`` (inputs, output) pairs of each kernel launched on a
+    (members, N, H, W, C) tensor (the member rule's folded launches)."""
+
+    def __init__(self, members: int, n: int) -> None:
+        from veles_tpu_torch.ops import lrn_cuda
+        self.mod, self.members, self.n = lrn_cuda, members, n
+        self.fwd, self.bwd = [], []
+        self.inner = (lrn_cuda._fwd_launch, lrn_cuda._bwd_launch)
+
+        def fwd(x, *cfg):
+            y = self.inner[0](x, *cfg)
+            if len(self.fwd) < self.n and x.dim() == 5 and \
+                    x.shape[0] == self.members:
+                self.fwd.append((x.clone(), y.clone(), cfg))
+            return y
+
+        def bwd(x, e, *cfg):
+            y = self.inner[1](x, e, *cfg)
+            if len(self.bwd) < self.n and x.dim() == 5 and \
+                    x.shape[0] == self.members:
+                self.bwd.append((x.clone(), e.clone(), y.clone(), cfg))
+            return y
+        lrn_cuda._fwd_launch, lrn_cuda._bwd_launch = fwd, bwd
+
+    def restore(self) -> None:
+        self.mod._fwd_launch, self.mod._bwd_launch = self.inner
+
+
+class _CachedSynthetic:
+    """The synthetic set generated once for identical arguments while
+    the phase runs (the cohort and its per-genome runs share one)."""
+
+    def __init__(self) -> None:
+        from veles_tpu_torch.loader import synthetic
+        self.mod = synthetic.datasets
+        self.inner = self.mod.synthetic_classification
+        self.cache = {}
+
+        def cached(*args, **kwargs):
+            key = repr((args, sorted(kwargs.items())))
+            if key not in self.cache:
+                self.cache[key] = self.inner(*args, **kwargs)
+            return copy.deepcopy(self.cache[key])
+        self.mod.synthetic_classification = cached
+
+    def restore(self) -> None:
+        self.mod.synthetic_classification = self.inner
+
+
+def _alexnet_for(rates=None, dtype=None):
+    """A fresh AlexNet workflow of the cut set, seeded SEED, initialized
+    on the card in ``dtype`` (None: the card's bf16); ``rates``
+    (n_gd, 2) replaces its gradient units' base rates."""
+    from veles_tpu_torch.config import parse_overrides, root
+    from veles_tpu_torch.launcher import Launcher, load_workflow_module
+    saved_root = copy.deepcopy(dict(root.__dict__))
+    parse_overrides(COHORT_OVERRIDES)
+    try:
+        launcher = Launcher(backend="cuda", seed=SEED)
+        create = load_workflow_module(ALEXNET_FILE).create_workflow
+        launcher.create_workflow(create)
+        if dtype is not None:
+            launcher.workflow.fused.compute_dtype = dtype
+        launcher.initialize()
+    finally:
+        root.__dict__.clear()
+        root.__dict__.update(saved_root)
+    w = launcher.workflow
+    if rates is not None:
+        for gd, (lr, lrb) in zip(w.gds, rates):
+            gd.learning_rate, gd.learning_rate_bias = float(lr), float(lrb)
+    return w
+
+
+def _norm(a) -> float:
+    return float(np.linalg.norm(np.asarray(a, np.float64).ravel()))
+
+
+def _rel_l2(got, want) -> float:
+    return _norm(np.asarray(got, np.float64) - want) / max(_norm(want),
+                                                           1e-30)
+
+
+def _cohort_engine(dtype):
+    """(workflow, engine) of an AlexNet cohort of the COHORT_LR_FACTORS
+    in ``dtype``, and the members' rates."""
+    from veles_tpu_torch.ops.fused import PopulationTrainEngine
+    P = len(COHORT_LR_FACTORS)
+    w = _alexnet_for(dtype=dtype)
+    check(w.fused.compute_dtype == dtype, f"cohort in "
+          f"{w.fused.compute_dtype}, not {dtype}")
+    base = np.asarray([[gd.learning_rate, gd.learning_rate_bias]
+                       for gd in w.gds], np.float32)
+    rates = np.stack([base * f for f in COHORT_LR_FACTORS])
+    decays = np.stack([np.asarray(
+        [[gd.weight_decay, gd.weight_decay_bias] for gd in w.gds],
+        np.float32)] * P)
+    return w, PopulationTrainEngine(w, rates, decays), rates
+
+
+def _cohort_profile(dtype) -> dict:
+    """A whole cohort run under ``torch.profiler``: the device's kernel
+    time per minibatch and the kernels and operators with the most of
+    it."""
+    import torch
+    from torch.autograd import DeviceType
+    w, engine, _ = _cohort_engine(dtype)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        engine.run()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    kernels = [a for a in avgs
+               if getattr(a, "device_type", None) == DeviceType.CUDA]
+    check(kernels, "cohort: torch.profiler saw no device activity")
+    mb = engine.minibatches
+    out = {"dtype": str(dtype).replace("torch.", ""),
+           "wall_ms_per_minibatch": 1e3 * engine.seconds / mb,
+           "device_ms_per_minibatch": sum(_self_device_us(a)
+                                          for a in kernels) / 1e3 / mb,
+           "top_kernels": _top(kernels, 8),
+           "top_ops": _top([a for a in avgs if getattr(
+               a, "device_type", None) != DeviceType.CUDA], 8)}
+    engine.release()
+    return out
+
+
+def _cohort_run(dtype, folded_members: int = 0) -> dict:
+    """One AlexNet cohort of the COHORT_LR_FACTORS in ``dtype``, and a
+    per-genome run of each member's rates: the launches of the cohort
+    run, its folded LRN launches (``folded_members`` > 0), and per member
+    the n_err of every class end and each param's norms."""
+    import torch
+    P = len(COHORT_LR_FACTORS)
+    w, engine, rates = _cohort_engine(dtype)
+    init = w.fused.host_params()
+    torch.cuda.reset_peak_memory_stats()
+    folded = _Folded(P, 2) if folded_members else None
+    _zero_launches()
+    try:
+        fits = engine.run()
+        torch.cuda.synchronize()
+    finally:
+        if folded is not None:
+            folded.restore()
+    out = {"dtype": str(dtype).replace("torch.", ""),
+           "launches": _launches(), "folded": folded,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "fitness": fits.tolist(), "cohort_s": engine.seconds,
+           "cohort_minibatches": engine.minibatches}
+    hist = [(e, k, a.tolist()) for e, k, a in engine.history]
+    members = [engine.member_params(m) for m in range(P)]
+    engine.release()
+    del engine, w
+    torch.cuda.empty_cache()
+    out["members"] = []
+    for m in range(P):
+        wg = _alexnet_for(rates[m], dtype=dtype)
+        wg.run()
+        params = wg.fused.host_params()
+        per_param = {f"{fn}.{pn}": {
+            "norm": _norm(a), "update_norm": _norm(a - init[fn][pn]),
+            "diff_norm": _norm(members[m][fn][pn] - a)}
+            for fn, ps in params.items() for pn, a in ps.items()}
+        total = sum(v["diff_norm"] ** 2 for v in per_param.values()) ** 0.5
+        out["members"].append({
+            "n_err_cohort": [row[2][m][0] for row in hist],
+            "n_err": [h["n_err"] for h in wg.decision.history],
+            "counts": [h["count"] for h in wg.decision.history],
+            "model_rel_l2": total / max(sum(
+                v["norm"] ** 2 for v in per_param.values()) ** 0.5, 1e-30),
+            "worst_update_rel_l2": max(
+                v["diff_norm"] / max(v["update_norm"], 1e-30)
+                for v in per_param.values()),
+            "params": per_param, "run_wall_s": wg.wall_time})
+        del wg
+        torch.cuda.empty_cache()
+    return out
+
+
+#: AlexNet's convolutions at batch 128 (NHWC input, OIHW weights,
+#: stride, padding): what the cohort's grouped convolutions run
+ALEXNET_CONVS = (((227, 227, 3), (96, 3, 11, 11), 4, 0),
+                 ((27, 27, 96), (256, 96, 5, 5), 1, 2),
+                 ((13, 13, 256), (384, 256, 3, 3), 1, 1),
+                 ((13, 13, 384), (384, 384, 3, 3), 1, 1),
+                 ((13, 13, 384), (256, 384, 3, 3), 1, 1))
+
+
+def _conv_ms(fn, iters: int = 5) -> float:
+    """Mean device ms of ``fn`` over ``iters`` calls after one warm call
+    (CUDA events; the calls queue back to back)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def grouped_conv_times(members: int) -> list:
+    """Per AlexNet convolution in bf16: ``torch.func.vmap`` over stacked
+    weights (the cohort's path: one grouped convolution, its weight and
+    input gradients) against a loop of one convolution per member, ms on
+    warm shapes."""
+    import torch
+    import torch.nn.functional as F
+    out = []
+    for xs, ws, st, pad in ALEXNET_CONVS:
+        x = torch.randn((members, TRAIN_BATCH) + xs, device="cuda",
+                        dtype=torch.bfloat16)
+        w = 0.01 * torch.randn((members,) + ws, device="cuda",
+                               dtype=torch.bfloat16)
+
+        def fwd(xx, ww):
+            return F.conv2d(xx.permute(0, 3, 1, 2), ww, stride=st,
+                            padding=pad).permute(0, 2, 3, 1)
+        e = torch.randn((members,) + tuple(fwd(x[0], w[0]).shape),
+                        device="cuda", dtype=torch.bfloat16)
+
+        def wgrad(xx, ee, ww):
+            return torch.nn.grad.conv2d_weight(
+                xx.permute(0, 3, 1, 2), ww.shape, ee.permute(0, 3, 1, 2),
+                stride=st, padding=pad)
+
+        def dgrad(xx, ee, ww):
+            return torch.nn.grad.conv2d_input(
+                xx.permute(0, 3, 1, 2).shape, ww, ee.permute(0, 3, 1, 2),
+                stride=st, padding=pad)
+        row = {"input": list(xs), "weights": list(ws)}
+        for name, fn, args in (("fwd", fwd, (x, w)),
+                               ("wgrad", wgrad, (x, e, w)),
+                               ("dgrad", dgrad, (x, e, w))):
+            batched = torch.func.vmap(fn)
+            row[f"{name}_grouped_ms"] = _conv_ms(lambda: batched(*args))
+            row[f"{name}_loop_ms"] = _conv_ms(lambda: [
+                fn(*(a[i] for a in args)) for i in range(members)])
+        out.append(row)
+    return out
+
+
+def cohort_phase(card: str) -> dict:
+    """``PopulationTrainEngine`` over full-width AlexNet, P = 2 learning
+    rates, one epoch of 1024 + 128 images, in bf16: the launch counts
+    (the member rule folds the members into one launch a layer), each
+    kernel's folded output against its plain version, both members
+    against per-genome runs; then the same in f32."""
+    import torch
+
+    from veles_tpu_torch.ops import lrn_cuda
+    P = len(COHORT_LR_FACTORS)
+    cache = _CachedSynthetic()
+    try:
+        runs = [_cohort_run(torch.bfloat16, folded_members=P),
+                _cohort_run(torch.float32)]
+        profile = _cohort_profile(torch.bfloat16)
+    finally:
+        cache.restore()
+    convs = grouped_conv_times(P)
+    main = runs[0]
+    launches = main["launches"]
+    train_mb, valid_mb = N_TRAIN // TRAIN_BATCH, -(-N_VALID // TRAIN_BATCH)
+    want = _want_launches(train_mb, valid_mb)
+    for run in runs:
+        check(run["launches"] == want,
+              f"cohort of {P} in {run['dtype']}: launches "
+              f"{run['launches']}, want {want} (one launch a layer for "
+              f"all members)")
+    folded = main.pop("folded")
+    runs[1].pop("folded")
+    kernels = []
+    for x, y, cfg in folded.fwd:
+        ref = lrn_cuda.lrn_fwd_plain(x, *cfg)
+        check_one_ulp(y, ref, f"cohort lrn_fwd {tuple(x.shape)}")
+        kernels.append({"kernel": "lrn_fwd", "shape": list(x.shape),
+                        "max_abs_err": float((y.float() - ref.float())
+                                             .abs().max())})
+    for x, e, y, cfg in folded.bwd:
+        ref = lrn_cuda.lrn_bwd_plain(x, e, *cfg)
+        check_bwd_bf16(y, ref, x, e, *cfg[:3],
+                       f"cohort lrn_bwd {tuple(x.shape)}", cfg[3])
+        kernels.append({"kernel": "lrn_bwd", "shape": list(x.shape),
+                        "max_abs_err": float((y.float() - ref.float())
+                                             .abs().max())})
+    check(len(folded.fwd) == 2 and len(folded.bwd) == 2,
+          f"folded launches seen: {len(folded.fwd)} fwd, "
+          f"{len(folded.bwd)} bwd")
+    del folded
+    for run in runs:
+        for m, mem in enumerate(run["members"]):
+            check(len(mem["n_err"]) == len(mem["n_err_cohort"]) and all(
+                abs(a - b) <= COHORT_NERR_SHARE * c for a, b, c in
+                zip(mem["n_err_cohort"], mem["n_err"], mem["counts"])),
+                f"{run['dtype']} member {m}: cohort n_err "
+                f"{mem['n_err_cohort']}, per genome {mem['n_err']}")
+            rtol = COHORT_MODEL_RTOL[run["dtype"]]
+            check(rtol is None or mem["model_rel_l2"] <= rtol,
+                  f"{run['dtype']} member {m}: params differ by "
+                  f"{mem['model_rel_l2']} (relative L2 of the model)")
+            rtol = COHORT_UPDATE_RTOL[run["dtype"]]
+            check(rtol is None or mem["worst_update_rel_l2"] <= rtol,
+                  f"{run['dtype']} member {m}: a param's change differs "
+                  f"by {mem['worst_update_rel_l2']} (relative L2)")
+        mb = run["cohort_minibatches"]
+        run["cohort_ms_per_minibatch"] = 1e3 * run["cohort_s"] / mb
+        run["per_genome_ms_per_minibatch"] = [
+            1e3 * mem["run_wall_s"] / mb for mem in run["members"]]
+    out = {"members": P, "lr_factors": list(COHORT_LR_FACTORS),
+           "epochs": 1, "launches": launches, "folded_kernels": kernels,
+           "runs": runs, "profile": profile, "grouped_convs": convs,
+           "card": card}
+    for run in runs:
+        print(f"cohort: AlexNet P={P} {run['dtype']}, launches "
+              f"{run['launches']}; {run['cohort_ms_per_minibatch']:.2f} ms "
+              f"a minibatch for both members, one genome's "
+              f"{[round(v, 2) for v in run['per_genome_ms_per_minibatch']]};"
+              f" vs per genome: model rel L2 "
+              f"{[m['model_rel_l2'] for m in run['members']]}, worst "
+              f"update rel L2 "
+              f"{[m['worst_update_rel_l2'] for m in run['members']]}; "
+              f"peak {run['peak_memory_bytes']} bytes  [{card}]",
+              flush=True)
+    print(f"cohort: profiled {profile['dtype']} run: "
+          f"{profile['wall_ms_per_minibatch']:.2f} ms wall, "
+          f"{profile['device_ms_per_minibatch']:.2f} ms of kernels a "
+          f"minibatch; top kernels {_brief(profile['top_kernels'])}; top "
+          f"operators {_brief(profile['top_ops'])}  [{card}]", flush=True)
+    print("cohort: bf16 convolutions, grouped (vmap) vs a loop of "
+          f"{P}, ms fwd / wgrad / dgrad: " + "; ".join(
+              f"{c['weights']}: " + " / ".join(
+                  f"{c[k + '_grouped_ms']:.3f} vs {c[k + '_loop_ms']:.3f}"
+                  for k in ("fwd", "wgrad", "dgrad")) for c in convs)
+          + f"  [{card}]", flush=True)
+    return out
+
+
+def _som_winners(weights: np.ndarray, x) -> np.ndarray:
+    """Each sample's winning prototype on a (N, D) host map."""
+    import torch
+    from veles_tpu_torch.ops.kohonen import sq_distances
+    return sq_distances(torch.from_numpy(weights).to(x.device),
+                        x.float()).argmin(1).cpu().numpy()
+
+
+def som_cohort_phase(card: str) -> dict:
+    """``SOMPopulationEngine`` over ``models/kohonen.py``'s DEFAULTS with
+    the SOM_GENOMES, against one run per genome, all on the card."""
+    import torch
+
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher, load_workflow_module
+    from veles_tpu_torch.ops.kohonen import SOMPopulationEngine
+    create = load_workflow_module(
+        os.path.join(MODELS_DIR, "kohonen.py")).create_workflow
+
+    def build(hp):
+        saved_root = copy.deepcopy(dict(root.__dict__))
+        try:
+            root.kohonen.trainer = {"alpha0": hp[0], "alpha_min": hp[1],
+                                    "sigma0": hp[2], "sigma_min": hp[3]}
+            launcher = Launcher(backend="cuda", seed=SEED)
+            launcher.create_workflow(create)
+            launcher.initialize()
+        finally:
+            root.__dict__.clear()
+            root.__dict__.update(saved_root)
+        return launcher.workflow
+
+    w = build(SOM_GENOMES[0])
+    engine = SOMPopulationEngine(w, np.asarray(SOM_GENOMES, np.float32))
+    _zero_launches()
+    t0 = time.perf_counter()
+    fits = engine.run()
+    torch.cuda.synchronize()
+    cohort_s = time.perf_counter() - t0
+    launches = _launches()
+    maps = engine.weights.cpu().numpy()
+    engine.release()
+    x = w.loader.original_data.reshape(len(w.loader.original_data), -1)
+    rows, per_s = [], []
+    for m, hp in enumerate(SOM_GENOMES):
+        wm = build(hp)
+        t0 = time.perf_counter()
+        wm.run()
+        per_s.append(time.perf_counter() - t0)
+        want = min(h["loss"] for h in wm.decision.history)
+        rel_fit = abs(fits[m] - want) / max(abs(want), 1e-30)
+        rel_map = _rel_l2(maps[m], wm.trainer.host_weights())
+        check(rel_fit <= SOM_FIT_RTOL,
+              f"SOM genome {hp}: fitness {fits[m]} vs {want}")
+        differ = int((_som_winners(maps[m], x) != _som_winners(
+            wm.trainer.host_weights(), x)).sum())
+        rows.append({"genome": list(hp), "fitness": float(fits[m]),
+                     "per_member_fitness": want, "rel_fitness": rel_fit,
+                     "rel_map_l2": rel_map, "winners_differ": differ})
+    check(not any(launches.values()), f"SOM cohort launched {launches}")
+    out = {"members": len(SOM_GENOMES), "epochs": w.decision.max_epochs,
+           "genomes": rows, "cohort_s": cohort_s, "per_member_s": per_s,
+           "launches": launches, "card": card}
+    print(f"som_cohort: {len(SOM_GENOMES)} genomes in {cohort_s:.3f} s, "
+          f"per member {[round(s, 3) for s in per_s]} s; fitness "
+          f"{[r['fitness'] for r in rows]}; worst rel fitness "
+          f"{max(r['rel_fitness'] for r in rows):.3g}, map "
+          f"{max(r['rel_map_l2'] for r in rows):.3g}; samples with another "
+          f"winner {[r['winners_differ'] for r in rows]} of "
+          f"{len(x)}  [{card}]", flush=True)
+    return out
+
+
+def ensemble_phase(card: str, workdir: str, data_dir: str) -> dict:
+    """``--ensemble-train 2 --ensemble-test`` on ``models/mnist7.py``
+    through the CLI on the card (the engine), ``--ensemble-test
+    --ensemble-device host`` (the CPU member loop), and the same members'
+    mean probabilities on the card against the CPU."""
+    from veles_tpu_torch.backends import make_device
+    from veles_tpu_torch.config import parse_overrides, root
+    from veles_tpu_torch.ensemble import EnsemblePredictor, load_members
+    from veles_tpu_torch.launcher import load_workflow_module
+    from veles_tpu_torch.loader.base import VALID
+    wf = os.path.join(MODELS_DIR, "mnist7.py")
+    path = os.path.join(workdir, "mnist7_members.npz")
+    over = [f"root.common.data_dir={data_dir}",
+            f"root.mnist7.decision.max_epochs={ENSEMBLE_EPOCHS}"]
+    rc, out, err, train_s = _cli(
+        ["-b", "cuda", "--ensemble-train", str(ENSEMBLE_MEMBERS),
+         "--ensemble-test", "--ensemble-file", path, wf, *over],
+        timeout=600)
+    check(rc == 0, f"--ensemble-train exited {rc}: {err[-3000:]}")
+    lines = [json.loads(ln) for ln in out.strip().splitlines()
+             if ln.startswith("{")]
+    check(len(lines) == 2 and lines[0]["members"] == ENSEMBLE_MEMBERS,
+          f"--ensemble-train printed {lines}")
+    trained, engine = lines
+    rc, out, err, host_s = _cli(
+        ["-b", "cuda", "--ensemble-test", "--ensemble-device", "host",
+         "--ensemble-file", path, wf, *over], timeout=600)
+    check(rc == 0, f"--ensemble-test host exited {rc}: {err[-3000:]}")
+    host = _last_json(out)
+    n_valid = MNIST_SIZES[1]
+    check(engine["ensemble_eval_engine"] == "device"
+          and host["ensemble_eval_engine"] == "host",
+          f"engines {engine['ensemble_eval_engine']} / "
+          f"{host['ensemble_eval_engine']}")
+    gap = abs(engine["ensemble_valid_error_pct"]
+              - host["ensemble_valid_error_pct"])
+    check(gap <= 100.0 / n_valid + 1e-9,
+          f"ensemble error % card {engine['ensemble_valid_error_pct']} vs "
+          f"host {host['ensemble_valid_error_pct']}: more than one image")
+    members = load_members(path)
+    create = load_workflow_module(wf).create_workflow
+
+    class _FL:
+        workflow = None
+
+    saved_root = copy.deepcopy(dict(root.__dict__))
+    parse_overrides(over)
+    try:
+        preds = {b: EnsemblePredictor(lambda: create(_FL()),
+                                      lambda b=b: make_device(b), members)
+                 for b in ("cuda", "cpu")}
+    finally:
+        root.__dict__.clear()
+        root.__dict__.update(saved_root)
+    ld = preds["cpu"].workflow.loader
+    off = ld.class_offset(VALID)
+    x = ld.normalized_host_rows(slice(off, off + ENSEMBLE_ROWS))
+    _zero_launches()
+    card_p = preds["cuda"].predict_proba(x)
+    launches = _launches()
+    cpu_p = preds["cpu"].predict_proba_host(x)
+    worst = float(np.abs(card_p - cpu_p).max())
+    check(worst <= ENSEMBLE_PROB_ATOL,
+          f"ensemble probabilities card vs CPU differ by {worst}")
+    out = {"members": ENSEMBLE_MEMBERS, "epochs": ENSEMBLE_EPOCHS,
+           "member_valid_errors_pct": trained["member_valid_errors_pct"],
+           "ensemble_valid_error_pct": engine["ensemble_valid_error_pct"],
+           "host_ensemble_valid_error_pct":
+               host["ensemble_valid_error_pct"],
+           "card_vs_cpu_max_prob_diff": worst, "rows": ENSEMBLE_ROWS,
+           "train_and_test_cli_s": train_s, "host_test_cli_s": host_s,
+           "launches": launches, "card": card}
+    print(f"ensemble: mnist7 x{ENSEMBLE_MEMBERS}, member valid error % "
+          f"{trained['member_valid_errors_pct']}, ensemble "
+          f"{engine['ensemble_valid_error_pct']} (engine) / "
+          f"{host['ensemble_valid_error_pct']} (host); probabilities card "
+          f"vs CPU within {worst:.3g}  [{card}]", flush=True)
+    return out
+
+
 def _data_launches(name: str, mnist7: dict, cifar10: dict,
                    quantized: dict, mnist_ae: dict, kohonen: dict,
                    wine: dict, mnist_rbm: dict, mnist_dbn: dict,
@@ -2624,6 +3344,18 @@ def _data_launches(name: str, mnist7: dict, cifar10: dict,
             "mnist_rbm": mnist_rbm["launches"][name],
             "mnist_dbn": mnist_dbn["launches"][name],
             "profile": profile["launches"][name]}
+
+
+def _cohort_launches(name: str, cohort: dict, som_cohort: dict,
+                     ensemble: dict) -> dict:
+    """A kernel's launches on the cohort paths (the AlexNet cohort in
+    bf16, the kernels' main path, and in f32), the SOM cohort and the
+    ensemble's prediction on the card.  The GA's evaluator is a process
+    of its own; mnist has no LRN layer."""
+    return {"cohort": cohort["launches"][name],
+            "cohort_f32": cohort["runs"][1]["launches"][name],
+            "som_cohort": som_cohort["launches"][name],
+            "ensemble": ensemble["launches"][name]}
 
 
 def summary_kernel(name: str, replaces: str, rows, launches: dict,
@@ -2734,6 +3466,13 @@ def main() -> int:
         mnist_dbn = mnist_dbn_phase(card, data_dir)
         profile = profile_phase(card, workdir, alexnet_w, train, mnist7_w,
                                 mnist_ae_w)
+        del alexnet_w, mnist7_w, mnist_ae_w
+        torch.cuda.empty_cache()
+        # phases 19-22: population-batched cohorts, the GA, ensembles
+        cohort = cohort_phase(card)
+        som_cohort = som_cohort_phase(card)
+        ga = ga_phase(card, workdir, data_dir)
+        ensemble = ensemble_phase(card, workdir, data_dir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2749,7 +3488,9 @@ def main() -> int:
                         **_data_launches("lrn_fwd", mnist7, cifar10,
                                          quantized, mnist_ae, kohonen,
                                          wine, mnist_rbm, mnist_dbn,
-                                         profile)},
+                                         profile),
+                        **_cohort_launches("lrn_fwd", cohort, som_cohort,
+                                           ensemble)},
                        card),
         summary_kernel("lrn_bwd", "veles_tpu/ops/lrn_pallas.py:151", rows,
                        {"train": train["launches"]["lrn_bwd"],
@@ -2758,7 +3499,9 @@ def main() -> int:
                         **_data_launches("lrn_bwd", mnist7, cifar10,
                                          quantized, mnist_ae, kohonen,
                                          wine, mnist_rbm, mnist_dbn,
-                                         profile)},
+                                         profile),
+                        **_cohort_launches("lrn_bwd", cohort, som_cohort,
+                                           ensemble)},
                        card)]
     print("serve " + json.dumps(serve))
     print("train " + json.dumps(train))
@@ -2775,6 +3518,10 @@ def main() -> int:
     print("mnist_rbm " + json.dumps(mnist_rbm))
     print("mnist_dbn " + json.dumps(mnist_dbn))
     print("profile " + json.dumps(profile))
+    print("cohort " + json.dumps(cohort))
+    print("som_cohort " + json.dumps(som_cohort))
+    print("ga " + json.dumps(ga))
+    print("ensemble " + json.dumps(ensemble))
     print(f"total: {(time.perf_counter() - t_start) / 60:.2f} minutes")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -61,7 +61,12 @@ def test_every_port_module_imports_with_jax_blocked():
             "veles_tpu_torch.ops.resizable_all2all",
             "veles_tpu_torch.models.wine", "veles_tpu_torch.models.mnist_rbm",
             "veles_tpu_torch.models.mnist_dbn",
-            "veles_tpu_torch.profiling"} <= set(names)
+            "veles_tpu_torch.profiling", "veles_tpu_torch.genetics",
+            "veles_tpu_torch.genetics.core",
+            "veles_tpu_torch.genetics.worker",
+            "veles_tpu_torch.genetics.pool",
+            "veles_tpu_torch.ensemble.core",
+            "veles_tpu_torch.ops.population"} <= set(names)
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -10,6 +10,7 @@ port's micro-batcher, its residency manager, and one round trip through
 ``python -m veles_tpu_torch --serve-models ... -b cpu``.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -136,10 +137,19 @@ def twins(tmp_path_factory):
     # the reference engine on XLA:CPU, f32
     from veles_tpu.backends import JaxDevice
     from veles_tpu.ops.fused import EnsembleEvalEngine as JaxEngine
+    from veles_tpu.config import root as jax_root
     from veles_tpu.serve.hive import load_model_package
-    model = load_model_package("tiny", pkgs["jax"],
-                               JaxDevice(platform="cpu"),
-                               os.path.join(d, "jax_install"), {})
+    # loading runs the package's config against the reference's global
+    # root: put it back, or a later test file on this worker sees the
+    # tiny AlexNet in place of the model's DEFAULTS
+    saved_root = copy.deepcopy(dict(jax_root.__dict__))
+    try:
+        model = load_model_package("tiny", pkgs["jax"],
+                                   JaxDevice(platform="cpu"),
+                                   os.path.join(d, "jax_install"), {})
+    finally:
+        jax_root.__dict__.clear()
+        jax_root.__dict__.update(saved_root)
     ref = JaxEngine(model.forwards, model.member_params, model_device(
         model))
     x = _rows(7, seed=1)

@@ -9,8 +9,10 @@ framework-free modules (config, forge, packaging) it keeps its own
 trimmed copy.
 
 It trains (``python -m veles_tpu_torch WORKFLOW.py``, the reference's
-fused step) and serves (``python -m veles_tpu_torch --serve-models
-NAME=PKG.vpkg``).
+fused step), serves (``python -m veles_tpu_torch --serve-models
+NAME=PKG.vpkg``), tunes with the GA (``--optimize POP:GEN``, genomes of
+one shape signature trained as one population-batched cohort) and
+trains and tests ensembles (``--ensemble-train N``, ``--ensemble-test``).
 """
 
 __version__ = "0.1.0"

@@ -3,6 +3,13 @@
     python -m veles_tpu_torch [--supervise] [-b auto|cuda|cpu] [-s SEED]
         [--snapshot FILE] [--profile DIR] WORKFLOW.py [CONFIG.py ...]
         [root.x.y=value ...]
+    python -m veles_tpu_torch --optimize POP:GEN [-b auto|cuda|cpu|
+        cuda-evaluator|cpu-evaluator] [--ga-workers N] [--ga-cohort N]
+        [--ga-state FILE] [--ga-eval-timeout S] [--heartbeat-deadline S]
+        WORKFLOW.py [CONFIG.py ...] [root.x.y=value ...]
+    python -m veles_tpu_torch [--ensemble-train N] [--ensemble-test]
+        [--ensemble-file FILE] [--ensemble-device auto|host] [-b ...]
+        WORKFLOW.py [CONFIG.py ...]
     python -m veles_tpu_torch --serve-models NAME=PKG.vpkg [NAME=PKG ...]
         [-b auto|cuda|cpu] [--max-batch N] [--max-wait-ms MS]
 
@@ -14,20 +21,46 @@ in FILE (or, if FILE is torn, its newest intact sibling); a snapshot
 that cannot be read is a usage error (exit 2).  SIGTERM or SIGINT stops
 the run before its next firing, writes a final snapshot and exits 14.
 ``--supervise`` runs the same command as a child and resumes it from
-its newest intact snapshot whenever it ends early
-(``veles_tpu_torch/supervisor.py``).  ``--profile DIR`` writes a
+its newest intact snapshot (a GA: its ``--ga-state``) whenever it ends
+early (``veles_tpu_torch/supervisor.py``).  ``--profile DIR`` writes a
 ``torch.profiler`` Chrome trace of the run and its per-layer FLOPs table
-(``flops_table.json``) into DIR.  The second form starts the serving
-process (``veles_tpu_torch/serve/hive.py``).  Not ported yet, and so
-refused: ``--dp``, ``--optimize``, ``--ensemble-*`` and the fleet
-router.
+(``flops_table.json``) into DIR.
+
+``--optimize POP:GEN`` tunes the config values wrapped in ``Tune(...)``
+(``veles_tpu_torch/genetics/``): a population of POP genomes for GEN
+generations, each genome's fitness its best validation ``n_err``.
+Execution modes, by ``-b``:
+
+    cpu             one ``genetics.worker --values`` subprocess per
+                    genome on the CPU, ``--ga-workers`` at a time
+    auto, cuda      ONE evaluator process (``genetics.worker --serve -b
+                    cuda``) owns the card, ``--ga-workers`` host threads
+                    feed it, and genomes of one shape signature train as
+                    one cohort (``--ga-cohort 1``: per genome).  Without
+                    a card, or if the evaluator does not come up, the run
+                    exits 1 naming the card: there is no CPU fallback
+    cuda-evaluator, the same evaluator mode on the named device
+    cpu-evaluator
+
+``--ga-state FILE`` checkpoints every generation and resumes from an
+existing FILE; SIGTERM/SIGINT stops at the next generation boundary and
+exits 14.  ``--ensemble-train N`` trains N members (seeds ``seed +
+7919 i``) and saves them to ``--ensemble-file`` (``ensemble.npz``);
+``--ensemble-test`` loads them and reports the averaged members'
+validation error, through the engine on the run's device
+(``--ensemble-device auto``) or the CPU member loop (``host``).  The
+last form starts the serving process (``veles_tpu_torch/serve/hive.py``).
+Not ported yet, and so refused: ``--dp`` and the fleet router.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import os
 import sys
+from typing import Optional
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,14 +72,56 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("files", nargs="+",
                    help="workflow file, then config files")
     p.add_argument("-b", "--backend", default="auto",
-                   help="auto|cuda (CUDA device 0; fails without one) "
-                        "or cpu")
+                   choices=["auto", "cuda", "cpu", "cuda-evaluator",
+                            "cpu-evaluator"],
+                   help="auto|cuda (CUDA device 0; fails without one) or "
+                        "cpu; cuda-evaluator and cpu-evaluator are "
+                        "--optimize only: one evaluator process on the "
+                        "named device")
     p.add_argument("-s", "--seed", type=int, default=1234)
     p.add_argument("--snapshot", default=None, metavar="FILE",
                    help="resume from this snapshot")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the run and a "
                         "per-layer FLOPs table into DIR")
+    p.add_argument("--optimize", default=None, metavar="POP:GEN",
+                   help="GA-tune the config values wrapped in Tune(...): "
+                        "population size : generations (e.g. 8:5)")
+    p.add_argument("--ga-workers", type=int, default=0,
+                   help="parallel GA workers (0: up to 4).  With -b cpu "
+                        "genome subprocesses; in the evaluator modes host "
+                        "threads that feed the one evaluator")
+    p.add_argument("--ga-eval-timeout", "--eval-timeout", type=float,
+                   default=3600, dest="ga_eval_timeout",
+                   help="seconds before a genome's run is killed and "
+                        "scored inf (default 3600); the evaluator also "
+                        "has an adaptive per-genome deadline")
+    p.add_argument("--heartbeat-deadline", type=float, default=60,
+                   help="evaluator modes: seconds of evaluator silence "
+                        "before it is declared hung and replaced "
+                        "(default 60; 0 disables)")
+    p.add_argument("--ga-cohort", type=int, default=0,
+                   help="evaluator modes: the most genomes of one shape "
+                        "signature trained as one cohort (0: the device "
+                        "memory decides; 1: per genome)")
+    p.add_argument("--ga-state", default=None, metavar="FILE",
+                   help="per-generation GA checkpoint; an existing FILE "
+                        "resumes the run")
+    p.add_argument("--ensemble-train", type=int, default=None, metavar="N",
+                   help="train N ensemble members (the workflow file must "
+                        "expose create_workflow) into --ensemble-file")
+    p.add_argument("--ensemble-test", action="store_true",
+                   help="load --ensemble-file and report the averaged "
+                        "members' validation error")
+    p.add_argument("--ensemble-file", default="ensemble.npz",
+                   metavar="FILE",
+                   help="the members file of --ensemble-train/-test "
+                        "(default ensemble.npz)")
+    p.add_argument("--ensemble-device", default="auto",
+                   choices=["auto", "host"],
+                   help="--ensemble-test: 'auto' predicts with the engine "
+                        "on the run's device, 'host' with the CPU member "
+                        "loop (the oracle)")
     return p
 
 
@@ -76,6 +151,13 @@ def main(argv=None) -> int:
     for cf in config_files:
         apply_config_file(cf)
     parse_overrides(overrides)
+    if args.optimize:
+        return run_optimizer(args, workflow_file, config_files, overrides)
+    if args.backend.endswith("-evaluator"):
+        print(f"-b {args.backend} is for --optimize only", file=sys.stderr)
+        return 2
+    if args.ensemble_train is not None or args.ensemble_test:
+        return run_ensemble(args, workflow_file)
     launcher = Launcher(backend=args.backend, seed=args.seed,
                         snapshot=args.snapshot, profile=args.profile)
     try:
@@ -89,6 +171,215 @@ def main(argv=None) -> int:
             print(str(e), file=sys.stderr)
             return 2
         raise
+    return 0
+
+
+def _ga_worker_count(args) -> int:
+    if args.ga_workers:
+        return max(1, args.ga_workers)
+    return min(4, max(1, (os.cpu_count() or 2) // 2))
+
+
+def _evaluator_device(backend: str) -> Optional[str]:
+    """The evaluator's ``-b`` for an evaluator mode, None for the CPU
+    fan-out (``-b cpu``)."""
+    if backend in ("auto", "cuda", "cuda-evaluator"):
+        return "cuda"
+    if backend == "cpu-evaluator":
+        return "cpu"
+    return None
+
+
+def run_ensemble(args, workflow_file: str) -> int:
+    """``--ensemble-train N`` trains N members and saves them;
+    ``--ensemble-test`` reports the averaged members' validation error
+    (one JSON line each)."""
+    import numpy as np
+
+    from veles_tpu_torch.backends import make_device
+    from veles_tpu_torch.ensemble import (EnsemblePredictor,
+                                          EnsembleTrainer, load_members,
+                                          normalize_npz_path, save_members)
+    from veles_tpu_torch.launcher import load_workflow_module
+    from veles_tpu_torch.loader.base import VALID
+
+    create = getattr(load_workflow_module(workflow_file),
+                     "create_workflow", None)
+    if create is None:
+        print(f"--ensemble-train/test need {workflow_file} to expose "
+              f"create_workflow(launcher)", file=sys.stderr)
+        return 2
+
+    class _FL:
+        workflow = None
+
+    def factory():
+        return create(_FL())
+
+    def device_factory():
+        return make_device(args.backend)
+
+    members = None
+    if args.ensemble_train is not None:
+        members = EnsembleTrainer(factory, device_factory,
+                                  n_members=args.ensemble_train,
+                                  base_seed=args.seed).train()
+        path = save_members(args.ensemble_file, members)
+        print(json.dumps({
+            "members": len(members),
+            "member_valid_errors_pct": [round(m["valid_error"], 4)
+                                        for m in members],
+            "file": path}), flush=True)
+        if not args.ensemble_test:
+            return 0
+    if members is None:
+        fname = normalize_npz_path(args.ensemble_file)
+        try:
+            members = load_members(fname)
+        except FileNotFoundError:
+            print(f"--ensemble-test: {fname!r} does not exist (train one "
+                  f"first with --ensemble-train N)", file=sys.stderr)
+            return 2
+    pred = EnsemblePredictor(factory, device_factory, members,
+                             device=args.ensemble_device)
+    ld = pred.workflow.loader
+    n = ld.class_lengths[VALID]
+    if not n:
+        print("--ensemble-test: the workflow's loader has no validation "
+              "split", file=sys.stderr)
+        return 2
+    off = ld.class_offset(VALID)
+    x = ld.normalized_host_rows(slice(off, off + n))
+    if ld.host_labels is not None:
+        y = np.asarray(ld.host_labels[off:off + n])
+    else:
+        y = pred.workflow.device.get(ld.original_labels[off:off + n])
+    err = pred.error_pct(x, y, chunk=max(1, ld.max_minibatch_size))
+    print(json.dumps({
+        "members": len(members),
+        "ensemble_valid_error_pct": round(err, 4),
+        "ensemble_eval_engine": "device" if pred.engine is not None
+        else "host",
+        "member_valid_errors_pct": [round(m["valid_error"], 4)
+                                    for m in members]}), flush=True)
+    return 0
+
+
+def run_optimizer(args, workflow_file: str, config_files, overrides) -> int:
+    """``--optimize POP:GEN``: the GA over the config's Tune markers,
+    each genome scored by a short training run in the execution mode
+    ``-b`` names (the module docstring's table).  Prints the best genome
+    and its fitness as one JSON line (with the pool's counters in an
+    evaluator mode); exits 14 after a graceful stop, 1 when every
+    evaluation failed or the evaluator did not come up."""
+    import math
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.genetics import GeneticOptimizer, find_tunes
+    from veles_tpu_torch.supervisor import install_ga_stop
+
+    tunes = find_tunes(root)
+    if not tunes:
+        print("--optimize: no Tune(...) markers in the config tree",
+              file=sys.stderr)
+        return 2
+    pop_s, _, gen_s = args.optimize.partition(":")
+    pop, gen = int(pop_s), int(gen_s or 3)
+    workers = _ga_worker_count(args)
+    evaluator = _evaluator_device(args.backend)
+    files = [workflow_file, *config_files, *overrides]
+    pool = None
+    if evaluator is not None:
+        from veles_tpu_torch.genetics.pool import ChipEvaluatorPool
+        serve_cmd = [sys.executable, "-m", "veles_tpu_torch.genetics.worker",
+                     "--serve", *files, "-b", evaluator, "-s",
+                     str(args.seed), "--cohort", str(max(0, args.ga_cohort))]
+        pool = ChipEvaluatorPool(serve_cmd, workers=workers,
+                                 timeout=args.ga_eval_timeout,
+                                 heartbeat_deadline=args.heartbeat_deadline,
+                                 seed=args.seed)
+        try:
+            hello = pool.start()
+        except Exception as e:  # noqa: BLE001 — reported, then exit 1
+            pool.close()
+            what = "a CUDA card" if evaluator == "cuda" else "the CPU"
+            print(f"--optimize -b {args.backend}: the evaluator did not "
+                  f"come up on {what} ({e}); -b cpu runs the GA on the "
+                  f"CPU", file=sys.stderr)
+            return 1
+        if evaluator == "cuda" and not pool.is_accelerator:
+            pool.close()
+            print(f"--optimize -b {args.backend}: the evaluator landed on "
+                  f"{pool.platform}, not on a CUDA card", file=sys.stderr)
+            return 1
+        print(f"--optimize: evaluator pid {hello['pid']} owns "
+              f"{pool.device_name}; {workers} prep workers feed it",
+              file=sys.stderr, flush=True)
+    base_cmd = [sys.executable, "-m", "veles_tpu_torch.genetics.worker",
+                *files, "-b", "cpu", "-s", str(args.seed)]
+
+    def evaluate_one_subprocess(values) -> float:
+        try:
+            res = subprocess.run(base_cmd + ["--values", json.dumps(values)],
+                                 capture_output=True, text=True,
+                                 timeout=args.ga_eval_timeout)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"worker rc={res.returncode}: "
+                    f"{res.stderr.strip().splitlines()[-1:]!r}")
+            return float(json.loads(
+                res.stdout.strip().splitlines()[-1])["fitness"])
+        except Exception as e:  # noqa: BLE001 — bad genes score inf
+            print(f"--optimize: genome {values} failed: {e}",
+                  file=sys.stderr)
+            return float("inf")
+
+    def evaluate_many_subprocess(values_list):
+        with ThreadPoolExecutor(workers) as tp:
+            return list(tp.map(evaluate_one_subprocess, values_list))
+
+    if pool is not None:
+        evaluate_one, evaluate_many = pool.evaluate_one, pool.evaluate_many
+    else:
+        evaluate_one, evaluate_many = evaluate_one_subprocess, \
+            evaluate_many_subprocess
+    evaluate_cohort = pool.evaluate_cohort \
+        if pool is not None and args.ga_cohort != 1 else None
+    stop_check, finish_preempt = install_ga_stop()
+    try:
+        opt = GeneticOptimizer(evaluate_one, tunes, population=pop,
+                               generations=gen, evaluate_many=evaluate_many,
+                               evaluate_cohort=evaluate_cohort,
+                               state_path=args.ga_state,
+                               stop_check=stop_check)
+        best, fitness = opt.run()
+    finally:
+        if pool is not None:
+            pool.close()
+        preempt_code = finish_preempt()
+    out = {"best": best, "fitness": fitness,
+           "evaluations": opt.eval_count,
+           "eval_seconds": opt.eval_seconds,
+           "cohort_sizes": opt.cohort_sizes,
+           "cohort_fallbacks": opt.cohort_fallbacks}
+    if pool is not None:
+        out["evaluator"] = {"device": pool.device_name,
+                            "platform": pool.platform,
+                            "fallbacks": pool.fallbacks,
+                            "restarts": pool.restarts,
+                            "genomes_lost": pool.genomes_lost,
+                            "cohort_stats": pool.cohort_stats}
+    if preempt_code is not None:
+        out["preempted"] = True
+        print(json.dumps(out), flush=True)
+        return preempt_code
+    if not math.isfinite(fitness):
+        print("--optimize: every evaluation failed (fitness inf); check "
+              "that the workflow runs on its own first", file=sys.stderr)
+        return 1
+    print(json.dumps(out), flush=True)
     return 0
 
 

@@ -70,13 +70,14 @@ def build_backward(forwards: List[Any], gds: List[Any],
     """The backward + SGD chain: walk the gradient units in reverse,
     skip the chain head's err_input when nothing consumes it (for a
     stride-4 first conv, its whole input gradient), and apply
-    ``update_params`` with this minibatch's (lr, bias lr) row.  The
-    error is cast to the compute dtype when it is not f32."""
+    ``update_params`` with this minibatch's (lr, bias lr) row, and with
+    the (wd, bias wd) row ``wd`` when the caller gives one (the
+    population engine's per-member decays; ``wd=None`` keeps the units'
+    own).  The error is cast to the compute dtype when it is not f32."""
     first_gd = next((i for i, g in enumerate(gds) if g is not None), -1)
     mixed = compute_dtype != torch.float32
 
-    def backward_update(cparams, params, opt, residuals, err,
-                        lr: List[List[float]]):
+    def backward_update(cparams, params, opt, residuals, err, lr, wd=None):
         if mixed:
             err = err.to(compute_dtype)
         new_params = dict(params)
@@ -95,9 +96,10 @@ def build_backward(forwards: List[Any], gds: List[Any],
                     cparams[f.name], residuals[i], err)
             residuals[i] = None   # free the activation as soon as used
             if grads:
-                p, v = gd.update_params(params[f.name], grads,
-                                        opt.get(gd.name, {}),
-                                        rates=(lr[i][0], lr[i][1]))
+                p, v = gd.update_params(
+                    params[f.name], grads, opt.get(gd.name, {}),
+                    rates=(lr[i][0], lr[i][1]),
+                    decays=None if wd is None else (wd[i][0], wd[i][1]))
                 new_params[f.name] = p
                 if gd.name in opt:
                     new_opt[gd.name] = v

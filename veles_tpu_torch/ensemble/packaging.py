@@ -1,7 +1,8 @@
 """Ensemble members <-> npz <-> Forge package (the port's own copy).
 
 Counterpart of ``veles_tpu/ensemble/packaging.py`` (``save_members``,
-``load_members``, ``pack_ensemble``) with the same wire format: one
+``load_members``, ``pack_ensemble``, ``normalize_npz_path``) with the
+same wire format: one
 compressed npz of ``m<i>|<forward>|<param>`` arrays plus a JSON
 ``__meta__`` record per member (seed, valid_error, forward_names,
 values).  The arrays are in the REFERENCE's layout, which is what makes
@@ -22,6 +23,14 @@ from veles_tpu_torch.forge import ForgePackage
 
 _SEP = "|"
 _META = "__meta__"
+
+
+def normalize_npz_path(path: str) -> str:
+    """The on-disk path of an npz: numpy's ``savez`` appends ``.npz``
+    when it is missing, so every save and load applies this same rule
+    (``--ensemble-test`` loads what ``--ensemble-train`` saved under the
+    same flag value)."""
+    return path if path.endswith(".npz") else path + ".npz"
 
 
 def save_members(path: str, members: List[Dict[str, Any]]) -> str:
@@ -47,7 +56,7 @@ def save_members(path: str, members: List[Dict[str, Any]]) -> str:
     arrays[_META] = np.frombuffer(json.dumps(meta).encode(),
                                   np.uint8).copy()
     np.savez_compressed(path, **arrays)
-    return path if path.endswith(".npz") else path + ".npz"
+    return normalize_npz_path(path)
 
 
 def load_members(path: str) -> List[Dict[str, Any]]:

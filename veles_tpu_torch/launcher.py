@@ -24,8 +24,9 @@ standalone mode:
   and then writes the analytic per-layer FLOPs table,
   ``DIR/flops_table.json``, atomically.
 
-Left out: the multihost abort path, master/slave, the data-parallel
-mesh and telemetry.
+:func:`workflow_fitness` is the GA's fitness of a finished run.  Left
+out: the multihost abort path, master/slave, the data-parallel mesh and
+telemetry.
 """
 
 from __future__ import annotations
@@ -46,6 +47,10 @@ from veles_tpu_torch.backends import make_device
 from veles_tpu_torch.config import root
 
 log = logging.getLogger("veles.launcher")
+
+#: set in a GA's genome workers: their Launchers install no preemption
+#: handlers
+PREEMPT_DISABLE_ENV = "VELES_PREEMPT_DISABLE"
 
 
 class Launcher:
@@ -123,8 +128,11 @@ class Launcher:
 
     def _install_preempt_handlers(self):
         """SIGTERM/SIGINT -> graceful stop; only the main thread can
-        install them.  Returns the uninstaller."""
-        if threading.current_thread() is not threading.main_thread():
+        install them, and a GA's genome worker
+        (``$VELES_PREEMPT_DISABLE``) installs none: the GA parent owns
+        preemption.  Returns the uninstaller."""
+        if threading.current_thread() is not threading.main_thread() or \
+                os.environ.get(PREEMPT_DISABLE_ENV):
             return lambda: None
         prev = {sig: signal.signal(sig, self._on_preempt_signal)
                 for sig in (signal.SIGTERM, signal.SIGINT)}
@@ -243,3 +251,13 @@ def drive_workflow(launcher: Launcher, workflow_file: str) -> None:
         raise RuntimeError(
             f"{workflow_file}: defines neither run(launcher) nor "
             "create_workflow(launcher)")
+
+
+def workflow_fitness(workflow) -> float:
+    """The GA fitness of a finished workflow: its best validation
+    ``n_err``, else (no validation split) its best train ``n_err``."""
+    d = workflow.decision
+    err = d.min_valid_error
+    if err == float("inf"):
+        err = d.min_train_error
+    return err

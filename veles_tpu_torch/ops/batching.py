@@ -7,7 +7,7 @@ residency byte count, and the zero-padded micro-batch.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -65,3 +65,28 @@ def pad_rows(x: np.ndarray, chunk: int) -> np.ndarray:
         x = np.concatenate(
             [x, np.zeros((chunk - len(x),) + x.shape[1:], x.dtype)])
     return x
+
+
+def pad_chunk(xb: np.ndarray, lb: np.ndarray, chunk: int
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A fixed-shape (rows, labels) chunk and its validity mask: padded
+    rows carry mask 0 and cannot score."""
+    mask = np.ones(chunk, np.float32)
+    if len(xb) < chunk:
+        pad = chunk - len(xb)
+        mask[len(xb):] = 0.0
+        xb = np.concatenate([xb, np.zeros((pad,) + xb.shape[1:], xb.dtype)])
+        lb = np.concatenate([lb, np.zeros(pad, lb.dtype)])
+    return xb, lb, mask
+
+
+def padded_index_chunk(start: int, stop: int, chunk: int
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """The fixed-shape index window [start, stop) and its validity mask
+    for the resident gathers (padded with index 0, masked out)."""
+    idx = np.arange(start, stop, dtype=np.int64)
+    mask = np.ones(chunk, np.float32)
+    if len(idx) < chunk:
+        mask[len(idx):] = 0.0
+        idx = np.pad(idx, (0, chunk - len(idx)))
+    return idx, mask

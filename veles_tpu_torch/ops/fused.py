@@ -53,10 +53,16 @@ Counterpart of ``veles_tpu/ops/fused.py``:
   (``engine/core.py``).  The request-level API (:meth:`attach_batcher`
   / :meth:`submit`) coalesces concurrent requests into fixed-shape
   micro-batches; the residency manager spills and restores the stacked
-  params (:meth:`spill_params` / :meth:`restore_params`).  Left for
-  later slices: the resident-data set scoring paths (``attach_dataset``,
-  ``error_pct*``), member sharding over a mesh, and the online tier's
-  param adoption.
+  params (:meth:`spill_params` / :meth:`restore_params`).  Scoring:
+  :meth:`~EnsembleEvalEngine.error_pct` runs a host split through in
+  fixed-size chunks (the last one zero-padded and masked) with a
+  ``[wrong, count]`` f32 carry on the device, fetched once at the end;
+  :meth:`~EnsembleEvalEngine.attach_dataset` uploads a split once, and
+  ``predict_proba_resident`` / ``error_pct_resident`` gather its rows on
+  the device by index.  Left for later slices: member sharding over a
+  mesh, row-sharded attachment, and the online tier's param adoption.
+- :class:`PopulationTrainEngine` (``ops/population.py``): P genomes
+  trained as one cohort under ``torch.func.vmap``.
 """
 
 from __future__ import annotations
@@ -466,6 +472,9 @@ class EnsembleEvalEngine:
         self._mean_probs = engine_core.build_mean_probs(
             self.forwards, self.n_members, self.compute_dtype)
         self._batcher = None
+        #: the attached evaluation split (attach_dataset)
+        self._dataset: Optional[torch.Tensor] = None
+        self._labels: Optional[torch.Tensor] = None
         self._count_lock = threading.Lock()
         #: serving dispatches answered (micro-batches, not requests)
         self.dispatches = 0
@@ -500,6 +509,68 @@ class EnsembleEvalEngine:
         """Mean member probabilities for a host batch."""
         xb = self.device.put(np.asarray(x, np.float32))
         return self.device.get(self.predict(xb))
+
+    def _score(self, acc: torch.Tensor, x: torch.Tensor,
+               labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """``acc + [wrong, count]`` of one masked chunk, on the device."""
+        pred = self.predict(x).argmax(-1)
+        wrong = ((pred != labels).to(torch.float32) * mask).sum()
+        return acc + torch.stack([wrong, mask.sum()])
+
+    def error_pct(self, x: np.ndarray, labels: np.ndarray,
+                  chunk: int = 256) -> float:
+        """Classification error % of the averaged ensemble over a host
+        split, in fixed-size chunks (one giant batch would hold every
+        member's activations of the whole split at once)."""
+        x = np.asarray(x, np.float32)
+        labels = np.asarray(labels, np.int64)
+        chunk = max(1, min(chunk, len(x)))
+        dev = self.device
+        acc = dev.zeros(2)
+        for i in range(0, len(x), chunk):
+            xb, lb, mask = batching.pad_chunk(x[i:i + chunk],
+                                              labels[i:i + chunk], chunk)
+            acc = self._score(acc, dev.put(xb), dev.put(lb), dev.put(mask))
+        acc = dev.get(acc)
+        return 100.0 * float(acc[0]) / max(float(acc[1]), 1.0)
+
+    # -- resident path -------------------------------------------------
+
+    def attach_dataset(self, x: np.ndarray,
+                       labels: Optional[np.ndarray] = None) -> None:
+        """Upload an evaluation split once; the ``*_resident`` methods
+        gather its rows on the device by index."""
+        self._dataset = self.device.put(np.asarray(x, np.float32))
+        self._labels = None if labels is None else \
+            self.device.put(np.asarray(labels, np.int64))
+
+    def predict_proba_resident(self, indices) -> np.ndarray:
+        """Mean member probabilities of the attached rows ``indices``."""
+        if self._dataset is None:
+            raise RuntimeError("attach_dataset() first")
+        idx = self.device.put(np.asarray(indices, np.int64))
+        return self.device.get(self.predict(
+            self._dataset.index_select(0, idx)))
+
+    def error_pct_resident(self, n: Optional[int] = None,
+                           chunk: int = 256) -> float:
+        """Error % over the first ``n`` attached rows (default: all),
+        gathered on the device: no pixel crosses PCIe per call."""
+        if self._dataset is None or self._labels is None:
+            raise RuntimeError("attach_dataset(x, labels) first")
+        total = len(self._dataset) if n is None else int(n)
+        chunk = max(1, min(chunk, total))
+        dev = self.device
+        acc = dev.zeros(2)
+        for i in range(0, total, chunk):
+            idx, mask = batching.padded_index_chunk(
+                i, min(i + chunk, total), chunk)
+            idx = dev.put(idx)
+            acc = self._score(acc, self._dataset.index_select(0, idx),
+                              self._labels.index_select(0, idx),
+                              dev.put(mask))
+        acc = dev.get(acc)
+        return 100.0 * float(acc[0]) / max(float(acc[1]), 1.0)
 
     # -- request-level serving -----------------------------------------
 
@@ -563,4 +634,7 @@ class EnsembleEvalEngine:
         if self._batcher is not None:
             self._batcher.close()
             self._batcher = None
-        self._params = None
+        self._params = self._dataset = self._labels = None
+
+
+from veles_tpu_torch.ops.population import PopulationTrainEngine  # noqa: E402,F401

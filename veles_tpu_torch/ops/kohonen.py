@@ -28,8 +28,16 @@ as the reference does.
   ``DecisionGD`` the class's ``(0, qe_sum, count, None)``, the contract of
   ``FusedStepRunner.take_class_metrics``.
 
-Not ported: ``SOMPopulationEngine`` (ensembles), the eager per-minibatch
-dispatch and its knob, the row-sharded gather, and the telemetry
+- :class:`SOMPopulationEngine`: P hyperparameter genomes ``(alpha0,
+  alpha_min, sigma0, sigma_min)`` over one map shape and its initial
+  weights, stacked on a leading member axis and trained as one cohort:
+  the group builders of ``engine/core.py`` run under
+  ``torch.func.vmap`` with the weights and each member's (k,) alpha and
+  sigma rows on the member axis and the data broadcast, so the device
+  holds prototypes x P, never data x P.
+
+Not ported: the eager per-minibatch dispatch and its knob, the
+row-sharded gather and member sharding over a mesh, and the telemetry
 counters.
 """
 
@@ -42,7 +50,7 @@ import torch
 
 from veles_tpu_torch import prng
 from veles_tpu_torch.engine import core as engine_core
-from veles_tpu_torch.loader.base import TRAIN
+from veles_tpu_torch.loader.base import TRAIN, VALID
 
 
 def grid_coords(sx: int, sy: int) -> np.ndarray:
@@ -225,3 +233,121 @@ class KohonenTrainer:
 
     def host_weights(self) -> np.ndarray:
         return self.device.get(self.weights)
+
+
+class SOMPopulationEngine:
+    """``SOMPopulationEngine(workflow, hparams).run()`` -> the (P,)
+    fitness vector: each member's least per-epoch mean quantization
+    error, on the validation class when the loader has one, else on
+    train: what a per-member run's decision history reads.
+
+    ``workflow`` is a Kohonen workflow initialized for training and not
+    run; ``hparams`` a (P, 4) ``[alpha0, alpha_min, sigma0, sigma_min]``
+    array.  The engine drives the workflow's own loader to
+    ``decision.max_epochs``; each member's schedule is the trainer's
+    exponential decay with its own four values, and its per-step epoch
+    logic (``KohonenTrainer.schedule_steps``).  The trained maps stay in
+    ``weights`` ((P, N, D) on the device) until :meth:`release`."""
+
+    def __init__(self, workflow: Any, member_hparams: np.ndarray) -> None:
+        trainer = workflow.trainer
+        if trainer.device is None or trainer.weights is None:
+            raise ValueError("SOMPopulationEngine needs a Kohonen workflow "
+                             "initialized for training")
+        hp = np.asarray(member_hparams, np.float32)
+        if hp.ndim != 2 or hp.shape[1] != 4:
+            raise ValueError(
+                f"member hyperparameters must be a (P, 4) [alpha0, "
+                f"alpha_min, sigma0, sigma_min] array; got {hp.shape}")
+        self.workflow = workflow
+        self.trainer = trainer
+        self.loader = workflow.loader
+        self.decision = workflow.decision
+        self.device = trainer.device
+        self.n_members = int(hp.shape[0])
+        self._hp = hp
+        self.streaming = not self.loader.device_resident
+        f = trainer.forward
+        self.weights: Optional[torch.Tensor] = \
+            trainer.weights.unsqueeze(0).repeat(self.n_members, 1, 1)
+        coords = self.device.put(grid_coords(f.sx, f.sy))
+        resident = not self.streaming
+        data_dims = (None, None) if resident else (None,)
+        self._train = torch.func.vmap(
+            engine_core.build_som_epoch(coords, resident),
+            in_dims=(0, 0, 0) + data_dims + (None,))
+        self._eval = torch.func.vmap(
+            engine_core.build_som_eval(resident),
+            in_dims=(0,) + data_dims + (None,))
+
+    def _schedule_at(self, epoch: int):
+        decay = self.trainer.decay_epochs
+        t = min(epoch, decay) / max(decay, 1)
+        a0, amin = self._hp[:, 0], self._hp[:, 1]
+        s0, smin = self._hp[:, 2], self._hp[:, 3]
+        return ((a0 * (amin / a0) ** t).astype(np.float32),
+                (s0 * (smin / s0) ** t).astype(np.float32))
+
+    def _member_schedule(self, k: int):
+        """(P, k) alphas and sigmas of this group: the old epoch's for
+        every step but an ended epoch's last, as
+        ``KohonenTrainer.schedule_steps`` does it."""
+        ld = self.loader
+        e = ld.epoch_number
+        ended = bool(ld.epoch_ended)
+        a_bulk, s_bulk = self._schedule_at(e - 1 if ended else e)
+        alphas = np.repeat(a_bulk[:, None], k, axis=1)
+        sigmas = np.repeat(s_bulk[:, None], k, axis=1)
+        if ended:
+            alphas[:, k - 1], sigmas[:, k - 1] = self._schedule_at(e)
+        return np.ascontiguousarray(alphas), np.ascontiguousarray(sigmas)
+
+    @torch.no_grad()
+    def run(self) -> np.ndarray:
+        ld = self.loader
+        dev = self.device
+        P = self.n_members
+        max_epochs = self.decision.max_epochs
+        fit_class = VALID if ld.class_lengths[VALID] > 0 else TRAIN
+        best = np.full(P, np.inf)
+        acc = dev.zeros((P, 2))
+        weights = self.weights
+        try:
+            while True:
+                ld.run()
+                klass = ld.minibatch_class
+                k = len(ld.superstep_mask)
+                if klass in (TRAIN, fit_class):
+                    mask = dev.put(ld.superstep_mask)
+                    if ld.device_resident:
+                        rows = (ld.original_data,
+                                dev.put(ld.superstep_indices))
+                    else:
+                        rows = (ld.superstep_data.to(dev.device),)
+                if klass == TRAIN:
+                    alphas, sigmas = self._member_schedule(k)
+                    weights, stats = self._train(
+                        weights, dev.put(alphas), dev.put(sigmas), *rows,
+                        mask)
+                    if fit_class == TRAIN:
+                        acc += stats
+                elif klass == fit_class:
+                    acc += self._eval(weights, *rows, mask)
+                if not ld.class_ended:
+                    continue
+                if klass == fit_class:
+                    a = dev.get(acc).astype(np.float64)
+                    best = np.minimum(best,
+                                      a[:, 0] / np.maximum(a[:, 1], 1.0))
+                    acc = dev.zeros((P, 2))
+                if klass == TRAIN and max_epochs is not None and \
+                        ld.epoch_number >= max_epochs:
+                    break
+        finally:
+            ld.stop()
+        self.weights = weights
+        return best
+
+    def release(self) -> None:
+        """Drop the stacked maps."""
+        self.weights = None

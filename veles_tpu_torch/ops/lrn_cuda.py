@@ -38,6 +38,15 @@ Source notes.
   CPU tensor, and only there, it computes its plain version.  There is
   no fallback: a failed build or launch raises.  ``lrn_fwd.launches``
   and ``lrn_bwd.launches`` count kernel launches and nothing else.
+- Each wrapper calls a ``torch.library`` custom op
+  (``veles_tpu_torch::lrn_fwd`` / ``lrn_bwd``) with a fake (meta)
+  implementation and a member rule (``register_vmap``), the counterpart
+  of Pallas's batching rule under the reference's ``jax.vmap``: LRN
+  works per pixel across channels, so the rule moves the member axis in
+  front and folds it into the rows, ``(P, N, H, W, C)`` into
+  ``(P*N*H*W, C)``, and launches ONE kernel for all members.  A batched
+  tensor under ``torch.func.vmap`` has no data pointer; the rule hands
+  the kernel the plain folded tensor.
 - :func:`lrn_fwd_plain` / :func:`lrn_bwd_plain` are the same functions in
   PyTorch (the banded-matmul form of ``veles_tpu/ops/lrn.py``): the CPU
   path, and the yardstick each kernel is held against on the card.
@@ -280,10 +289,10 @@ def _launched(what: str, rc: int, rows: int, c: int, n: int,
                            f"(rows={rows}, C={c}, n={n}, dtype={dtype})")
 
 
-def lrn_fwd(x: torch.Tensor, n: int, k: float, alpha: float,
-            beta: float = 0.75) -> torch.Tensor:
-    """LRN forward over the last axis of ``x``.  CUDA tensor: the
-    kernel, or an exception.  CPU tensor: :func:`lrn_fwd_plain`."""
+def _fwd_launch(x: torch.Tensor, n: int, k: float, alpha: float,
+                beta: float) -> torch.Tensor:
+    """The custom op's body: the kernel for a CUDA tensor (or an
+    exception), :func:`lrn_fwd_plain` for a CPU tensor."""
     if x.device.type == "cpu":
         return lrn_fwd_plain(x, n, k, alpha, beta)
     _check_cuda("lrn_fwd", x)
@@ -306,15 +315,50 @@ def lrn_fwd(x: torch.Tensor, n: int, k: float, alpha: float,
     return y
 
 
+@torch.library.custom_op("veles_tpu_torch::lrn_fwd", mutates_args=())
+def _lrn_fwd_op(x: torch.Tensor, n: int, k: float, alpha: float,
+                beta: float) -> torch.Tensor:
+    return _fwd_launch(x, n, k, alpha, beta)
+
+
+@_lrn_fwd_op.register_fake
+def _lrn_fwd_fake(x, n, k, alpha, beta):
+    return torch.empty_like(x)
+
+
+def _members_first(t: torch.Tensor, bdim, size: int) -> torch.Tensor:
+    """``t`` with its member axis in front (broadcast to ``size`` members
+    when it has none), contiguous: channels stay last, so the kernel
+    reads the members as more rows."""
+    if bdim is None:
+        return t.unsqueeze(0).expand((size,) + tuple(t.shape)).contiguous()
+    return t.movedim(bdim, 0).contiguous()
+
+
+@_lrn_fwd_op.register_vmap
+def _lrn_fwd_members(info, in_dims, x, n, k, alpha, beta):
+    if in_dims[0] is None:
+        return _lrn_fwd_op(x, n, k, alpha, beta), None
+    return _lrn_fwd_op(_members_first(x, in_dims[0], info.batch_size),
+                       n, k, alpha, beta), 0
+
+
+def lrn_fwd(x: torch.Tensor, n: int, k: float, alpha: float,
+            beta: float = 0.75) -> torch.Tensor:
+    """LRN forward over the last axis of ``x``.  CUDA tensor: the
+    kernel, or an exception.  CPU tensor: :func:`lrn_fwd_plain`.  Under
+    ``torch.func.vmap`` the member rule folds the member axis into the
+    rows (one launch for all members)."""
+    return _lrn_fwd_op(x, int(n), float(k), float(alpha), float(beta))
+
+
 lrn_fwd.launches = 0
 
 
-def lrn_bwd(x: torch.Tensor, err: torch.Tensor, n: int, k: float,
-            alpha: float, beta: float = 0.75) -> torch.Tensor:
-    """LRN backward: d loss / d x from x and ``err`` = d loss / d y, over
-    the last axis.  CUDA tensors: the kernel, or an exception (x and err
-    must share dtype, shape and device).  CPU tensors:
-    :func:`lrn_bwd_plain`."""
+def _bwd_launch(x: torch.Tensor, err: torch.Tensor, n: int, k: float,
+                alpha: float, beta: float) -> torch.Tensor:
+    """The custom op's body: the kernel for CUDA tensors (or an
+    exception), :func:`lrn_bwd_plain` for CPU tensors."""
     if x.device.type == "cpu" and err.device.type == "cpu":
         return lrn_bwd_plain(x, err, n, k, alpha, beta)
     _check_cuda("lrn_bwd", x, err)
@@ -336,6 +380,42 @@ def lrn_bwd(x: torch.Tensor, err: torch.Tensor, n: int, k: float,
     with _lock:
         lrn_bwd.launches += 1
     return out
+
+
+@torch.library.custom_op("veles_tpu_torch::lrn_bwd", mutates_args=())
+def _lrn_bwd_op(x: torch.Tensor, err: torch.Tensor, n: int, k: float,
+                alpha: float, beta: float) -> torch.Tensor:
+    return _bwd_launch(x, err, n, k, alpha, beta)
+
+
+@_lrn_bwd_op.register_fake
+def _lrn_bwd_fake(x, err, n, k, alpha, beta):
+    return torch.empty_like(err)
+
+
+@_lrn_bwd_op.register_vmap
+def _lrn_bwd_members(info, in_dims, x, err, n, k, alpha, beta):
+    if in_dims[0] is None and in_dims[1] is None:
+        return _lrn_bwd_op(x, err, n, k, alpha, beta), None
+    p = info.batch_size
+    return _lrn_bwd_op(_members_first(x, in_dims[0], p),
+                       _members_first(err, in_dims[1], p),
+                       n, k, alpha, beta), 0
+
+
+def lrn_bwd(x: torch.Tensor, err: torch.Tensor, n: int, k: float,
+            alpha: float, beta: float = 0.75) -> torch.Tensor:
+    """LRN backward: d loss / d x from x and ``err`` = d loss / d y, over
+    the last axis.  CUDA tensors: the kernel, or an exception (x and err
+    must share dtype, shape and device).  CPU tensors:
+    :func:`lrn_bwd_plain`.  Under ``torch.func.vmap`` the member rule
+    folds the member axis into the rows, as for :func:`lrn_fwd`."""
+    if x.device != err.device:
+        # before the dispatcher, which would route a meta operand to the
+        # fake implementation
+        raise ValueError(f"lrn_bwd: no kernel for operands on {x.device} "
+                         f"and {err.device}")
+    return _lrn_bwd_op(x, err, int(n), float(k), float(alpha), float(beta))
 
 
 lrn_bwd.launches = 0

@@ -181,20 +181,26 @@ class GradientUnit:
     def update_params(self, params: Dict[str, torch.Tensor],
                       grads: Dict[str, torch.Tensor],
                       velocities: Dict[str, torch.Tensor],
-                      rates: Optional[Tuple[float, float]] = None) \
+                      rates: Optional[Tuple[Any, Any]] = None,
+                      decays: Optional[Tuple[Any, Any]] = None) \
             -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """(new_params, new_velocities): ``g = g + wd*w; v = mu*v - lr*g;
         w = w + v`` (``w - lr*g`` without momentum).  ``rates=(lr, bias
         lr)`` overrides the unit's own rates: the fused step passes each
-        minibatch's scheduled rates this way.  Params and velocities are
-        f32; a bf16 gradient is promoted by the first sum."""
+        minibatch's scheduled rates this way.  ``decays=(wd, bias wd)``
+        overrides its weight decays the same way: the population engine
+        passes each member's (0-dim tensors on the member axis).  Params
+        and velocities are f32; a bf16 gradient is promoted by the first
+        sum."""
         new_p, new_v = {}, {}
         lr_w, lr_b = rates if rates is not None else (
             self.learning_rate, self.learning_rate_bias)
+        wd_w, wd_b = decays if decays is not None else (
+            self.weight_decay, self.weight_decay_bias)
         for pname, w in params.items():
             weights = pname == "weights"
             lr = lr_w if weights else lr_b
-            wd = self.weight_decay if weights else self.weight_decay_bias
+            wd = wd_w if weights else wd_b
             g = grads[pname] + wd * w
             if self.gradient_moment:
                 v = self.gradient_moment * velocities[pname] - lr * g

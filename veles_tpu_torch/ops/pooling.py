@@ -6,7 +6,7 @@ Counterpart of ``veles_tpu/ops/pooling.py`` (``MaxPooling``,
 ``GDAvgPooling``).  NHWC at the
 boundary; the NCHW view inside is the same memory (see ``ops/conv.py``).
 The backward is the backward of ``F.max_pool2d`` / ``F.avg_pool2d``
-(``torch.autograd.grad`` over the saved input), as the reference takes
+(``torch.func.vjp`` at the saved input), as the reference takes
 ``jax.vjp`` of its ``reduce_window``.  Where a max window holds equal
 values, torch and XLA may route the error to different ones; on a real
 net those ties are the zeros a ReLU leaves, whose gradient the ReLU
@@ -124,19 +124,21 @@ class GDStochasticPooling(GradientUnit):
         flat = ((torch.arange(b, device=dev)[:, None, None, None] * h
                  + row) * w + col) * c + \
             torch.arange(c, device=dev)[None, None, None, :]
-        err_input = torch.zeros(b * h * w * c, dtype=err_output.dtype,
-                                device=dev)
-        err_input.index_add_(0, flat.reshape(-1), err_output.reshape(-1))
+        # out of place: under torch.func.vmap the error is batched over
+        # members and the fresh zeros are not
+        err_input = torch.index_add(
+            torch.zeros(b * h * w * c, dtype=err_output.dtype, device=dev),
+            0, flat.reshape(-1), err_output.reshape(-1))
         return err_input.reshape(x.shape), {}
 
 
 class _GDPooling(GradientUnit):
     def backward_from_saved(self, params, saved, err_output):
+        # torch.func.vjp, not autograd.grad: it also runs inside
+        # torch.func.vmap (the population engine's member axis)
         x, _ = saved
-        with torch.enable_grad():
-            xx = x.detach().requires_grad_(True)
-            y = self.forward.apply({}, xx)
-            (err_input,) = torch.autograd.grad(y, xx, err_output)
+        _, pullback = torch.func.vjp(lambda t: self.forward.apply({}, t), x)
+        (err_input,) = pullback(err_output)
         return err_input, {}
 
 

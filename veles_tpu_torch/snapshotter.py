@@ -197,21 +197,32 @@ def read_resume_manifest(path: str) -> Optional[dict]:
         return None
 
 
-def write_resume_manifest(snapshot: str,
-                          reason: Optional[str] = None) -> List[str]:
-    """Point the resume manifest(s) at ``snapshot``: the one next to it
-    and the one at ``$VELES_RESUME_MANIFEST``.  Other fields persist.
-    A manifest that cannot be written is skipped: it must never take
-    the run down."""
-    targets = [os.path.join(os.path.dirname(os.path.abspath(snapshot)),
-                            MANIFEST_NAME)]
+def write_resume_manifest(snapshot: Optional[str] = None,
+                          reason: Optional[str] = None,
+                          ga_state: Optional[str] = None) -> List[str]:
+    """Merge-update the resume manifest(s): the one at
+    ``$VELES_RESUME_MANIFEST`` and, for a ``snapshot``, the one next to
+    it.  ``snapshot`` and ``ga_state`` (a GA's per-generation state
+    file) are pointers; a field not given keeps its value, so a GA
+    checkpoint never clobbers a snapshot pointer nor the reverse.  A
+    manifest that cannot be written is skipped: it must never take the
+    run down."""
+    targets = []
     env_path = os.environ.get(MANIFEST_ENV)
-    if env_path and env_path not in targets:
-        targets.insert(0, env_path)
+    if env_path:
+        targets.append(env_path)
+    if snapshot:
+        nxt = os.path.join(os.path.dirname(os.path.abspath(snapshot)),
+                           MANIFEST_NAME)
+        if nxt not in targets:
+            targets.append(nxt)
     written = []
     for path in targets:
         payload = read_resume_manifest(path) or {"format": 1}
-        payload["snapshot"] = os.path.abspath(snapshot)
+        if snapshot:
+            payload["snapshot"] = os.path.abspath(snapshot)
+        if ga_state:
+            payload["ga_state"] = os.path.abspath(ga_state)
         if reason:
             payload["reason"] = reason
         payload["pid"] = os.getpid()

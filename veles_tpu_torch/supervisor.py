@@ -27,9 +27,15 @@ the first child, then 1, 2, ...), and forwards SIGTERM/SIGINT to the
 child; after such a signal it does not resume but exits with the
 child's code.
 
+A GA run (``--optimize``) resumes through its own per-generation state
+file instead: its restarts keep the arguments, and take the manifest's
+``ga_state`` pointer as ``--ga-state`` when the command names none.
+:func:`install_ga_stop` is the GA parent's graceful stop: SIGTERM or
+SIGINT stops breeding at the next generation boundary, whose checkpoint
+is already on disk, and the run exits 14.
+
 It imports neither torch nor the model code, so it stays small beside
-its child.  Not ported: the GA state (``--ga-state``, the GA's own
-graceful stop) and the journal events.
+its child.  Not ported: the journal events.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ import tempfile
 import threading
 import time
 from collections import deque
-from typing import List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
@@ -140,6 +146,16 @@ class Supervisor:
         ``--snapshot`` pointing at the newest intact snapshot."""
         argv = list(self.argv)
         if attempt == 0:
+            return argv
+        if "--optimize" in argv:
+            manifest = (self.manifest_path and
+                        read_resume_manifest(self.manifest_path)) or {}
+            state = self._argv_value("--ga-state") or \
+                manifest.get("ga_state")
+            log.info("attempt %d resumes the GA from %s", attempt,
+                     state or "a fresh start")
+            if state and self._argv_value("--ga-state") is None:
+                argv += ["--ga-state", state]
             return argv
         snap = self.newest_intact_snapshot()
         log.info("attempt %d resumes from %s", attempt,
@@ -263,3 +279,63 @@ def run(argv: List[str], **kwargs) -> int:
     """``python -m veles_tpu_torch --supervise ...``: supervise the same
     command line without the flag."""
     return Supervisor(argv, **kwargs).run()
+
+
+# -- the GA parent's graceful stop -------------------------------------
+
+def install_ga_stop(grace: Optional[float] = None
+                    ) -> Tuple[Callable[[], bool], Callable[[], Optional[int]]]:
+    """SIGTERM/SIGINT -> stop the GA at the next generation boundary (an
+    ``--optimize`` run has no Launcher).  The ``--ga-state`` checkpoint
+    of the last generation is the resume point; a watchdog exits 14 on
+    it if the stop has not landed within ``$VELES_PREEMPT_GRACE``
+    seconds (25), and a second signal exits 14 at once.
+
+    Returns ``(stop_check, finish)``: ``stop_check`` goes to
+    ``GeneticOptimizer(stop_check=...)``; ``finish()``, called after the
+    run, restores the handlers and returns 14 when a stop was asked
+    for, else None.  Off the main thread it never stops."""
+    if threading.current_thread() is not threading.main_thread():
+        return (lambda: False), (lambda: None)
+    if grace is None:
+        grace = float(os.environ.get("VELES_PREEMPT_GRACE", "25"))
+    state = {"sig": None}
+    done = threading.Event()
+
+    def watchdog(name: str) -> None:
+        log.warning("preemption requested (%s): stopping at the next GA "
+                    "generation boundary; hard exit in %.0fs", name, grace)
+        if done.wait(grace):
+            return
+        log.error("GA graceful stop missed the %.0fs grace; exiting %d on "
+                  "the last checkpoint", grace, EXIT_PREEMPTED)
+        logging.shutdown()
+        os._exit(EXIT_PREEMPTED)
+
+    def handler(signum, frame):
+        # the interrupted thread may hold any lock: set a flag, and talk
+        # from the watchdog thread
+        if state["sig"] is not None:
+            os._exit(EXIT_PREEMPTED)
+        state["sig"] = signum
+        threading.Thread(target=watchdog,
+                         args=(signal.Signals(signum).name,), daemon=True,
+                         name="ga-preempt-watchdog").start()
+
+    prev = {sig: signal.signal(sig, handler)
+            for sig in (signal.SIGTERM, signal.SIGINT)}
+
+    def stop_check() -> bool:
+        return state["sig"] is not None
+
+    def finish() -> Optional[int]:
+        done.set()
+        for sig, h in prev.items():
+            signal.signal(sig, h)
+        if state["sig"] is None:
+            return None
+        log.warning("GA preempted: exiting %d (resume with the same "
+                    "--ga-state, or under --supervise)", EXIT_PREEMPTED)
+        return EXIT_PREEMPTED
+
+    return stop_check, finish
