@@ -66,7 +66,13 @@ def test_every_port_module_imports_with_jax_blocked():
             "veles_tpu_torch.genetics.worker",
             "veles_tpu_torch.genetics.pool",
             "veles_tpu_torch.ensemble.core",
-            "veles_tpu_torch.ops.population"} <= set(names)
+            "veles_tpu_torch.ops.population", "veles_tpu_torch.knobs",
+            "veles_tpu_torch.serve.protocol",
+            "veles_tpu_torch.serve.client", "veles_tpu_torch.online",
+            "veles_tpu_torch.online.buffer", "veles_tpu_torch.online.tap",
+            "veles_tpu_torch.online.promote",
+            "veles_tpu_torch.online.trainer",
+            "veles_tpu_torch.genetics.handoff"} <= set(names)
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -306,7 +306,7 @@ def test_residency_spills_the_lru_model_and_restores_it(twins):
 
 def test_out_of_slice_flags_are_rejected():
     from veles_tpu_torch.serve.hive import build_parser
-    for flag in (["--online"], ["--mesh", "2"], ["--metrics-dir", "m"]):
+    for flag in (["--mesh", "2"], ["--metrics-dir", "m"]):
         with pytest.raises(SystemExit):
             build_parser().parse_args(["m=p.vpkg"] + flag)
 

@@ -8,7 +8,9 @@ and scores each genome by a short training run.  Evaluation is
 pluggable: in process, one ``genetics/worker.py --values`` subprocess
 per genome (``-b cpu``), or ``ChipEvaluatorPool`` (``genetics/pool.py``),
 where ONE evaluator process owns the card and trains same-signature
-genomes as one population-batched cohort::
+genomes as one population-batched cohort.  ``GAServingHandoff``
+(``genetics/handoff.py``) serves a cohort's best members without a host
+round trip::
 
     root.mnist.layers[0]["<-"]["learning_rate"] = Tune(0.1, 0.01, 1.0)
     python -m veles_tpu_torch --optimize 8:5 workflow.py config.py
@@ -20,13 +22,17 @@ from veles_tpu_torch.genetics.core import (GeneticOptimizer, Tune,
                                            substitute_tunes)
 
 __all__ = ["Tune", "GeneticOptimizer", "find_tunes", "substitute_tunes",
-           "liftable_tune", "shape_signature", "ChipEvaluatorPool"]
+           "liftable_tune", "shape_signature", "ChipEvaluatorPool",
+           "GAServingHandoff"]
 
 
 def __getattr__(name):
-    # pool.py pulls in subprocess machinery; workers that only need
-    # Tune keep the import light
+    # pool.py and handoff.py pull in subprocess and serving machinery;
+    # workers that only need Tune keep the import light
     if name == "ChipEvaluatorPool":
         from veles_tpu_torch.genetics.pool import ChipEvaluatorPool
         return ChipEvaluatorPool
+    if name == "GAServingHandoff":
+        from veles_tpu_torch.genetics.handoff import GAServingHandoff
+        return GAServingHandoff
     raise AttributeError(name)

@@ -1,0 +1,99 @@
+"""The promotion gate: shadow params -> the serving engine, on the
+device (the port's counterpart of ``veles_tpu/online/promote.py``).
+
+Fine-tuned params are worth serving only when they are measurably
+better on data the trainer never touched: the tap's held-out slice.
+Each gate round scores shadow and incumbent on that slice through the
+same forward chain and applies a symmetric margin
+(``$VELES_ONLINE_PROMOTE_MARGIN``, in error-% points):
+
+- shadow better by >= margin -> **promote**: the shadow's stacked
+  device tree is handed to the serving engine in one attribute store
+  under the residency lock (``ResidencyManager.swap_params``).  The
+  params never visit the host, and a dispatch in flight keeps the tree
+  it read while later ones read the new one, so no answer is torn;
+- shadow worse by >= margin -> **rollback**: the shadow restarts from a
+  device copy of the incumbent's params, momentum cleared;
+- within the margin -> keep training.
+
+After a verdict that moved params the gate rests 4 full rounds
+(``cooldown_until_step``).  ``time_to_serve_ms``, from the shadow's last
+step to the first request served on the promoted params, is armed at
+swap time through the engine's next-dispatch hook.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any
+
+#: gate lifecycle states
+GATE_STATES = ("filling", "training", "promoted", "rolled_back")
+
+
+class PromotionGate:
+    """One model's gate bookkeeping and the swap itself."""
+
+    def __init__(self, model: str, residency: Any, margin: float,
+                 min_steps: int) -> None:
+        self.model = model
+        self.residency = residency
+        self.margin = float(margin)
+        self.min_steps = max(1, int(min_steps))
+        self.state = "filling"
+        self.last_gate_step = 0
+        self.cooldown_until_step = 0
+        self.promotions = 0
+        self.rollbacks = 0
+        self.shadow_error_pct = None
+        self.incumbent_error_pct = None
+        #: monotonic time of the shadow's last step: the time-to-serve
+        #: clock starts here
+        self.last_step_ts = None
+        self.time_to_serve_ms = None
+        #: the last promotion's round (steps, both error %s) and the
+        #: swap's host ms: what the reference journals
+        self.last_promotion = None
+
+    def due(self, steps: int) -> bool:
+        """Is a gate round due after ``steps`` steps in all?"""
+        return steps - self.last_gate_step >= self.min_steps \
+            and steps >= self.cooldown_until_step
+
+    def decide(self, steps: int, shadow_err: float,
+               incumbent_err: float) -> str:
+        """Record one gate round: "promote", "rollback" or
+        "continue"."""
+        self.last_gate_step = steps
+        self.shadow_error_pct = shadow_err
+        self.incumbent_error_pct = incumbent_err
+        if incumbent_err - shadow_err >= self.margin:
+            return "promote"
+        if shadow_err - incumbent_err >= self.margin:
+            return "rollback"
+        return "continue"
+
+    def promote(self, stacked_params: Any, steps: int) -> None:
+        """Hand the shadow's device tree to the serving engine."""
+        t0 = time.perf_counter()
+        engine = self.residency.swap_params(self.model, stacked_params)
+        self.last_promotion = {
+            "steps": steps, "shadow_error_pct": self.shadow_error_pct,
+            "incumbent_error_pct": self.incumbent_error_pct,
+            "swap_ms": 1000.0 * (time.perf_counter() - t0)}
+        last_step = self.last_step_ts
+
+        def _first_served() -> None:
+            if last_step is not None:
+                self.time_to_serve_ms = round(
+                    1000.0 * (time.monotonic() - last_step), 3)
+
+        engine.notify_next_dispatch(_first_served)
+        self.promotions += 1
+        self.state = "promoted"
+        self.cooldown_until_step = steps + 4 * self.min_steps
+
+    def rollback(self, steps: int) -> None:
+        self.rollbacks += 1
+        self.state = "rolled_back"
+        self.cooldown_until_step = steps + 4 * self.min_steps

@@ -1,0 +1,116 @@
+"""The traffic tap: live request rows -> the replay buffer (the port's
+counterpart of ``veles_tpu/online/tap.py``).
+
+Sits on the hive's admission path, after the engine accepted the
+request, so rejected or misshapen rows never enter a buffer, and
+mirrors a DETERMINISTIC fraction of requests: an error-diffusion
+accumulator (``acc += frac``; tap when ``acc >= 1``) rather than a coin
+flip, so the tapped subsequence of any request stream is exactly
+reproducible.
+
+Labels: a request may carry its ground truth inline (the ``label`` wire
+field: one int per row, or one for the whole request) or deliver it
+late as a ``{"label_of": <wire id>, "label": [...]}`` line.  Tapped but
+unlabeled rows wait in a bounded FIFO map keyed by wire id
+(:data:`PENDING_CAP`); a label for an id that was never tapped, or was
+already evicted, counts in :attr:`TrafficTap.label_orphans` and drops.
+
+The reference's lineage of trace ids and its ``online.poison_batch``
+fault site come with the port's tracing and fault injection;
+:meth:`TrafficTap.lineage_sample` returns an empty list until then.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+
+from veles_tpu_torch.online.buffer import ReplayBuffer
+
+#: tapped-but-unlabeled requests held before the oldest is evicted
+PENDING_CAP = 256
+
+
+class TrafficTap:
+    """Per-hive tap over every learning model's admitted traffic."""
+
+    def __init__(self, frac: float) -> None:
+        self.frac = max(0.0, min(1.0, float(frac)))
+        self._lock = threading.Lock()
+        #: per-model error-diffusion accumulator
+        self._acc: Dict[str, float] = {}
+        #: wire id -> (model, rows) awaiting a late label
+        self._pending: Dict[Any, Tuple[str, np.ndarray]] = {}
+        #: model name -> ReplayBuffer (armed by the learner)
+        self.buffers: Dict[str, ReplayBuffer] = {}
+        #: counters: rows tapped, rows that entered a buffer labeled,
+        #: late labels that found no tapped request
+        self.tapped_rows = 0
+        self.labeled_rows = 0
+        self.label_orphans = 0
+
+    def arm(self, model: str, buffer: ReplayBuffer) -> None:
+        with self._lock:
+            self.buffers[model] = buffer
+            self._acc.setdefault(model, 0.0)
+
+    # -- the admission-path hook ---------------------------------------
+
+    def tap(self, model: str, jid: Any, rows: np.ndarray,
+            label: Any = None) -> None:
+        """One admitted request.  Samples deterministically; labeled
+        rows go straight to the buffer, unlabeled ones wait for a
+        ``label_of`` join."""
+        with self._lock:
+            buf = self.buffers.get(model)
+            if buf is None or self.frac <= 0.0:
+                return
+            acc = self._acc.get(model, 0.0) + self.frac
+            take = acc >= 1.0
+            if take:
+                acc -= 1.0
+            self._acc[model] = acc
+            if not take:
+                return
+            rows = np.asarray(rows, np.float32)
+            self.tapped_rows += len(rows)
+            if label is None:
+                while len(self._pending) >= PENDING_CAP:
+                    # FIFO eviction: dicts keep insertion order
+                    self._pending.pop(next(iter(self._pending)))
+                self._pending[jid] = (model, rows)
+                return
+        self._admit(buf, rows, label)
+
+    def label_for(self, jid: Any, label: Any) -> bool:
+        """A late ``label_of`` line: join by wire id.  False (and an
+        orphan count) when the id was never tapped or was evicted."""
+        with self._lock:
+            hit = self._pending.pop(jid, None)
+            if hit is None:
+                self.label_orphans += 1
+                return False
+            buf = self.buffers.get(hit[0])
+        if buf is None:
+            return False
+        self._admit(buf, hit[1], label)
+        return True
+
+    def _admit(self, buf: ReplayBuffer, rows: np.ndarray,
+               label: Any) -> None:
+        buf.add(rows, np.asarray(label, np.int32).reshape(-1))
+        with self._lock:
+            self.labeled_rows += len(rows)
+
+    # -- introspection -------------------------------------------------
+
+    def pending_count(self) -> int:
+        with self._lock:
+            return len(self._pending)
+
+    def lineage_sample(self, model: str) -> List[str]:
+        """Recent trace ids of ``model``'s tapped traffic: empty until
+        the port has request tracing."""
+        return []

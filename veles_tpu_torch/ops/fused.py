@@ -59,14 +59,21 @@ Counterpart of ``veles_tpu/ops/fused.py``:
   ``[wrong, count]`` f32 carry on the device, fetched once at the end;
   :meth:`~EnsembleEvalEngine.attach_dataset` uploads a split once, and
   ``predict_proba_resident`` / ``error_pct_resident`` gather its rows on
-  the device by index.  Left for later slices: member sharding over a
-  mesh, row-sharded attachment, and the online tier's param adoption.
+  the device by index.  The online tier reads the live stacked tree
+  (:attr:`~EnsembleEvalEngine.stacked_params`) and replaces it in one
+  attribute store (:meth:`~EnsembleEvalEngine.adopt_stacked_params`,
+  through ``ResidencyManager.swap_params``): a dispatch reads the tree
+  once, so it answers wholly from the old params or wholly from the
+  new.  :meth:`~EnsembleEvalEngine.notify_next_dispatch` arms a
+  one-shot hook fired after the next serving dispatch.  Left for later
+  slices: member sharding over a mesh, row-sharded attachment.
 - :class:`PopulationTrainEngine` (``ops/population.py``): P genomes
   trained as one cohort under ``torch.func.vmap``.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -81,6 +88,8 @@ from veles_tpu_torch.ops import batching
 
 #: the ``prng`` stream whose seed keys the per-layer dropout draws
 RNG_STREAM = "fused"
+
+log = logging.getLogger("veles_tpu_torch.fused")
 
 
 class FusedStepRunner:
@@ -478,6 +487,8 @@ class EnsembleEvalEngine:
         self._count_lock = threading.Lock()
         #: serving dispatches answered (micro-batches, not requests)
         self.dispatches = 0
+        #: the one-shot hook of :meth:`notify_next_dispatch`
+        self._on_next_dispatch = None
 
     def _check_members(self, member_params) -> None:
         """Every member must carry exactly the port-layout param shapes
@@ -607,6 +618,13 @@ class EnsembleEvalEngine:
         out = self.predict_proba(xb)
         with self._count_lock:
             self.dispatches += 1
+            cb, self._on_next_dispatch = self._on_next_dispatch, None
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 — a probe must never fail
+                # the dispatch it observed
+                log.exception("next-dispatch hook failed")
         return out
 
     # -- residency -----------------------------------------------------
@@ -619,6 +637,25 @@ class EnsembleEvalEngine:
     def restore_params(self, member_params) -> None:
         self._params = batching.stack_member_params(
             self.forwards, member_params, self.device)
+
+    @property
+    def stacked_params(self):
+        """The live stacked param tree (None while spilled)."""
+        return self._params
+
+    def adopt_stacked_params(self, stacked) -> None:
+        """Serve ``stacked``, a device tree of the same structure and
+        shapes, from the next dispatch on: one attribute store, so a
+        dispatch that already read the old tree finishes on it.  Callers
+        go through ``ResidencyManager.swap_params``, which orders this
+        against spill decisions."""
+        self._params = stacked
+
+    def notify_next_dispatch(self, callback) -> None:
+        """Arm a one-shot hook fired right after the next serving
+        dispatch completes (the online tier's time-to-serve clock)."""
+        with self._count_lock:
+            self._on_next_dispatch = callback
 
     @property
     def resident(self) -> bool:

@@ -348,6 +348,15 @@ class SOMPopulationEngine:
         self.weights = weights
         return best
 
+    @property
+    def _params(self):
+        """The stacked maps as a member-stacked param tree (the
+        reference's attribute; ``genetics/handoff.py`` adopts from it),
+        None after :meth:`release`."""
+        if self.weights is None:
+            return None
+        return {self.trainer.forward.name: {"weights": self.weights}}
+
     def release(self) -> None:
         """Drop the stacked maps."""
         self.weights = None

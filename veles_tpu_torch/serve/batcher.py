@@ -12,6 +12,10 @@ queued past its ``deadline_ms`` (absolute unix-epoch ms) is dropped
 with :class:`DeadlineExpired` instead of dispatched.  A failed dispatch
 fails exactly the requests it carried.
 
+:attr:`last_activity` is the monotonic time of the last submit or
+resolve: with an empty queue, ``now - last_activity`` is the serving
+idle gap the online scavenger (``online/trainer.py``) trains in.
+
 Left out here: the reference's adaptive wait window
 (``$VELES_SERVE_ADAPTIVE_WAIT``; this loop keeps the static deadline,
 which is the adaptive one's floor) and its telemetry, fault, trace and
@@ -79,6 +83,8 @@ class MicroBatcher:
             else None
         self._queued_rows = 0
         self._inflight = 0          # requests taken but not resolved
+        #: monotonic time of the last submit or resolve
+        self.last_activity = time.monotonic()
         self._closed = False
         #: counters (written by the flush thread only)
         self.dispatches = 0
@@ -113,6 +119,7 @@ class MicroBatcher:
                     f"{self.label!r} serves {self._sample_shape}")
             self._queue.append(p)
             self._queued_rows += len(rows)
+            self.last_activity = time.monotonic()
             self._cond.notify_all()
         return p.future
 
@@ -241,6 +248,7 @@ class MicroBatcher:
                                         if len(p.results) > 1
                                         else p.results[0])
                 done.append(p)
+        self.last_activity = time.monotonic()
         with self._cond:
             for p in done:
                 if p.popped:

@@ -33,9 +33,19 @@ Protocol lines (stdout; writes serialized under one lock)::
 ``crc`` is the crc32 of the float32 probability payload.  ``stats``
 carries the port's own counters: ``requests``, ``request_errors``,
 ``dispatches``, ``rows``, ``max_batch_rows``, ``spills``,
-``kernel_launches`` (``{"lrn_fwd": n}``) and per-model rows.  Not in
-this slice (argparse rejects them): ``--online``, ``--mesh``,
-``--metrics-dir``.
+``kernel_launches`` (``{"lrn_fwd": n}``, and ``"lrn_bwd"`` when a
+learner is armed), the residency ``ledger`` and per-model rows.
+
+With ``--online`` (``veles_tpu_torch/online``) a request may carry
+``"label"`` (per-row ground truth) for the learning tap; truth known
+only later joins by wire id through ``{"label_of": <id>, "label":
+[...]}`` (no response line); ``{"op": "learn", "id"}`` answers ``{"id",
+"learn": {model: {state, steps, buffer_rows, ...}}}``, the learner's
+row per model; ``{"op": "learner_suspend" | "learner_resume", "id"}``
+answers ``{"id", "learner_ctl": {"online", "suspended"}}``; and
+``stats`` gains an ``online`` entry (steps, gate rounds, skips, tap
+counts).  The learner stops before the SIGTERM drain.  Not in this
+slice (argparse rejects them): ``--mesh``, ``--metrics-dir``.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from veles_tpu_torch import knobs
 from veles_tpu_torch.serve.batcher import DeadlineExpired
 
 #: the exit code the supervisor reads as "preempted, resume me"
@@ -72,9 +83,12 @@ def load_model_package(name: str, pkg_path: str, device: Any,
     """One Forge ensemble package -> a HostedModel ready to register.
 
     Installs (checksum-verified), rebuilds the config tree from
-    ``pristine`` + the package's config files, builds the entry's
-    workflow, gives its forwards their shapes, and pairs the forward
-    chain with the members converted to the port's layout."""
+    ``pristine`` + the package's config files, seeds every stream from
+    the first member's seed, builds the entry's workflow, gives its
+    forwards their shapes, and pairs the forward chain with the members
+    converted to the port's layout.  ``meta`` records the workflow, the
+    package's version and file name, and the seed."""
+    from veles_tpu_torch import prng
     from veles_tpu_torch.config import root
     from veles_tpu_torch.convert import params_from_jax
     from veles_tpu_torch.ensemble.packaging import load_members
@@ -97,6 +111,9 @@ def load_model_package(name: str, pkg_path: str, device: Any,
     root.__dict__.update(copy.deepcopy(pristine))
     for cf in manifest.get("configs", []):
         apply_config_file(os.path.join(pkg_root, cf))
+    # every stream from the package's seed, as the reference seeds them
+    seed = int(members[0].get("seed", 1234))
+    prng.seed_all(seed)
     mod = load_workflow_module(os.path.join(pkg_root, manifest["entry"]))
     create = getattr(mod, "create_workflow", None)
     if create is None:
@@ -111,7 +128,11 @@ def load_model_package(name: str, pkg_path: str, device: Any,
     return HostedModel(
         name, w.forwards,
         [params_from_jax(m["params"]) for m in members],
-        meta={"workflow": w, "version": manifest.get("version")},
+        meta={"workflow": w, "version": manifest.get("version"),
+              "package": os.path.basename(pkg_path),
+              # keys the online tier's sample stream (the offline
+              # replay's contract)
+              "seed": seed},
         sample_shape=tuple(w.loader.sample_shape))
 
 
@@ -135,6 +156,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "card's memory; 8 GiB on the CPU)")
     p.add_argument("--heartbeat-every", type=float, default=5.0,
                    help="seconds between heartbeat lines (0 disables)")
+    p.add_argument("--online", action="store_true",
+                   default=bool(knobs.get(knobs.ONLINE)),
+                   help="arm the online-learning tier: tap labeled "
+                        "traffic, fine-tune in serving idle gaps, "
+                        "promote on the device through the gate (also "
+                        "$VELES_ONLINE; knobs: $VELES_ONLINE_TAP_FRAC, "
+                        "$VELES_ONLINE_PROMOTE_MARGIN, ...)")
     p.add_argument("--install-dir", default=None,
                    help="package install directory (default: a temp "
                         "dir)")
@@ -146,7 +174,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from veles_tpu_torch.backends import make_device
     from veles_tpu_torch.config import root
     from veles_tpu_torch.ops import lrn_cuda
-    from veles_tpu_torch.serve.residency import ResidencyManager
+    from veles_tpu_torch.serve.residency import (ResidencyManager,
+                                                 install_process_arbiter)
 
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose
@@ -171,6 +200,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         device, budget_bytes=args.hbm_budget or None,
         max_batch=max(1, args.max_batch),
         max_wait_s=max(0.0, args.max_wait_ms) / 1000.0)
+    # this manager is the process's device-memory ledger: the online
+    # tier's shadow and buffer charge the budget the LRU reads
+    install_process_arbiter(residency)
     pristine = copy.deepcopy(dict(root.__dict__))
     for name, path in specs:
         residency.register(load_model_package(name, path, device,
@@ -186,12 +218,21 @@ def main(argv: Optional[List[str]] = None) -> int:
         with emit_lock:
             print(line, flush=True)
 
+    learner = None
+    if args.online:
+        from veles_tpu_torch.online import OnlineLearner
+        learner = OnlineLearner(residency)
+        if any([learner.arm_model(name) for name, _ in specs]):
+            learner.start()
+        else:
+            learner = None
+
     emit({
         "ready": True, "pid": os.getpid(),
         "backend": device.backend_name, "platform": device.platform,
         "max_batch": residency.max_batch,
         "max_wait_ms": residency.max_wait_s * 1000.0,
-        "online": False, "devices": 1,
+        "online": learner is not None, "devices": 1,
         "device_budget": residency.budget_bytes,
         "models": {
             m.name: {"members": len(m.member_params),
@@ -219,6 +260,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "max_batch_rows": b.max_rows if b is not None else 0}
         with counts_lock:
             out = dict(counts)
+        launches = {"lrn_fwd": lrn_cuda.lrn_fwd.launches}
+        if learner is not None:
+            launches["lrn_bwd"] = lrn_cuda.lrn_bwd.launches
+            out["online"] = learner.counters()
         out.update(
             dispatches=sum(r["dispatches"] for r in models.values()),
             rows=sum(r["rows"] for r in models.values()),
@@ -226,7 +271,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                 for r in models.values()] or [0]),
             spills=residency.spills,
             h2d_bytes=device.h2d_bytes,
-            kernel_launches={"lrn_fwd": lrn_cuda.lrn_fwd.launches},
+            kernel_launches=launches, ledger=residency.ledger(),
             models=models)
         return out
 
@@ -283,6 +328,28 @@ def main(argv: Optional[List[str]] = None) -> int:
         if op == "stats":
             emit({"id": job.get("id"), "stats": stats()})
             return True
+        if op == "learn":
+            emit({"id": job.get("id"),
+                  "learn": learner.status() if learner else {}})
+            return True
+        if op in ("learner_suspend", "learner_resume"):
+            # a no-op acknowledgement when no learner is armed
+            if learner is not None:
+                if op == "learner_suspend":
+                    learner.suspend()
+                else:
+                    learner.resume()
+            emit({"id": job.get("id"), "learner_ctl": {
+                "online": learner is not None,
+                "suspended": bool(learner is not None
+                                  and learner.suspended)}})
+            return True
+        if "label_of" in job:
+            # late ground truth for an earlier request: no answer line
+            # (an orphan only counts)
+            if learner is not None:
+                learner.tap.label_for(job["label_of"], job.get("label"))
+            return True
         jid = job.get("id")
         bump("requests")
         try:
@@ -295,6 +362,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             bump("request_errors")
             emit({"id": jid, "error": f"{type(e).__name__}: {e}"})
             return True
+        if learner is not None:
+            # tapped after admission: only rows the engine accepted may
+            # enter the replay buffer
+            learner.tap.tap(model, jid, rows, job.get("label"))
 
         def _deliver(f, jid=jid, model=model) -> None:
             try:
@@ -335,6 +406,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             break
         if line is not None:
             handle(line)
+    if learner is not None:
+        # the scavenger stops before the drain: no fine-tune step races
+        # the batchers' last dispatches
+        learner.stop()
     residency.drain_all()
     hb_stop.set()
     if stop["signal"] is not None:

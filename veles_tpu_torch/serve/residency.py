@@ -10,8 +10,17 @@ resident model that is not busy spills: its engine drops the stacked
 params and the manager keeps the immutable host copies, so a later
 request restores it with one upload.
 
-Left out here: the process-wide arbiter ledger (reserve/release
-pools), mesh placement, the online tier's param swap, and telemetry.
+The manager is also the process's device-memory ledger: named side
+charges (:meth:`ResidencyManager.reserve`, each tagged with one of
+:data:`POOLS`) count against the same budget the LRU reads: the online
+tier's shadow params and its replay buffer.  A hive installs its
+manager as the process arbiter (:func:`install_process_arbiter`).
+
+The online promotion swaps a model's served params on the device
+(:meth:`ResidencyManager.swap_params`) under the same lock the spill
+decision takes, so a swap and a spill never interleave.
+
+Left out here: mesh placement and telemetry.
 """
 
 from __future__ import annotations
@@ -19,7 +28,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from veles_tpu_torch.ops import batching
 
@@ -27,6 +36,11 @@ from veles_tpu_torch.ops import batching
 DEFAULT_BUDGET = 8 << 30
 
 log = logging.getLogger("veles_tpu_torch.residency")
+
+#: the ledger's pools: served model stacks (``serve``), training and
+#: online-shadow state (``train``), GA cohort stacks (``cohort``), and
+#: everything else (replay buffers: ``scratch``)
+POOLS = ("serve", "train", "cohort", "scratch")
 
 
 class HostedModel:
@@ -59,13 +73,16 @@ class ResidencyManager:
                  max_batch: int = 64, max_wait_s: float = 0.005) -> None:
         self.device = device
         self.budget_bytes = int(budget_bytes) if budget_bytes else (
-            (device.total_memory() or 2 * DEFAULT_BUDGET) // 2)
+            ((device is not None and device.total_memory())
+             or 2 * DEFAULT_BUDGET) // 2)
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
         self.models: Dict[str, HostedModel] = {}
-        #: guards the registry and victim selection; blocking work
-        #: (drain, upload) stays outside it
+        #: guards the registry, victim selection and the promotion
+        #: swap; blocking work (drain, upload) stays outside it
         self._lock = threading.Lock()
+        #: side charges against the budget: name -> (bytes, pool)
+        self.reserved: Dict[str, Tuple[int, str]] = {}
         self.spills = 0
 
     def register(self, model: HostedModel) -> None:
@@ -74,9 +91,39 @@ class ResidencyManager:
                 raise ValueError(f"duplicate model name {model.name!r}")
             self.models[model.name] = model
 
+    def reserve(self, name: str, nbytes: int,
+                pool: str = "scratch") -> None:
+        """Charge (or re-charge) a named side allocation against the
+        budget, tagged with its ledger ``pool``."""
+        if pool not in POOLS:
+            raise ValueError(f"unknown arbiter pool {pool!r} "
+                             f"(declared: {POOLS})")
+        with self._lock:
+            self.reserved[name] = (int(nbytes), pool)
+
+    def release(self, name: str) -> None:
+        """Drop a named charge; an unknown name is a no-op."""
+        with self._lock:
+            self.reserved.pop(name, None)
+
+    def ledger(self) -> Dict[str, int]:
+        """Bytes per pool: ``serve`` holds the resident stacked models
+        plus any serve-tagged charge, the others their charges."""
+        with self._lock:
+            reserved = list(self.reserved.values())
+            model_bytes = sum(m.param_bytes for m in self.models.values()
+                              if m.resident)
+        out = {pool: 0 for pool in POOLS}
+        out["serve"] = model_bytes
+        for nbytes, pool in reserved:
+            out[pool] += nbytes
+        return out
+
     def resident_bytes(self) -> int:
+        """Resident stacked models plus every side charge."""
         return sum(m.param_bytes for m in list(self.models.values())
-                   if m.resident)
+                   if m.resident) + sum(
+            v[0] for v in tuple(self.reserved.values()))
 
     def ensure(self, name: str):
         """Return ``name``'s ready engine, admitting (or restoring) it
@@ -139,6 +186,31 @@ class ResidencyManager:
             return None, bool(candidates)
         return min(victims, key=lambda m: m.last_used), False
 
+    def swap_params(self, name: str, stacked_params: Any):
+        """The online promotion's swap: ``name``'s engine serves
+        ``stacked_params`` (a device tree of its shapes) from its next
+        dispatch on, under the lock spill decisions take: a concurrent
+        :meth:`ensure` sees the model resident and leaves it alone, or
+        picks its victim after the swap.  Returns the engine.
+        RuntimeError when the model is not resident."""
+        with self._lock:
+            m = self.models[name]
+            if m.engine is None or not m.resident:
+                raise RuntimeError(
+                    f"model {name!r} is not resident; cannot swap "
+                    f"promoted params into a spilled engine")
+            m.engine.adopt_stacked_params(stacked_params)
+            m.last_used = time.monotonic()
+            return m.engine
+
+    def refresh_host_params(self, name: str,
+                            member_params: List[Dict[str, Dict[
+                                str, Any]]]) -> None:
+        """Adopt new host member copies (port layout) after a
+        promotion: what a later spill restores from."""
+        with self._lock:
+            self.models[name].member_params = member_params
+
     def _spill(self, m: HostedModel) -> None:
         # queued micro-batches dispatch while the params are still here
         m.engine.drain()
@@ -160,3 +232,31 @@ class ResidencyManager:
             if m.engine is not None:
                 m.engine.release()
                 m.engine = None
+
+
+# -- the process-wide arbiter ----------------------------------------------
+# One ResidencyManager per process is the device-memory ledger: a hive
+# installs its model-hosting manager at startup; any other process gets
+# a model-less one on first use.
+
+_process_arbiter: Optional[ResidencyManager] = None
+_arbiter_lock = threading.Lock()
+
+
+def install_process_arbiter(manager: ResidencyManager
+                            ) -> ResidencyManager:
+    """Make ``manager`` the process arbiter."""
+    global _process_arbiter
+    with _arbiter_lock:
+        _process_arbiter = manager
+    return manager
+
+
+def process_arbiter(device: Any = None) -> ResidencyManager:
+    """The process arbiter, created (model-less, on ``device``) on
+    first use when none was installed."""
+    global _process_arbiter
+    with _arbiter_lock:
+        if _process_arbiter is None:
+            _process_arbiter = ResidencyManager(device)
+        return _process_arbiter
