@@ -10,8 +10,8 @@ mnist7, cifar10, mnist_ae, wine, mnist_rbm and mnist_dbn models and the
 Kohonen SOM at their published sizes (the MNIST and CIFAR-10 ones from
 data files), profiles training supersteps, runs the GA and ensembles
 through the CLI, learns online in the serving process and hands a GA
-cohort to serving, and holds each hand-written kernel against its plain
-PyTorch version.  Every phase is fatal: the script
+cohort to serving, serves from a fleet of hive replicas, and holds each
+hand-written kernel against its plain PyTorch version.  Every phase is fatal: the script
 exits nonzero, printing no result line, when any check fails, when
 there is no CUDA device, or when it is run without the repository
 beside it.  It imports nothing of JAX and nothing of the JAX package.
@@ -201,12 +201,41 @@ beside it.  It imports nothing of JAX and nothing of the JAX package.
    the CLI on the tier-1 hive test's small model: promoted with the
    shadow ahead by the margin, the answers after it better than the
    frozen ensemble's on the drifted truth.
-24. Summary: ``serve``, ``train``, ``stream``, ``preempt``, ``data``,
+24. Fleet: phase 3's package from an in-process ``FleetRouter`` of 2
+   replicas on the card (``VELES_ONLINE=1``, ``--max-batch 64``, a
+   16 GiB residency budget each), the learner rung engaged before any
+   traffic: each replica's spawn to hello and first answer; 48 one-row
+   requests from 4 threads, every answer's crc checked and held against
+   an in-process engine as in phase 3, each replica routed at least a
+   quarter, its ``lrn_fwd`` launches (from ``op=stats``, before and
+   after) 2 layers x 2 members a dispatch, p50 / p99, hedges, the hedge
+   threshold.  SIGKILL of replica 1 with 16 requests in flight: none
+   lost, the victim's retried on the peer, the respawn's seconds and
+   first answer, the card's memory before the fleet, at its peak, after
+   the kill and after the respawn.  The learner rung on labeled
+   traffic: no step while engaged, ``lrn_bwd`` 2 a step after the
+   release.  Then the tier-1 fleet model (6x6x1 -> 12 -> 3): a healthy
+   fleet and one whose replica 0 is armed with ``hive.slow_dispatch``
+   (6 dispatches of 1.5 s), driven side by side by the same closed-loop
+   stream (4 clients each, 12 s after a 2 s ramp): on the slow one a
+   hedge, an ejection and a reinstatement, and its p99 within 1.5x the
+   healthy one's; then a 20 s open-loop day (``traffic.generate``) on
+   the healthy one under ``FleetAutoscaler`` over 1-3 replicas with the
+   reference's default thresholds, one outcome per arrival and no error,
+   the replica count over time and every action with its pressure; and
+   a fleet whose replica 0 is armed with ``hive.garbage_response``:
+   integrity strikes, an ejection, every answer the in-process
+   engine's.
+25. Summary: ``serve``, ``train``, ``stream``, ``preempt``, ``data``,
    ``mnist7``, ``cifar10``, ``quantized``, ``mnist_ae``, ``kohonen``,
    ``layers``, ``wine``, ``mnist_rbm``, ``mnist_dbn``, ``profile``,
-   ``cohort``, ``som_cohort``, ``ga``, ``ensemble`` and ``online`` JSON
-   lines, the total minutes, the card line, the ``kernels`` line, then
-   the device line last.
+   ``cohort``, ``som_cohort``, ``ga``, ``ensemble``, ``online`` and
+   ``fleet`` JSON lines, the total minutes, the card line, the
+   ``kernels`` line, then the device line last.
+
+``python3 chip_smoke.py --only fleet`` runs phase 1's build, phase 3's
+package and phase 24 alone, and prints the ``fleet`` line and no result
+lines.
 """
 
 from __future__ import annotations
@@ -237,6 +266,8 @@ N_CLASSES = 1000
 #: the served burst: requests of 1-16 rows from N_THREADS client threads
 N_REQUESTS = 24
 N_THREADS = 8
+#: the served package's synthetic data set (see build_package)
+PACKAGE_N_TRAIN, PACKAGE_N_VALID = 64, 16
 SEED = 20261016
 
 
@@ -641,7 +672,11 @@ class HiveProcess:
 def build_package(workdir: str) -> str:
     """A full-width AlexNet ensemble package: members drawn with numpy
     from SEED at the stddevs ``alexnet_layers`` declares, written in
-    the framework-neutral (reference) layout."""
+    the framework-neutral (reference) layout.  The entry cuts the
+    synthetic data set to PACKAGE_N_TRAIN + PACKAGE_N_VALID images:
+    serving never loads it, and an ``--online`` hive loads it once on
+    the host only for the codec's decision (``hive.attach_dequant``);
+    the widths are the model's."""
     from veles_tpu_torch.convert import params_to_jax
     from veles_tpu_torch.ensemble.packaging import pack_ensemble
     from veles_tpu_torch.models import alexnet
@@ -651,8 +686,11 @@ def build_package(workdir: str) -> str:
 
     entry = os.path.join(workdir, "alexnet_entry.py")
     with open(entry, "w") as f:
-        f.write("from veles_tpu_torch.models.alexnet import "
-                "create_workflow  # noqa: F401\n")
+        f.write("from veles_tpu_torch.models import alexnet\n\n\n"
+                "def create_workflow(launcher):\n"
+                "    return alexnet.create_workflow(launcher, loader=dict(\n"
+                "        alexnet.DEFAULTS['loader'], "
+                f"n_train={PACKAGE_N_TRAIN}, n_valid={PACKAGE_N_VALID}))\n")
     w = alexnet.create_workflow(FL())
     w.initialize()
     members = []
@@ -3958,6 +3996,606 @@ def online_phase(card: str, workdir: str) -> dict:
     return out
 
 
+# -- phase 24: the serving fleet -------------------------------------------
+
+#: the AlexNet fleet: replicas, the one-row burst and its client threads,
+#: the requests in flight at the SIGKILL, each replica's residency budget
+#: (two of them sum to well under the card's 80 GB)
+FLEET_REPLICAS = 2
+FLEET_REQUESTS, FLEET_THREADS = 48, 4
+FLEET_KILL_INFLIGHT = 16
+FLEET_HBM_BUDGET = 16 << 30
+#: the gray drill on the small model (the reference's tier-1 drill and
+#: its acceptance bar: fleet p99 within 1.5x a healthy fleet's on the
+#: same closed-loop stream, the ramp discarded)
+GRAY_FAULT = "hive.slow_dispatch@label=alpha&times=6&seconds=1.5"
+GRAY_P99_FACTOR = 1.5
+GRAY_CLIENTS, GRAY_WINDOW_S, GRAY_RAMP_S = 4, 12.0, 2.0
+GRAY_KW = dict(deadline_ms=8000, hedge_min_ms=60, hedge_budget=1.0,
+               probe_interval=0.2, probe_ok=2, probe_backoff_cap=0.4)
+#: the open-loop day on the small model
+OPEN_LOOP = dict(duration_s=20.0, peak_rps=150.0, swing=10.0,
+                 burst_every_s=6.0, burst_len_s=2.0, burst_mult=2.0,
+                 models=["alpha"])
+
+
+def _card_used() -> int:
+    """Bytes in use on the card by every process (``mem_get_info``), this
+    process's cached blocks returned first."""
+    import torch
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return int(total - free)
+
+
+def _alexnet_rows(n: int, seed: int) -> list:
+    gen = np.random.default_rng(seed)
+    return [(gen.integers(0, 256, (1,) + SAMPLE_SHAPE) - 128)
+            .astype(np.float32) for _ in range(n)]
+
+
+def _check_crc(a: dict, n_rows: int, what: str) -> np.ndarray:
+    """What a client received: probabilities whose row count and crc
+    (the hive's, over its clean payload) check."""
+    check("probs" in a, f"{what}: {str(a)[:300]}")
+    probs = np.asarray(a["probs"], np.float32)
+    check(len(probs) == n_rows == a["rows_n"]
+          and zlib.crc32(probs.tobytes()) == a["crc"],
+          f"{what}: rows_n/crc do not check")
+    return probs
+
+
+def _burst(router, model: str, rows: list, threads: int,
+           timeout: float = 300.0) -> tuple:
+    """Every row set as one request through ``router`` from ``threads``
+    client threads; (answers by index, ms by index)."""
+    answers, lat, errors = {}, {}, []
+
+    def worker(ids):
+        try:
+            for i in ids:
+                t0 = time.perf_counter()
+                answers[i] = router.request(model, rows[i],
+                                            timeout=timeout)
+                lat[i] = 1e3 * (time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    ts = [threading.Thread(target=worker,
+                           args=(range(t, len(rows), threads),))
+          for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(900)
+    check(not errors and len(answers) == len(rows),
+          f"fleet: requests failed: {errors[:3]}")
+    return answers, lat
+
+
+def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
+    """Steps 1-3: full-width AlexNet from 2 replicas on the card: spawn,
+    the first answers, the burst against an in-process engine with the
+    launches read from each replica's stats, the SIGKILL failover with
+    its respawn, and the learner rung."""
+    from veles_tpu_torch import telemetry
+    from veles_tpu_torch.backends import make_device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops.fused import EnsembleEvalEngine
+    from veles_tpu_torch.ops.lrn import LRNormalizer
+    from veles_tpu_torch.serve.hive import load_model_package
+    from veles_tpu_torch.serve.router import FleetRouter
+
+    used0 = _card_used()
+    err = open(os.path.join(workdir, "fleet_alexnet.stderr"), "w")
+    t0 = time.perf_counter()
+    router = FleetRouter(
+        {"alexnet": pkg}, FLEET_REPLICAS, backend="cuda",
+        max_batch=MAX_BATCH, max_wait_ms=20, hbm_budget=FLEET_HBM_BUDGET,
+        heartbeat_every=1.0, cwd=HERE, stderr=err, start_timeout=600,
+        env=dict(ONLINE_ENV, VELES_ONLINE="1"))
+    try:
+        up_s = time.perf_counter() - t0
+        spawn_s = [r.spawn_seconds for r in router.replicas]
+        check(router.placement == {"alexnet": [0, 1]}
+              and all(r.client.hello["online"] and r.capacity_bytes
+                      == FLEET_HBM_BUDGET for r in router.replicas),
+              f"fleet: placement {router.placement}, hellos "
+              f"{[r.client.hello for r in router.replicas]}")
+        # the learner rung engaged before any traffic: the shadow steps
+        # stay out of step 1's counts
+        router.apply_degradation("learner", True, cause="step 1")
+        st = [r.client.stats() for r in router.replicas]
+        check(all(s["online"]["suspended"] for s in st)
+              and all(s["kernel_launches"] == {"lrn_fwd": 0, "lrn_bwd": 0}
+                      for s in st),
+              f"fleet: not suspended or counts not zero: "
+              f"{[(s['online'], s['kernel_launches']) for s in st]}")
+        # each replica's first answer, side by side: its first dispatch
+        # (cuDNN's first use) in a fresh process
+        warm = _alexnet_rows(1, SEED + 300)[0]
+        first_s = [None] * FLEET_REPLICAS
+
+        def first(r):
+            ts = time.perf_counter()
+            a = r.client.request("alexnet", warm, timeout=600)
+            first_s[r.idx] = (time.perf_counter() - ts, a)
+
+        ts = [threading.Thread(target=first, args=(r,))
+              for r in router.replicas]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(900)
+        for r in router.replicas:
+            check(first_s[r.idx] is not None,
+                  f"fleet: replica {r.idx} gave no first answer")
+            _check_crc(first_s[r.idx][1], 1,
+                       f"fleet: replica {r.idx} first answer")
+        first_s = [f[0] for f in first_s]
+        st0 = [r.client.stats() for r in router.replicas]
+        routed0 = router.routed_counts()
+        hedges0 = telemetry.counter("fleet.hedge.issued").value
+        rows = _alexnet_rows(FLEET_REQUESTS, SEED + 301)
+        t_burst = time.perf_counter()
+        answers, lat = _burst(router, "alexnet", rows, FLEET_THREADS)
+        burst_s = time.perf_counter() - t_burst
+        st1 = [r.client.stats() for r in router.replicas]
+        routed = [b - a for a, b in zip(routed0, router.routed_counts())]
+        hedges = telemetry.counter("fleet.hedge.issued").value - hedges0
+        threshold_ms = router.sentinel.hedge_threshold_ms("alexnet")
+        used_peak = _card_used()
+        check(all(n >= FLEET_REQUESTS // 4 for n in routed),
+              f"fleet: requests routed {routed}, want at least a quarter "
+              f"each")
+        # the in-process engine on the same package, same dtype
+        device = make_device("cuda")
+        model = load_model_package("alexnet", pkg, device,
+                                   os.path.join(workdir, "fleet_local"),
+                                   dict(root.__dict__))
+        n_norm = sum(isinstance(f, LRNormalizer) for f in model.forwards)
+        dispatches, launches = [], []
+        for i, (a, b) in enumerate(zip(st0, st1)):
+            d = b["dispatches"] - a["dispatches"]
+            n = b["kernel_launches"]["lrn_fwd"] - \
+                a["kernel_launches"]["lrn_fwd"]
+            check(d > 0 and n == n_norm * N_MEMBERS * d and
+                  b["kernel_launches"]["lrn_bwd"] == 0,
+                  f"fleet: replica {i} launched lrn_fwd {n} times in {d} "
+                  f"dispatches (want {n_norm * N_MEMBERS} a dispatch), "
+                  f"lrn_bwd {b['kernel_launches']['lrn_bwd']}")
+            dispatches.append(d)
+            launches.append(n)
+        engine = EnsembleEvalEngine(model.forwards, model.member_params,
+                                    device)
+        worst = {"max_abs_err": 0.0, "max_logp_err": 0.0}
+        for i, r in enumerate(rows):
+            got = _check_crc(answers[i], 1, f"fleet: request {i}")
+            xb = np.zeros((MAX_BATCH,) + SAMPLE_SHAPE, np.float32)
+            xb[:1] = r
+            res = agree(got, engine.predict_proba(xb)[:1], 1e-3, 0.0,
+                        0.05, f"fleet: request {i} vs in-process engine")
+            for key in worst:
+                worst[key] = max(worst[key], res[key])
+        engine.release()
+        del model, engine
+        gauges = [s["gauges"].get("serve.first_dispatch_seconds")
+                  for s in st1]
+
+        # step 2: SIGKILL replica 1 with FLEET_KILL_INFLIGHT in flight
+        retries0 = telemetry.counter("fleet.retries").value
+        deaths0 = router.replicas[1].deaths
+        pid1 = router.replicas[1].pid
+        kill_rows = _alexnet_rows(FLEET_KILL_INFLIGHT, SEED + 302)
+        got, errs = {}, []
+
+        def one(i):
+            try:
+                got[i] = router.request("alexnet", kill_rows[i],
+                                        timeout=300)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errs.append(e)
+
+        ts = [threading.Thread(target=one, args=(i,))
+              for i in range(FLEET_KILL_INFLIGHT)]
+        for t in ts:
+            t.start()
+        deadline = time.monotonic() + 60
+        while router.replicas[1].inflight < 2 and \
+                time.monotonic() < deadline:
+            time.sleep(0.005)
+        on_victim = router.replicas[1].inflight
+        t_kill = time.monotonic()
+        router.replicas[1].client.proc.kill()
+        for t in ts:
+            t.join(600)
+        check(not errs and len(got) == FLEET_KILL_INFLIGHT,
+              f"fleet: failover requests raised {errs[:3]}")
+        for i in range(FLEET_KILL_INFLIGHT):
+            _check_crc(got[i], 1, f"fleet: failover request {i}")
+        retried = telemetry.counter("fleet.retries").value - retries0
+        check(on_victim >= 1 and 1 <= retried <= FLEET_KILL_INFLIGHT,
+              f"fleet: {on_victim} in flight on the victim, {retried} "
+              f"retried")
+        deadline = time.monotonic() + 60
+        while router.replicas[1].deaths == deaths0:
+            check(time.monotonic() < deadline,
+                  "fleet: the monitor saw no death")
+            time.sleep(0.02)
+        # the corpse reaped, the respawn not yet past its CUDA set-up
+        used_killed = _card_used()
+        deadline = time.monotonic() + 300
+        while not (router.replicas[1].healthy
+                   and router.replicas[1].pid != pid1):
+            check(time.monotonic() < deadline,
+                  "fleet: replica 1 was not respawned")
+            time.sleep(0.1)
+        respawn_s = time.monotonic() - t_kill
+        check(router.replicas[1].deaths == deaths0 + 1,
+              f"fleet: deaths {router.replicas[1].deaths}")
+        ts0 = time.perf_counter()
+        _check_crc(router.replicas[1].client.request(
+            "alexnet", warm, timeout=600), 1,
+            "fleet: the respawned replica's first answer")
+        respawn_first_s = time.perf_counter() - ts0
+        used_respawn = _card_used()
+
+        # step 3: the learner rung on labeled traffic
+        router.apply_degradation("learner", True, cause="step 3")
+        stream = labeled_stream()[:8]
+        lerrs = []
+
+        def feed(r):
+            try:
+                for rows_l, labels in stream:
+                    _check_crc(r.client.request(
+                        "alexnet", rows_l, timeout=300, label=labels),
+                        len(rows_l), f"fleet: labeled request to replica "
+                        f"{r.idx}")
+            except Exception as e:  # noqa: BLE001 — reported below
+                lerrs.append(e)
+
+        ts = [threading.Thread(target=feed, args=(r,))
+              for r in router.replicas]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(600)
+        check(not lerrs, f"fleet: labeled requests failed: {lerrs[:2]}")
+        time.sleep(1.0)
+        st_s = [r.client.stats() for r in router.replicas]
+        check(all(s["online"]["suspended"] and s["online"]["steps"] == 0
+                  for s in st_s),
+              f"fleet: learner rung engaged, yet "
+              f"{[s['online'] for s in st_s]}")
+        bwd0 = [s["kernel_launches"]["lrn_bwd"] for s in st_s]
+        router.apply_degradation("learner", False, cause="step 3")
+        deadline = time.monotonic() + 120
+        while True:
+            st_r = [r.client.stats() for r in router.replicas]
+            steps = [s["online"]["steps"] for s in st_r]
+            if any(steps):
+                break
+            check(time.monotonic() < deadline,
+                  "fleet: no shadow step after the rung was released")
+            time.sleep(0.5)
+        time.sleep(1.0)
+        st_r = [r.client.stats() for r in router.replicas]
+        steps = [s["online"]["steps"] for s in st_r]
+        grown = [s["kernel_launches"]["lrn_bwd"] - b
+                 for s, b in zip(st_r, bwd0)]
+        # a shadow step launches lrn_bwd once a norm layer, the members
+        # folded into the rows
+        check(grown == [n_norm * k for k in steps] and
+              (n_norm == 0 or sum(grown) > 0),
+              f"fleet: lrn_bwd grew {grown} in {steps} steps")
+        check(not any(s["online"]["suspended"] for s in st_r),
+              f"fleet: still suspended {[s['online'] for s in st_r]}")
+    finally:
+        router.close()
+        err.close()
+    lat_ms = sorted(lat.values())
+    return {
+        "up_s": up_s, "spawn_to_hello_s": spawn_s,
+        "first_answer_s": first_s,
+        "first_dispatch_gauge_s": gauges,
+        "requests": FLEET_REQUESTS, "threads": FLEET_THREADS,
+        "burst_s": burst_s, "routed": routed, "dispatches": dispatches,
+        "lrn_fwd_launches": launches,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "hedges": hedges, "hedge_threshold_ms": threshold_ms,
+        "vs_engine_bf16": worst,
+        "failover": {"inflight": FLEET_KILL_INFLIGHT,
+                     "on_victim": on_victim, "retried": retried,
+                     "respawn_s": respawn_s,
+                     "respawn_spawn_to_hello_s":
+                     router.replicas[1].spawn_seconds,
+                     "respawn_first_answer_s": respawn_first_s},
+        "card_used_bytes": {"before": used0, "peak": used_peak,
+                            "after_kill": used_killed,
+                            "after_respawn": used_respawn},
+        "learner": {"lrn_bwd_grown": grown,
+                    "steps": [s["online"]["steps"] for s in st_r]},
+        "launches": {"lrn_fwd": sum(launches), "lrn_bwd": sum(grown)},
+        "card": card}
+
+
+def _small_fleet(pkg: str, workdir: str, tag: str, **kw):
+    from veles_tpu_torch.serve.router import FleetRouter
+    err = open(os.path.join(workdir, f"fleet_{tag}.stderr"), "w")
+    try:
+        return FleetRouter({"alpha": pkg}, 2, backend="cuda",
+                           max_batch=16, max_wait_ms=5, cwd=HERE,
+                           stderr=err, start_timeout=300, **kw), err
+    except BaseException:
+        err.close()
+        raise
+
+
+def _closed_loop(routers: list, engine, clients: int, window_s: float,
+                 ramp_s: float, seed: int) -> list:
+    """``clients`` closed-loop threads of one-row requests on EACH of
+    ``routers`` at once, for ramp_s + window_s seconds: every router gets
+    the same rows (the same seeds) at the same time, so a comparison of
+    their latencies sees the same host.  The threads only send (the
+    reference bench's closed loop); then every answer is checked, its crc
+    and its probabilities against ``engine`` (the same model in process
+    on the card) within 1e-3.  Per router: latencies after the ramp."""
+    sent = [[] for _ in routers]
+    lock = threading.Lock()
+    t0 = time.monotonic()
+    stop_at = t0 + ramp_s + window_s
+
+    def loop(k, i):
+        gen = np.random.default_rng(seed + i)
+        mine = []
+        while time.monotonic() < stop_at:
+            x = gen.standard_normal((1, 6, 6, 1)).astype(np.float32)
+            ts = time.monotonic()
+            a = routers[k].request("alpha", x, timeout=30)
+            mine.append((x, a, 1e3 * (time.monotonic() - ts),
+                         ts - t0 >= ramp_s))
+        with lock:
+            sent[k].extend(mine)
+
+    ts = [threading.Thread(target=loop, args=(k, i))
+          for k in range(len(routers)) for i in range(clients)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(300)
+    check(not any(t.is_alive() for t in ts), "fleet: a client hung")
+    out = []
+    for rows in sent:
+        got = np.concatenate([_check_crc(a, 1, "fleet: small-model answer")
+                              for _, a, _, _ in rows])
+        xs = np.concatenate([x for x, _, _, _ in rows])
+        for k in range(0, len(xs), 16):
+            xb = np.zeros((16, 6, 6, 1), np.float32)
+            xb[:len(xs[k:k + 16])] = xs[k:k + 16]
+            want = engine.predict_proba(xb)[:len(xs[k:k + 16])]
+            err = float(np.abs(got[k:k + 16] - want).max())
+            check(err <= 1e-3, f"fleet: answers {k}-{k + 15} differ from "
+                  f"the in-process engine's by {err:.3g}")
+        lat = [dt for _, _, dt, measured in rows if measured]
+        out.append({"n": len(lat), "p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99))})
+    return out
+
+
+def _open_loop_day(router) -> dict:
+    """A 20 s ``traffic.generate`` day through ``OpenLoopDriver`` under
+    ``FleetAutoscaler`` over 1-3 replicas (the reference's thresholds):
+    one outcome per arrival, no error; the replica count and pressure
+    every 0.5 s, and every action with its cause."""
+    from veles_tpu_torch.serve.autoscale import (FleetAutoscaler,
+                                                 ScaleController)
+    from veles_tpu_torch.serve.traffic import (OpenLoopDriver, TrafficSpec,
+                                               generate)
+
+    arrivals = generate(TrafficSpec(seed=SEED, **OPEN_LOOP))
+    ctl = ScaleController(min_replicas=1, max_replicas=3)
+    scaler = FleetAutoscaler(router, controller=ctl)
+    counts, stop = [], threading.Event()
+    t_day = time.monotonic()
+
+    def sample():
+        while not stop.wait(0.5):
+            counts.append((round(time.monotonic() - t_day, 2),
+                           scaler.n_live(),
+                           round(min(scaler.pressure_ms(), 1e9), 2)))
+
+    def fire(a):
+        x = np.random.default_rng(a.row_seed).standard_normal(
+            (1, 6, 6, 1)).astype(np.float32)
+        resp = router.request(a.model, x, timeout=30)
+        if "probs" in resp:
+            _check_crc(resp, 1, f"open loop arrival {a.i}")
+        return resp
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    scaler.start()
+    try:
+        results = OpenLoopDriver(fire, workers=32).run(arrivals)
+    finally:
+        scaler.close()
+        stop.set()
+        sampler.join(5)
+    check([r["i"] for r in results] == list(range(len(arrivals))),
+          "open loop: not one outcome per arrival")
+    statuses = [r["status"] for r in results]
+    errors = [r["response"] for r in results if r["status"] == "error"]
+    check(not errors, f"open loop: {len(errors)} errors, first "
+          f"{errors[:3]}")
+    lat = [1e3 * r["latency_s"] for r in results if r["status"] == "ok"]
+    return {"arrivals": len(arrivals), "ok": statuses.count("ok"),
+            "shed": statuses.count("shed"), "errors": len(errors),
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "replicas_over_time": counts, "actions": scaler.journal,
+            "controller": {k: getattr(ctl, k) for k in (
+                "min_replicas", "max_replicas", "up_ms", "down_ms",
+                "up_sustain_s", "down_sustain_s", "cooldown_s")}}
+
+
+def _fleet_small(card: str, workdir: str) -> dict:
+    """Steps 4 and 5 on the tier-1 fleet model: a healthy fleet and one
+    whose replica 0 dispatches slowly, driven side by side by the same
+    closed-loop stream (p99 against p99), the slow one until its replica
+    is reinstated; the open-loop day on the healthy fleet; the garbage
+    drill."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from veles_tpu_torch import telemetry
+    from veles_tpu_torch.backends import make_device
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops.fused import EnsembleEvalEngine
+    from veles_tpu_torch.serve.hive import load_model_package
+
+    sub = os.path.join(workdir, "fleet_small")
+    os.makedirs(sub, exist_ok=True)
+    pkg = _drift_package(sub)[0]
+    device = make_device("cuda")
+    model = load_model_package("alpha", pkg, device,
+                               os.path.join(sub, "local"),
+                               dict(root.__dict__))
+    engine = EnsembleEvalEngine(model.forwards, model.member_params, device)
+    ctr = telemetry.counter
+    out = {}
+    c0 = {k: ctr(k).value for k in (
+        "fleet.hedge.issued", "fleet.hedge.wins", "fleet.eject.total",
+        "fleet.eject.reinstated_total", "fleet.stale_response")}
+    fleets = []
+    try:
+        with ThreadPoolExecutor(2) as tp:
+            futs = [tp.submit(_small_fleet, pkg, sub, "healthy"),
+                    tp.submit(_small_fleet, pkg, sub, "gray",
+                              env_overrides={0: {"VELES_FAULTS":
+                                                 GRAY_FAULT}}, **GRAY_KW)]
+            for f in futs:
+                try:
+                    fleets.append(f.result())
+                except Exception as e:  # noqa: BLE001 — reported below
+                    fleets.append(e)
+        for f in fleets:
+            check(not isinstance(f, Exception), f"fleet: a small fleet did "
+                  f"not come up: {f}")
+        (healthy, _), (gray, _) = fleets
+        out["spawn_to_hello_s"] = [r.spawn_seconds for r in
+                                   healthy.replicas + gray.replicas]
+        out["healthy"], g = _closed_loop([healthy, gray], engine,
+                                         GRAY_CLIENTS, GRAY_WINDOW_S,
+                                         GRAY_RAMP_S, SEED + 400)
+        deadline = time.monotonic() + 60
+        while ctr("fleet.eject.reinstated_total").value == \
+                c0["fleet.eject.reinstated_total"]:
+            check(time.monotonic() < deadline,
+                  "gray: the slow replica was never reinstated")
+            time.sleep(0.2)
+        st = gray.sentinel.status(gray.replicas[0])
+        d = {k: ctr(k).value - v for k, v in c0.items()}
+        check(d["fleet.hedge.issued"] >= 1 and d["fleet.eject.total"] >= 1
+              and d["fleet.eject.reinstated_total"] >= 1,
+              f"gray: hedges/ejections/reinstatements {d}")
+        bound = GRAY_P99_FACTOR * out["healthy"]["p99_ms"]
+        check(g["p99_ms"] <= bound,
+              f"gray: p99 {g['p99_ms']:.2f} ms over {GRAY_P99_FACTOR}x "
+              f"the healthy fleet's {out['healthy']['p99_ms']:.2f} ms")
+        out["gray"] = dict(g, counters=d, sentinel=st,
+                           p99_ratio=g["p99_ms"] / out["healthy"]["p99_ms"])
+        gray.close()
+        out["open_loop"] = _open_loop_day(healthy)
+        healthy.close()
+        # the corrupt replica
+        s0 = ctr("fleet.integrity_strikes").value
+        fleets.append(_small_fleet(
+            pkg, sub, "garbage", env_overrides={
+                0: {"VELES_FAULTS": "hive.garbage_response@times=*"}},
+            deadline_ms=8000, hedge_budget=0.0, probe_interval=0.25,
+            probe_ok=2))
+        router = fleets[-1][0]
+        gen = np.random.default_rng(SEED + 500)
+        for i in range(20):
+            x = gen.standard_normal((2, 6, 6, 1)).astype(np.float32)
+            got = _check_crc(router.request("alpha", x, timeout=30), 2,
+                             f"garbage drill request {i}")
+            xb = np.zeros((16, 6, 6, 1), np.float32)
+            xb[:2] = x
+            check(np.abs(got - engine.predict_proba(xb)[:2]).max()
+                  <= 1e-3, f"garbage drill request {i}: a corrupt answer "
+                  f"reached the client")
+        st = router.sentinel.status(router.replicas[0])
+        strikes = ctr("fleet.integrity_strikes").value - s0
+        check(strikes >= 1 and st["state"] in ("ejected", "probing"),
+              f"garbage: {strikes} integrity strikes, sentinel {st}")
+        out["garbage"] = {"requests": 20, "integrity_strikes": strikes,
+                          "sentinel": st}
+    finally:
+        for f in fleets:
+            if not isinstance(f, Exception):
+                f[0].close()
+                f[1].close()
+        engine.release()
+    out["card"] = card
+    return out
+
+
+def fleet_phase(card: str, workdir: str) -> dict:
+    """Phase 24: the serving fleet on the card (see the module doc)."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    pkg = os.path.join(workdir, "alexnet.vpkg")
+    alex = _fleet_alexnet(card, workdir, pkg)
+    torch.cuda.empty_cache()
+    small = _fleet_small(card, workdir)
+    out = {"alexnet": alex, "small": small,
+           "launches": alex["launches"],
+           "minutes": (time.perf_counter() - t0) / 60, "card": card}
+    fo = alex["failover"]
+    mem = alex["card_used_bytes"]
+    print(f"fleet: AlexNet x{N_MEMBERS} from {FLEET_REPLICAS} replicas, "
+          f"spawn to hello {[round(s, 2) for s in alex['spawn_to_hello_s']]}"
+          f" s, first answer {[round(s, 2) for s in alex['first_answer_s']]}"
+          f" s (first dispatch {alex['first_dispatch_gauge_s']} s)  [{card}]",
+          flush=True)
+    print(f"fleet: {FLEET_REQUESTS} one-row requests from "
+          f"{FLEET_THREADS} threads, routed {alex['routed']}, p50 "
+          f"{alex['p50_ms']:.1f} / p99 {alex['p99_ms']:.1f} ms, "
+          f"{alex['hedges']} hedges (threshold "
+          f"{alex['hedge_threshold_ms']:.1f} ms); lrn_fwd "
+          f"{alex['lrn_fwd_launches']} in {alex['dispatches']} dispatches; "
+          f"vs engine {alex['vs_engine_bf16']}  [{card}]", flush=True)
+    print(f"fleet: SIGKILL with {fo['inflight']} in flight "
+          f"({fo['on_victim']} on the victim): none lost, "
+          f"{fo['retried']} retried; respawned in {fo['respawn_s']:.2f} s "
+          f"(spawn to hello {fo['respawn_spawn_to_hello_s']:.2f} s), first "
+          f"answer {fo['respawn_first_answer_s']:.2f} s; card memory used "
+          f"{mem['before']} before the fleet, {mem['peak']} at its peak, "
+          f"{mem['after_kill']} after the kill, {mem['after_respawn']} "
+          f"after the respawn  [{card}]", flush=True)
+    print(f"fleet: learner rung suspended both, released: lrn_bwd "
+          f"{alex['learner']['lrn_bwd_grown']}, steps "
+          f"{alex['learner']['steps']}  [{card}]", flush=True)
+    g, ol = small["gray"], small["open_loop"]
+    print(f"fleet: small model, healthy p99 {small['healthy']['p99_ms']:.2f}"
+          f" ms, slow replica p99 {g['p99_ms']:.2f} ms (ratio "
+          f"{g['p99_ratio']:.3f}, bar {GRAY_P99_FACTOR}); {g['counters']}; "
+          f"garbage: {small['garbage']['integrity_strikes']} integrity "
+          f"strikes, none reached a client  [{card}]", flush=True)
+    print(f"fleet: open loop {ol['arrivals']} arrivals in "
+          f"{OPEN_LOOP['duration_s']:.0f} s: {ol['ok']} ok, {ol['shed']} "
+          f"shed, {ol['errors']} errors, p50 {ol['p50_ms']:.1f} / p99 "
+          f"{ol['p99_ms']:.1f} ms; replicas over time "
+          f"{[(t, n) for t, n, _ in ol['replicas_over_time']]}; actions "
+          f"{[(a['action'], a.get('replica', a.get('rung')), a['pressure_ms']) for a in ol['actions']]}"
+          f"  [{card}]", flush=True)
+    print(f"fleet: phase {out['minutes']:.2f} minutes", flush=True)
+    return out
+
+
 def _data_launches(name: str, mnist7: dict, cifar10: dict,
                    quantized: dict, mnist_ae: dict, kohonen: dict,
                    wine: dict, mnist_rbm: dict, mnist_dbn: dict,
@@ -4053,6 +4691,19 @@ def main() -> int:
     workdir = os.path.join(HERE, "_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
+    if sys.argv[1:] == ["--only", "fleet"]:
+        # development: phase 1's build, the served package and phase 24
+        # alone; no result lines
+        try:
+            lrn_cuda.build()
+            build_package(workdir)
+            print("fleet " + json.dumps(fleet_phase(card_line(), workdir)))
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        return 0
     try:
         # phase 1: device and build
         make_device("auto")
@@ -4115,6 +4766,8 @@ def main() -> int:
         ensemble = ensemble_phase(card, workdir, data_dir)
         # phase 23: online learning on the served ensemble, the handoff
         online = online_phase(card, workdir)
+        # phase 24: the serving fleet
+        fleet = fleet_phase(card, workdir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4133,7 +4786,8 @@ def main() -> int:
                                          profile),
                         **_cohort_launches("lrn_fwd", cohort, som_cohort,
                                            ensemble),
-                        **_online_launches("lrn_fwd", online)},
+                        **_online_launches("lrn_fwd", online),
+                        "fleet": fleet["launches"]["lrn_fwd"]},
                        card),
         summary_kernel("lrn_bwd", "veles_tpu/ops/lrn_pallas.py:151", rows,
                        {"train": train["launches"]["lrn_bwd"],
@@ -4145,7 +4799,8 @@ def main() -> int:
                                          profile),
                         **_cohort_launches("lrn_bwd", cohort, som_cohort,
                                            ensemble),
-                        **_online_launches("lrn_bwd", online)},
+                        **_online_launches("lrn_bwd", online),
+                        "fleet": fleet["launches"]["lrn_bwd"]},
                        card)]
     print("serve " + json.dumps(serve))
     print("train " + json.dumps(train))
@@ -4167,6 +4822,7 @@ def main() -> int:
     print("ga " + json.dumps(ga))
     print("ensemble " + json.dumps(ensemble))
     print("online " + json.dumps(online))
+    print("fleet " + json.dumps(fleet))
     print(f"total: {(time.perf_counter() - t_start) / 60:.2f} minutes")
     print(card)
     print(json.dumps({"kernels": kernels}))

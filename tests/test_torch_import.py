@@ -72,7 +72,13 @@ def test_every_port_module_imports_with_jax_blocked():
             "veles_tpu_torch.online.buffer", "veles_tpu_torch.online.tap",
             "veles_tpu_torch.online.promote",
             "veles_tpu_torch.online.trainer",
-            "veles_tpu_torch.genetics.handoff"} <= set(names)
+            "veles_tpu_torch.genetics.handoff",
+            "veles_tpu_torch.telemetry", "veles_tpu_torch.events",
+            "veles_tpu_torch.faults", "veles_tpu_torch.serve.fleet",
+            "veles_tpu_torch.serve.sentinel",
+            "veles_tpu_torch.serve.router",
+            "veles_tpu_torch.serve.autoscale",
+            "veles_tpu_torch.serve.traffic"} <= set(names)
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -12,6 +12,10 @@
         WORKFLOW.py [CONFIG.py ...]
     python -m veles_tpu_torch --serve-models NAME=PKG.vpkg [NAME=PKG ...]
         [-b auto|cuda|cpu] [--max-batch N] [--max-wait-ms MS]
+    python -m veles_tpu_torch --serve-fleet N NAME=PKG.vpkg [NAME=PKG ...]
+        [-b auto|cuda|cpu] [--canary CNAME=PRIMARY[:FRACTION]] [--hot NAME]
+        [--max-batch N] [--max-wait-ms MS] [--hbm-budget BYTES]
+        [--slo-p99-ms MS] [--max-inflight N] [--deadline-ms MS]
 
 The first trains: config files run in order, then the ``root.*``
 overrides, then the launcher drives the workflow file (its
@@ -49,8 +53,11 @@ exits 14.  ``--ensemble-train N`` trains N members (seeds ``seed +
 ``--ensemble-test`` loads them and reports the averaged members'
 validation error, through the engine on the run's device
 (``--ensemble-device auto``) or the CPU member loop (``host``).  The
-last form starts the serving process (``veles_tpu_torch/serve/hive.py``).
-Not ported yet, and so refused: ``--dp`` and the fleet router.
+fourth form starts the serving process (``veles_tpu_torch/serve/hive.py``),
+the last a fleet of N of them behind one router
+(``veles_tpu_torch/serve/router.py``: placement, failover, hedging,
+ejection, admission control).  Not ported yet, and so refused: ``--dp``,
+and the fleet's ``--mesh`` and ``--metrics-dir``.
 """
 
 from __future__ import annotations
@@ -130,6 +137,11 @@ def main(argv=None) -> int:
     if "--serve-models" in argv:
         from veles_tpu_torch.serve import hive
         return hive.main([a for a in argv if a != "--serve-models"])
+    if "--serve-fleet" in argv:
+        # N hive replicas behind one router; the replica count is the
+        # first positional
+        from veles_tpu_torch.serve import router
+        return router.main([a for a in argv if a != "--serve-fleet"])
     if "--supervise" in argv:
         from veles_tpu_torch import supervisor
         logging.basicConfig(level=logging.INFO,

@@ -7,8 +7,9 @@ with its name, default, parser and a one-line doc, and read through
 default on a malformed value, so an env typo degrades instead of taking
 down a run.
 
-This copy holds the online-learning tier's knobs, with the reference's
-names, defaults and types.
+This copy holds the online-learning tier's knobs and the serving
+fleet's (the hive's ``SERVE_*``, ``FLEET_*`` and ``TRAFFIC_*``, and
+``HEARTBEAT_EVERY``), with the reference's names, defaults and types.
 """
 
 from __future__ import annotations
@@ -116,3 +117,179 @@ ONLINE_DUTY = _knob(
     "Ceiling on the scavenger's duty cycle (0..1): after each step it "
     "rests cost*(1-duty)/duty, so host cores and the GIL stay mostly "
     "free for the serving threads.")
+
+
+# -- serving (Hive) --------------------------------------------------------
+
+HEARTBEAT_EVERY = _knob(
+    "VELES_HEARTBEAT_EVERY", 5.0, float,
+    "Seconds between heartbeat lines of a serving process (the fleet "
+    "router's default --heartbeat-every; 0 disables).")
+SERVE_MAX_WAIT_MS = _knob(
+    "VELES_SERVE_MAX_WAIT_MS", 5.0, float,
+    "Longest a queued serving request may wait for co-batchable "
+    "traffic before its micro-batch dispatches anyway (the "
+    "latency/throughput tradeoff knob of the serving tier).")
+SERVE_MAX_BATCH = _knob(
+    "VELES_SERVE_MAX_BATCH", 64, int,
+    "Rows per serving micro-batch: the batcher flushes as soon as "
+    "this many rows coalesce (also the one fixed dispatch shape).")
+SERVE_HBM_BUDGET = _knob(
+    "VELES_SERVE_HBM_BUDGET", 8 << 30, int,
+    "Device-memory byte budget the fleet's placement policy assumes "
+    "for a replica whose hello advertises none; over budget a "
+    "replica's LRU model spills to the host.")
+SERVE_ADAPTIVE_WAIT = _knob(
+    "VELES_SERVE_ADAPTIVE_WAIT", True, flag,
+    "Let the serving micro-batcher track the windowed arrival rate "
+    "(the fleet sentinel's delta-quantile estimator) and adapt its "
+    "flush "
+    "wait: stretch past the static deadline only while the cadence "
+    "predicts the batch fills, collapse a stalled stretch back to "
+    "it.  Strictly additive — no window flushes before the static "
+    "$VELES_SERVE_MAX_WAIT_MS deadline; off disables stretching.")
+SERVE_WAIT_STRETCH = _knob(
+    "VELES_SERVE_WAIT_STRETCH", 2.0, float,
+    "Upper bound of the adaptive batching wait as a multiple of "
+    "$VELES_SERVE_MAX_WAIT_MS: the oldest queued request never "
+    "waits longer than stretch x the static window even when "
+    "arrivals keep trickling in.  2x keeps the stretched tail "
+    "inside ~1.1x the static p99 on a busy box; raise it when "
+    "batch fill matters more than tail latency.")
+
+# -- fleet serving -------------------------------------------------------
+
+FLEET_SLO_P99_MS = _knob(
+    "VELES_FLEET_SLO_P99_MS", 0.0, float,
+    "Fleet admission-control SLO target: when a request's estimated "
+    "completion (queue depth x observed per-dispatch time + batching "
+    "window) would exceed this many milliseconds on EVERY candidate "
+    "replica, the router sheds it with an explicit `overloaded` "
+    "response instead of letting p99 run away (0 disables shedding).")
+FLEET_MAX_INFLIGHT = _knob(
+    "VELES_FLEET_MAX_INFLIGHT", 64, int,
+    "Hard per-replica bound on router-side in-flight requests (the "
+    "bounded router queue); a request that finds every candidate "
+    "replica at the bound is shed `overloaded`.")
+FLEET_HEARTBEAT_DEADLINE = _knob(
+    "VELES_FLEET_HEARTBEAT_DEADLINE", 30.0, float,
+    "Seconds of replica stdout silence (no heartbeat, no response) "
+    "before the fleet monitor declares the replica hung, kills it, "
+    "and respawns (0 disables).")
+FLEET_CANARY_FRACTION = _knob(
+    "VELES_FLEET_CANARY_FRACTION", 0.1, float,
+    "Default traffic fraction mirrored to a `canary-of:NAME` model "
+    "when its registration does not carry an explicit split.")
+FLEET_RESPAWN_BACKOFF = _knob(
+    "VELES_FLEET_RESPAWN_BACKOFF", 0.5, float,
+    "Initial seconds the fleet monitor backs off before respawning a "
+    "dead replica (doubles per consecutive death, capped at 30s).")
+
+# -- elastic fleet -------------------------------------------------------
+
+FLEET_SCALE_MIN = _knob(
+    "VELES_FLEET_SCALE_MIN", 1, int,
+    "Floor of the elastic fleet's replica count: the scale "
+    "controller never retires below this many replicas.")
+FLEET_SCALE_MAX = _knob(
+    "VELES_FLEET_SCALE_MAX", 4, int,
+    "Ceiling of the elastic fleet's replica count: once the fleet is "
+    "at the ceiling, sustained pressure engages the graceful-"
+    "degradation ladder instead of spawning.")
+FLEET_SCALE_UP_MS = _knob(
+    "VELES_FLEET_SCALE_UP_MS", 200.0, float,
+    "Scale-up pressure threshold: when the BEST candidate replica's "
+    "estimated completion (queue depth x observed dispatch cadence) "
+    "stays above this many milliseconds for "
+    "$VELES_FLEET_SCALE_UP_SUSTAIN seconds, the controller spawns a "
+    "replica into a warm install dir.")
+FLEET_SCALE_DOWN_MS = _knob(
+    "VELES_FLEET_SCALE_DOWN_MS", 25.0, float,
+    "Scale-down idle threshold: when fleet pressure stays below this "
+    "many milliseconds for $VELES_FLEET_SCALE_DOWN_SUSTAIN seconds, "
+    "the controller retires the youngest replica (drain its router "
+    "queue, re-place its exclusive tail models, then SIGTERM).")
+FLEET_SCALE_UP_SUSTAIN = _knob(
+    "VELES_FLEET_SCALE_UP_SUSTAIN", 1.0, float,
+    "Seconds the scale-up pressure must be SUSTAINED before the "
+    "controller acts (the hysteresis half that keeps one burst from "
+    "spawning a replica).")
+FLEET_SCALE_DOWN_SUSTAIN = _knob(
+    "VELES_FLEET_SCALE_DOWN_SUSTAIN", 3.0, float,
+    "Seconds the fleet must stay idle below the scale-down threshold "
+    "before the controller retires a replica (longer than the up "
+    "sustain on purpose: spawning is slow, flapping is worse).")
+FLEET_SCALE_COOLDOWN = _knob(
+    "VELES_FLEET_SCALE_COOLDOWN", 5.0, float,
+    "Seconds between ANY two scale/degradation actions — the "
+    "controller's refractory period, which also keeps a respawn-"
+    "backoff storm (fleet.replica_flap) from compounding into a "
+    "spawn hot-loop.")
+FLEET_SCALE_INTERVAL = _knob(
+    "VELES_FLEET_SCALE_INTERVAL", 0.25, float,
+    "Seconds between autoscaler signal polls (the controller "
+    "observes fleet pressure on this cadence).")
+
+# -- traffic replay ------------------------------------------------------
+
+TRAFFIC_SEED = _knob(
+    "VELES_TRAFFIC_SEED", 0, int,
+    "Seed of the open-loop traffic generator: the whole arrival "
+    "schedule (times, model mix, burst placement) is a pure function "
+    "of the spec + this seed, so a logged trace replays bit-"
+    "identically.")
+TRAFFIC_DURATION_S = _knob(
+    "VELES_TRAFFIC_DURATION_S", 60.0, float,
+    "Length of the generated production day in seconds.")
+TRAFFIC_PEAK_RPS = _knob(
+    "VELES_TRAFFIC_PEAK_RPS", 60.0, float,
+    "Arrival rate at the top of the diurnal sine (requests/second); "
+    "the trough is peak / $VELES_TRAFFIC_SWING.")
+TRAFFIC_SWING = _knob(
+    "VELES_TRAFFIC_SWING", 10.0, float,
+    "Peak-to-trough ratio of the diurnal arrival curve (>= 10x is "
+    "the production-day acceptance bar).")
+TRAFFIC_BURST_MULT = _knob(
+    "VELES_TRAFFIC_BURST_MULT", 2.0, float,
+    "Rate multiplier inside a Poisson-placed burst window (bursts "
+    "ride ON TOP of the diurnal curve).")
+TRAFFIC_ZIPF_S = _knob(
+    "VELES_TRAFFIC_ZIPF_S", 1.1, float,
+    "Zipf exponent of the multi-model popularity skew: model rank k "
+    "draws traffic proportional to 1/k^s — the long tail that makes "
+    "shed-tail-before-hot-prefix degradation mean something.")
+
+# -- gray-failure defense ------------------------------------------------
+
+FLEET_DEADLINE_MS = _knob(
+    "VELES_FLEET_DEADLINE_MS", 10000.0, float,
+    "Default per-request deadline the fleet router stamps onto every "
+    "request; it rides the JSONL protocol end-to-end so a hive "
+    "batcher drops already-expired rows before dispatch and a waiter "
+    "never burns more than this against a wedged replica.")
+FLEET_HEDGE_MIN_MS = _knob(
+    "VELES_FLEET_HEDGE_MIN_MS", 25.0, float,
+    "Floor of the adaptive hedge threshold: a request older than "
+    "max(this, the model's measured p95 latency) is hedged on a "
+    "second replica and the first answer wins.")
+FLEET_HEDGE_BUDGET = _knob(
+    "VELES_FLEET_HEDGE_BUDGET", 0.05, float,
+    "Cap on hedged requests as a fraction of admitted fleet traffic "
+    "(0 disables hedging) — hedges fight tail latency, the budget "
+    "keeps them from melting an already-overloaded fleet.")
+FLEET_EJECT_THRESHOLD = _knob(
+    "VELES_FLEET_EJECT_THRESHOLD", 3.0, float,
+    "Health-score level (decaying weighted strikes: deadline misses, "
+    "deaths, integrity failures, hedge losses, latency outliers) at "
+    "which the sentinel ejects a replica from routing; ejection is "
+    "capped at N-1 replicas so the fleet degrades, never "
+    "self-destructs.")
+FLEET_PROBE_OK = _knob(
+    "VELES_FLEET_PROBE_OK", 3, int,
+    "Consecutive clean synthetic probes an ejected replica must "
+    "answer before the sentinel reinstates it into routing.")
+FLEET_PROBE_INTERVAL = _knob(
+    "VELES_FLEET_PROBE_INTERVAL", 0.5, float,
+    "Initial seconds between synthetic canary probes of an ejected "
+    "replica (a failed probe doubles it, capped at 10s; a clean one "
+    "resets it).")

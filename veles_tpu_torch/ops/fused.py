@@ -81,7 +81,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from veles_tpu_torch import prng
+from veles_tpu_torch import events, prng, telemetry
 from veles_tpu_torch.engine import core as engine_core
 from veles_tpu_torch.loader.base import TRAIN
 from veles_tpu_torch.ops import batching
@@ -614,11 +614,28 @@ class EnsembleEvalEngine:
         return self._batcher is None or self._batcher.drain(timeout)
 
     def _serve_dispatch(self, xb: np.ndarray) -> np.ndarray:
-        """One fixed-shape dispatch (the batcher's flush callback)."""
+        """One fixed-shape dispatch (the batcher's flush callback).  The
+        first one (cuDNN's first use and the kernels' first launch land
+        in it) goes to the ``serve.first_dispatch_seconds`` gauge, every
+        later one to the ``serve.dispatch_seconds`` histogram the fleet
+        reads, as in the reference."""
+        t0 = time.perf_counter()
         out = self.predict_proba(xb)
+        dt = time.perf_counter() - t0
         with self._count_lock:
+            first = self.dispatches == 0
             self.dispatches += 1
             cb, self._on_next_dispatch = self._on_next_dispatch, None
+        if first:
+            telemetry.gauge(events.GAUGE_SERVE_FIRST_DISPATCH_SECONDS).set(
+                round(dt, 4))
+            telemetry.event(events.EV_SERVE_FIRST_DISPATCH,
+                            rows=int(xb.shape[0]), seconds=round(dt, 4))
+        else:
+            telemetry.histogram(events.HIST_SERVE_DISPATCH_SECONDS).record(
+                dt)
+        telemetry.counter(events.CTR_SERVE_MEMBER_ROWS).inc(
+            int(xb.shape[0]) * self.n_members)
         if cb is not None:
             try:
                 cb()

@@ -16,11 +16,25 @@ fails exactly the requests it carried.
 resolve: with an empty queue, ``now - last_activity`` is the serving
 idle gap the online scavenger (``online/trainer.py``) trains in.
 
-Left out here: the reference's adaptive wait window
-(``$VELES_SERVE_ADAPTIVE_WAIT``; this loop keeps the static deadline,
-which is the adaptive one's floor) and its telemetry, fault, trace and
-lock-witness hooks.  The loop keeps plain counters instead
-(:attr:`dispatches`, :attr:`rows`, :attr:`max_rows`).
+The wait is adaptive by default (``$VELES_SERVE_ADAPTIVE_WAIT``), as in
+the reference: the batcher keeps the inter-arrival gaps in a local
+windowed histogram and, once it has an estimate, compares the quiet time
+since the last submit against a pace bar (2x the windowed median gap,
+clamped into [max_wait_s/20, max_wait_s]).  Arrivals that keep pace
+while the batch is predicted to fill stretch the window up to
+``$VELES_SERVE_WAIT_STRETCH`` x ``max_wait_s``; quiet past the bar
+collapses a stretched window back to the static deadline.  No window
+flushes before the static deadline would have, and the cold start (no
+estimate yet) is exactly the static behaviour.
+
+Telemetry, under the reference's names (``veles_tpu_torch/events.py``):
+``serve.batches``, ``serve.rows`` and ``serve.batch_slots`` counters,
+``serve.batch_rows``, ``serve.wait_seconds`` and
+``serve.request_seconds`` histograms, the ``serve.queue_depth`` gauge;
+the engine records ``serve.dispatch_seconds``.  The fault point
+``hive.slow_dispatch`` (``label`` = the model) stalls a dispatch.  The
+loop also keeps plain counters (:attr:`dispatches`, :attr:`rows`,
+:attr:`max_rows`).  Left out: trace lineage and the lock witness.
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 
+from veles_tpu_torch import events, faults, knobs, telemetry
 from veles_tpu_torch.ops import batching
 
 
@@ -81,6 +96,17 @@ class MicroBatcher:
         #: per-sample shape; pinned by the first request when unset
         self._sample_shape = tuple(sample_shape) if sample_shape \
             else None
+        #: adaptive-wait state (mutated under _cond): a local
+        #: inter-arrival-gap histogram and the cached windowed estimate
+        self._adaptive = bool(knobs.get(knobs.SERVE_ADAPTIVE_WAIT)) \
+            and self.max_wait_s > 0.0
+        self._stretch = max(1.0, float(
+            knobs.get(knobs.SERVE_WAIT_STRETCH)))
+        self._gap_hist = telemetry.Histogram(
+            f"batcher.{label}.gap") if self._adaptive else None
+        self._last_arrival: Optional[float] = None
+        self._gap_base = None
+        self._gap_cache: Tuple[Optional[float], float] = (None, 0.0)
         self._queued_rows = 0
         self._inflight = 0          # requests taken but not resolved
         #: monotonic time of the last submit or resolve
@@ -119,7 +145,14 @@ class MicroBatcher:
                     f"{self.label!r} serves {self._sample_shape}")
             self._queue.append(p)
             self._queued_rows += len(rows)
+            if self._gap_hist is not None:
+                now = time.perf_counter()
+                if self._last_arrival is not None:
+                    self._gap_hist.record(now - self._last_arrival)
+                self._last_arrival = now
             self.last_activity = time.monotonic()
+            telemetry.gauge(events.GAUGE_SERVE_QUEUE_DEPTH).set(
+                self._queued_rows)
             self._cond.notify_all()
         return p.future
 
@@ -153,6 +186,57 @@ class MicroBatcher:
 
     # -- flush loop ----------------------------------------------------
 
+    def _gap_estimate(self, now: float) -> Optional[float]:
+        """Median inter-arrival gap of the recent window, in seconds: a
+        cached value recomputed at most every 0.25 s from the bucket
+        deltas since the last recompute, the cumulative median while the
+        window is sparse, None until 8 gaps were seen.  Under _cond."""
+        est, recompute_at = self._gap_cache
+        if now < recompute_at:
+            return est
+        h = self._gap_hist
+        base, self._gap_base = self._gap_base, h.snapshot_buckets()
+        gap = h.delta_quantile(base, 0.5, min_count=8) \
+            if base is not None else None
+        if gap is None and h.count >= 8:
+            gap = h.quantile(0.5)
+        self._gap_cache = (gap, now + 0.25)
+        return gap
+
+    def _wait_left(self, now: float, oldest: float) -> float:
+        """Seconds the flush thread may still wait before dispatching
+        the oldest queued request; <= 0 flushes now.  Static:
+        ``max_wait_s`` minus the age.  Adaptive, on top of that: the
+        window stretches to ``stretch x max_wait_s`` only while the
+        observed cadence predicts the batch fills inside it and arrivals
+        keep pace; a stretched window whose flow stops (quiet past the
+        pace bar) collapses to the static deadline, or flushes now when
+        already past it."""
+        limit = self.max_wait_s
+        if self._gap_hist is not None:
+            gap = self._gap_estimate(now)
+            if gap is not None and self._last_arrival is not None:
+                need = self.max_batch - self._queued_rows
+                fills = 0 < need and \
+                    (now - oldest) + gap * need <= \
+                    self._stretch * self.max_wait_s
+                if fills:
+                    stall = now - self._last_arrival
+                    pace = min(max(2.0 * gap, 0.05 * self.max_wait_s),
+                               self.max_wait_s)
+                    if stall >= pace:
+                        if now - oldest >= self.max_wait_s:
+                            telemetry.counter(
+                                events.CTR_SERVE_WAIT_COLLAPSED).inc()
+                            return 0.0
+                    else:
+                        # wake no later than the pace bar trips, so a
+                        # held window re-checks the stall without a
+                        # submit to notify it
+                        limit = self._stretch * self.max_wait_s
+                        return min(limit - (now - oldest), pace - stall)
+        return limit - (now - oldest)
+
     def _expire(self) -> List[_Pending]:
         """Under the lock: pop every fully queued request past its
         deadline."""
@@ -163,6 +247,9 @@ class MicroBatcher:
         for p in expired:
             self._queue.remove(p)
             self._queued_rows -= len(p.rows)
+        if expired:
+            telemetry.gauge(events.GAUGE_SERVE_QUEUE_DEPTH).set(
+                self._queued_rows)
         return expired
 
     def _take_batch(self) -> Optional[List[Tuple[_Pending, int, int]]]:
@@ -178,11 +265,19 @@ class MicroBatcher:
                     if self._queue:
                         if self._queued_rows >= self.max_batch:
                             break
-                        waited = time.perf_counter() - self._queue[0].t0
-                        if waited >= self.max_wait_s:
+                        now = time.perf_counter()
+                        oldest = self._queue[0].t0
+                        wait_left = self._wait_left(now, oldest)
+                        if wait_left <= 0:
+                            waited = now - oldest
+                            if waited > self.max_wait_s:
+                                telemetry.counter(
+                                    events.CTR_SERVE_WAIT_STRETCHED).inc()
+                            telemetry.gauge(
+                                events.GAUGE_SERVE_EFFECTIVE_WAIT_MS).set(
+                                round(waited * 1000.0, 3))
                             break
-                        self._cond.wait(min(self.max_wait_s - waited,
-                                            0.05))
+                        self._cond.wait(min(wait_left, 0.05))
                     elif self._closed:
                         return None
                     else:
@@ -204,8 +299,12 @@ class MicroBatcher:
                             self._queue.popleft()
                             p.popped = True
                             self._inflight += 1
+                    telemetry.gauge(events.GAUGE_SERVE_QUEUE_DEPTH).set(
+                        self._queued_rows)
                     return take
             # outside the lock: done-callbacks must not run under it
+            telemetry.counter(events.CTR_SERVE_DEADLINE_DROPPED).inc(
+                len(expired))
             now_ms = time.time() * 1000.0
             for p in expired:
                 if not p.future.done():
@@ -220,15 +319,33 @@ class MicroBatcher:
                 return
             rows = np.concatenate([p.rows[s:s + n] for p, s, n in take])
             xb = batching.pad_rows(rows, self.max_batch)
+            t_wait = time.perf_counter()
+            for p, s, n in take:
+                if s == 0:
+                    telemetry.histogram(
+                        events.HIST_SERVE_WAIT_SECONDS).record(t_wait - p.t0)
+            f = faults.fire("hive.slow_dispatch", label=self.label)
+            if f:
+                # the gray-failure drill: the dispatch stalls while the
+                # process stays alive and heartbeating
+                time.sleep(float(f.get("seconds", 0.25)))
             try:
                 out = self.dispatch(xb)
             except Exception as e:  # noqa: BLE001 — a failed dispatch
                 # fails exactly the requests it carried; the loop lives
+                telemetry.counter(
+                    events.CTR_SERVE_REQUEST_ERRORS).inc(len(take))
                 self._resolve(take, None, err=e)
                 continue
             self.dispatches += 1
             self.rows += len(rows)
             self.max_rows = max(self.max_rows, len(rows))
+            telemetry.counter(events.CTR_SERVE_BATCHES).inc()
+            telemetry.counter(events.CTR_SERVE_ROWS).inc(len(rows))
+            telemetry.counter(events.CTR_SERVE_BATCH_SLOTS).inc(
+                self.max_batch)
+            telemetry.histogram(events.HIST_SERVE_BATCH_ROWS).record(
+                len(rows))
             self._resolve(take, np.asarray(out))
 
     def _resolve(self, take, out, err=None) -> None:
@@ -248,9 +365,12 @@ class MicroBatcher:
                                         if len(p.results) > 1
                                         else p.results[0])
                 done.append(p)
+        now = time.perf_counter()
         self.last_activity = time.monotonic()
         with self._cond:
             for p in done:
+                telemetry.histogram(
+                    events.HIST_SERVE_REQUEST_SECONDS).record(now - p.t0)
                 if p.popped:
                     self._inflight -= 1
                 elif self._queue and self._queue[0] is p:

@@ -4,30 +4,36 @@ Counterpart of ``veles_tpu/serve/client.py`` (``HiveClient``,
 ``ReplicaDied``).  Spawns ``python -m veles_tpu_torch --serve-models
 NAME=PKG ... [--online]`` and multiplexes concurrent callers over its
 stdin and stdout: every request draws a wire id under a lock, one
-reader thread routes answer lines to per-id waiters; heartbeats and
-non-protocol lines are skipped.
+reader thread routes answer lines to per-id waiters or to asynchronous
+collectors (:meth:`HiveClient.collect_async`); heartbeats and
+non-protocol lines are proof of life (:attr:`HiveClient.last_line_ts`).
 
 When the process's stdout reaches EOF (exit, SIGKILL, a lost pipe),
-every pending waiter fails at once with :class:`ReplicaDied`, never by
-waiting out its own timeout.
+every pending waiter and collector fails at once with
+:class:`ReplicaDied`, never by waiting out its own timeout: the fleet
+router catches exactly that to retry a request on a peer.  A waiter that
+gives up (:meth:`HiveClient.cancel`: a timeout, a hedge's loser) has its
+late answer dropped and counted ``fleet.stale_response``.
 
-Left for the fleet: the reference's asynchronous collectors, request
-cancellation, request deadlines, its process controls (``sigterm``,
-``kill``, ``wait``) and liveness fields, and trace-context
-propagation.
+The process runs on the card unless the caller asks for the CPU
+(``backend="cpu"``).  Left out: trace-context propagation and
+``--metrics-dir`` (the ops plane) and ``--mesh`` (multi-card serving).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+
+from veles_tpu_torch import events, telemetry
 
 #: the directory that holds the ``veles_tpu_torch`` package
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -43,29 +49,46 @@ class ReplicaDied(RuntimeError):
         self.rc = rc
 
 
+def hive_command(models: Dict[str, str], backend: str = "auto",
+                 max_batch: Optional[int] = None,
+                 max_wait_ms: Optional[float] = None,
+                 hbm_budget: Optional[int] = None,
+                 heartbeat_every: Optional[float] = None,
+                 install_dir: Optional[str] = None,
+                 online: bool = False) -> List[str]:
+    """The command line :class:`HiveClient` starts a hive with."""
+    cmd = [sys.executable, "-m", "veles_tpu_torch", "--serve-models"]
+    cmd += [f"{name}={path}" for name, path in models.items()]
+    cmd += ["-b", backend]
+    if online:
+        cmd += ["--online"]
+    for flag, value in (("--max-batch", max_batch),
+                        ("--max-wait-ms", max_wait_ms),
+                        ("--hbm-budget", hbm_budget),
+                        ("--heartbeat-every", heartbeat_every),
+                        ("--install-dir", install_dir)):
+        if value is not None:
+            cmd += [flag, str(value)]
+    return cmd
+
+
 class HiveClient:
     """Own one serving process; thread-safe request fan-in."""
 
-    def __init__(self, models: Dict[str, str], backend: str = "cpu",
+    def __init__(self, models: Dict[str, str], backend: str = "auto",
                  max_batch: Optional[int] = None,
                  max_wait_ms: Optional[float] = None,
+                 hbm_budget: Optional[int] = None,
                  heartbeat_every: Optional[float] = None,
                  install_dir: Optional[str] = None,
                  env: Optional[Dict[str, str]] = None,
                  cwd: Optional[str] = None, online: bool = False,
                  stderr: Any = None,
                  start_timeout: float = 120.0) -> None:
-        cmd = [sys.executable, "-m", "veles_tpu_torch", "--serve-models"]
-        cmd += [f"{name}={path}" for name, path in models.items()]
-        cmd += ["-b", backend]
-        if online:
-            cmd += ["--online"]
-        for flag, value in (("--max-batch", max_batch),
-                            ("--max-wait-ms", max_wait_ms),
-                            ("--heartbeat-every", heartbeat_every),
-                            ("--install-dir", install_dir)):
-            if value is not None:
-                cmd += [flag, str(value)]
+        cmd = hive_command(models, backend=backend, max_batch=max_batch,
+                           max_wait_ms=max_wait_ms, hbm_budget=hbm_budget,
+                           heartbeat_every=heartbeat_every,
+                           install_dir=install_dir, online=online)
         run_env = dict(os.environ)
         run_env["PYTHONPATH"] = os.pathsep.join(
             p for p in (_ROOT, run_env.get("PYTHONPATH")) if p)
@@ -77,10 +100,20 @@ class HiveClient:
         self._wlock = threading.Lock()
         self._cond = threading.Condition()
         self._results: Dict[int, Dict[str, Any]] = {}
+        #: asynchronous collectors (wire id -> callback(msg, err))
+        self._callbacks: Dict[int, Callable[[Optional[Dict[str, Any]],
+                                             Optional[BaseException]],
+                                            None]] = {}
+        #: wire ids whose waiter gave up: their late answer is dropped
+        self._cancelled: set = set()
         self._next_id = 0
         self._eof = False
         self.exit_rc: Optional[int] = None
         self.hello: Optional[Dict[str, Any]] = None
+        self.heartbeats = 0
+        #: monotonic time of the last stdout line (any line is proof of
+        #: life: the fleet's heartbeat deadline reads it)
+        self.last_line_ts = time.monotonic()
         self._reader = threading.Thread(target=self._read_loop,
                                         daemon=True,
                                         name="hive-client-reader")
@@ -99,27 +132,70 @@ class HiveClient:
 
     # -- wire ----------------------------------------------------------
 
+    @property
+    def pid(self) -> Optional[int]:
+        return self.proc.pid
+
+    @property
+    def dead(self) -> bool:
+        """True once the reader saw EOF or the process exited."""
+        return self._eof or self.proc.poll() is not None
+
     def _read_loop(self) -> None:
         for line in self.proc.stdout:
             line = line.strip()
+            self.last_line_ts = time.monotonic()
             if not line:
                 continue
             try:
                 msg = json.loads(line)
             except ValueError:
-                continue   # not a protocol line
+                continue   # not a protocol line; still proof of life
+            cb = None
+            stale = False
             with self._cond:
                 if msg.get("ready"):
                     self.hello = msg
-                elif isinstance(msg.get("id"), int) and \
-                        msg["id"] <= self._next_id:
-                    self._results[msg["id"]] = msg
+                elif "hb" in msg:
+                    self.heartbeats += 1
+                elif msg.get("id") is not None:
+                    mid = msg["id"]
+                    if mid in self._cancelled:
+                        # a hedge loser's or timed-out waiter's late
+                        # answer: parked in _results it would leak
+                        self._cancelled.discard(mid)
+                        stale = True
+                    elif not isinstance(mid, int) or mid > self._next_id:
+                        stale = True   # an id this client never drew
+                    else:
+                        cb = self._callbacks.pop(mid, None)
+                        if cb is None:
+                            self._results[mid] = msg
                 self._cond.notify_all()
-        # EOF: the process is gone; every waiter fails now
+            if stale:
+                telemetry.counter(events.CTR_FLEET_STALE_RESPONSES).inc()
+            if cb is not None:
+                self._run_callback(cb, msg, None)
+        # EOF: the process is gone; every waiter and collector fails now
+        rc = self.proc.poll()
+        err = ReplicaDied(
+            f"hive pid {self.proc.pid} closed its pipe (rc={rc})", rc=rc)
         with self._cond:
             self._eof = True
-            self.exit_rc = self.proc.poll()
+            self.exit_rc = rc
+            callbacks = list(self._callbacks.values())
+            self._callbacks.clear()
+            self._cancelled.clear()
             self._cond.notify_all()
+        for cb in callbacks:
+            self._run_callback(cb, None, err)
+
+    @staticmethod
+    def _run_callback(cb, msg, err) -> None:
+        try:
+            cb(msg, err)
+        except Exception:  # noqa: BLE001 — a collector must not kill the
+            pass           # reader thread
 
     def _send(self, obj: Dict[str, Any]) -> None:
         try:
@@ -159,13 +235,19 @@ class HiveClient:
     # -- API -----------------------------------------------------------
 
     def submit(self, model: str, rows: Any,
+               deadline_ms: Optional[float] = None,
                label: Optional[Any] = None) -> int:
         """Send one request without waiting; returns its wire id (collect
-        it with :meth:`wait_for`).  ``label`` (per-row ground truth)
-        feeds an ``--online`` hive's tap."""
+        it with :meth:`wait_for` or :meth:`collect_async`).
+        ``deadline_ms`` (absolute unix-epoch ms) rides the wire: the
+        hive's batcher drops the request unanswered once it expires.
+        ``label`` (per-row ground truth) feeds an ``--online`` hive's
+        tap."""
         jid = self._draw_id()
         msg = {"id": jid, "model": model,
                "rows": np.asarray(rows, np.float32).tolist()}
+        if deadline_ms is not None:
+            msg["deadline_ms"] = float(deadline_ms)
         if label is not None:
             msg["label"] = np.asarray(label).tolist()
         self._send(msg)
@@ -190,8 +272,45 @@ class HiveClient:
                         "learner_ctl", timeout)
 
     def stats(self, timeout: float = 60.0) -> Dict[str, Any]:
-        """The serving process's counters (``op=stats``)."""
+        """The serving process's counters and telemetry (``op=stats``)."""
         return self._op("stats", "stats", timeout)
+
+    def cancel(self, jid: int) -> bool:
+        """Give up on request ``jid``.  True when its answer had already
+        arrived (it is dropped now); False when it is still pending: its
+        late arrival is then dropped and counted ``fleet.stale_response``
+        instead of leaking into another waiter."""
+        with self._cond:
+            if jid in self._results:
+                self._results.pop(jid)
+                return True
+            self._callbacks.pop(jid, None)
+            if not self._eof:
+                self._cancelled.add(jid)
+            return False
+
+    def collect_async(self, jid: int,
+                      callback: Callable[[Optional[Dict[str, Any]],
+                                          Optional[BaseException]],
+                                         None]) -> None:
+        """Route request ``jid``'s answer to ``callback(msg, err)`` on
+        the reader thread instead of a blocking waiter; exactly one of
+        msg and err is set (err is :class:`ReplicaDied` when the process
+        dies first).  The callback must be quick and must not raise."""
+        ready = None
+        with self._cond:
+            if jid in self._results:
+                ready = self._results.pop(jid)
+            elif self._eof:
+                ready = ReplicaDied(
+                    f"hive pid {self.proc.pid} died before answering "
+                    f"request {jid}", rc=self.exit_rc)
+            else:
+                self._callbacks[jid] = callback
+        if isinstance(ready, ReplicaDied):
+            self._run_callback(callback, None, ready)
+        elif ready is not None:
+            self._run_callback(callback, ready, None)
 
     def wait_for(self, jid: int, timeout: float = 60.0) -> Dict[str, Any]:
         return self._wait(jid, timeout)
@@ -202,6 +321,17 @@ class HiveClient:
         {"error"})."""
         return self.wait_for(self.submit(model, rows, label=label),
                              timeout)
+
+    # -- process control -----------------------------------------------
+
+    def sigterm(self) -> None:
+        self.proc.send_signal(signal.SIGTERM)
+
+    def kill(self) -> None:
+        self.proc.kill()
+
+    def wait(self, timeout: float = 60.0) -> int:
+        return self.proc.wait(timeout=timeout)
 
     def close(self, kill: bool = False) -> None:
         """Shut the process down (``op=shutdown``, then SIGKILL after 15

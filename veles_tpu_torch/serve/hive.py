@@ -30,11 +30,22 @@ Protocol lines (stdout; writes serialized under one lock)::
     {"id", "error": "...", "expired": true}           -- past deadline
     {"id", "stats": {...}}                            -- op=stats
 
-``crc`` is the crc32 of the float32 probability payload.  ``stats``
-carries the port's own counters: ``requests``, ``request_errors``,
-``dispatches``, ``rows``, ``max_batch_rows``, ``spills``,
-``kernel_launches`` (``{"lrn_fwd": n}``, and ``"lrn_bwd"`` when a
-learner is armed), the residency ``ledger`` and per-model rows.
+``crc`` is the crc32 of the clean float32 probability payload.
+``stats`` carries the port's own counters: ``requests``,
+``request_errors``, ``dispatches``, ``rows``, ``max_batch_rows``,
+``spills``, ``kernel_launches`` (``{"lrn_fwd": n}``, and ``"lrn_bwd"``
+when a learner is armed), the residency ``ledger`` and per-model rows;
+and beside them the process's telemetry snapshot (``counters``,
+``gauges``, ``histograms``: ``veles_tpu_torch/telemetry.py``), which is
+what the reference's hive answers and what the fleet router reads
+(``serve.dispatch_seconds``, ``serve.batch_rows``, ``serve.batches``).
+
+Fault points (``veles_tpu_torch/faults.py``, armed by
+``$VELES_FAULTS``): ``hive.wedge`` swallows a request unanswered,
+``hive.garbage_response`` replaces an answer's probabilities after its
+crc was computed, ``fleet.replica_flap`` SIGKILLs the process ``after``
+seconds past its hello, and the batcher's ``hive.slow_dispatch`` stalls
+a dispatch.
 
 With ``--online`` (``veles_tpu_torch/online``) a request may carry
 ``"label"`` (per-row ground truth) for the learning tap; truth known
@@ -44,8 +55,11 @@ only later joins by wire id through ``{"label_of": <id>, "label":
 row per model; ``{"op": "learner_suspend" | "learner_resume", "id"}``
 answers ``{"id", "learner_ctl": {"online", "suspended"}}``; and
 ``stats`` gains an ``online`` entry (steps, gate rounds, skips, tap
-counts).  The learner stops before the SIGTERM drain.  Not in this
-slice (argparse rejects them): ``--mesh``, ``--metrics-dir``.
+counts).  A learning model's loader loads its data set on the host once,
+for the codec's dequantization (``loader.dequant``) that the replay
+buffer stores rows by, as the reference's hive has it
+(:func:`attach_dequant`).  The learner stops before the SIGTERM drain.
+Not in this slice (argparse rejects them): ``--mesh``, ``--metrics-dir``.
 """
 
 from __future__ import annotations
@@ -66,7 +80,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from veles_tpu_torch import knobs
+from veles_tpu_torch import events, faults, knobs, telemetry
 from veles_tpu_torch.serve.batcher import DeadlineExpired
 
 #: the exit code the supervisor reads as "preempted, resume me"
@@ -134,6 +148,23 @@ def load_model_package(name: str, pkg_path: str, device: Any,
               # replay's contract)
               "seed": seed},
         sample_shape=tuple(w.loader.sample_shape))
+
+
+def attach_dequant(w) -> Any:
+    """Give a packaged workflow's loader its ``dequant``, as the
+    reference's hive has it after initializing the workflow: the loader
+    loads its data set on the host and decides the codec
+    (``post_load_data``), then drops the arrays; nothing goes to the
+    device.  Returns the dequantization (None without the codec)."""
+    ld = getattr(w, "loader", None)
+    if ld is None or not hasattr(ld, "post_load_data"):
+        return None
+    ld.load_data()
+    ld.post_load_data()
+    for key in ("host_data", "host_labels", "host_targets"):
+        if hasattr(ld, key):
+            setattr(ld, key, None)
+    return ld.dequant
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -221,6 +252,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     learner = None
     if args.online:
         from veles_tpu_torch.online import OnlineLearner
+        for name, _ in specs:
+            attach_dequant(residency.models[name].meta["workflow"])
         learner = OnlineLearner(residency)
         if any([learner.arm_model(name) for name, _ in specs]):
             learner.start()
@@ -241,6 +274,23 @@ def main(argv: Optional[List[str]] = None) -> int:
                      "version": m.meta.get("version")}
             for m in residency.models.values()},
     })
+    telemetry.event(events.EV_SERVE_READY, pid=os.getpid(),
+                    platform=device.platform,
+                    models=sorted(residency.models),
+                    max_batch=residency.max_batch)
+
+    flap = faults.fire("fleet.replica_flap")
+    if flap:
+        # the flapping replica: SIGKILL ``after`` seconds past hello;
+        # armed with times=* every respawn inherits it and flaps again
+        flap_after = float(flap.get("after", 1.0))
+
+        def _flap() -> None:
+            time.sleep(flap_after)
+            os.kill(os.getpid(), signal.SIGKILL)
+
+        threading.Thread(target=_flap, daemon=True,
+                         name="fault-replica-flap").start()
 
     counts = {"requests": 0, "request_errors": 0}
     counts_lock = threading.Lock()
@@ -273,6 +323,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             h2d_bytes=device.h2d_bytes,
             kernel_launches=launches, ledger=residency.ledger(),
             models=models)
+        # the reference's answer: the telemetry snapshot, beside the keys
+        # above
+        out.update(telemetry.snapshot())
         return out
 
     stop = {"signal": None}
@@ -352,6 +405,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             return True
         jid = job.get("id")
         bump("requests")
+        telemetry.counter(events.CTR_SERVE_REQUESTS).inc()
+        if faults.fire("hive.wedge", model=job.get("model")):
+            # the wedge drill: the request vanishes while heartbeats and
+            # stats keep flowing; the caller's deadline must catch it
+            return True
         try:
             model = job["model"]
             rows = np.asarray(job["rows"], np.float32)
@@ -360,6 +418,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         except Exception as e:  # noqa: BLE001 — a bad request answers
             # with an error; the process serves on
             bump("request_errors")
+            telemetry.counter(events.CTR_SERVE_REQUEST_ERRORS).inc()
             emit({"id": jid, "error": f"{type(e).__name__}: {e}"})
             return True
         if learner is not None:
@@ -378,11 +437,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                 emit({"id": jid, "error": f"{type(e).__name__}: {e}"})
                 return
             probs32 = np.asarray(probs, np.float32)
+            # the integrity echo: crc over the clean payload, computed
+            # before any injected corruption so the router catches it
+            crc = zlib.crc32(probs32.tobytes())
+            payload = probs32
+            if faults.fire("hive.garbage_response", model=model):
+                payload = faults.rng("hive.garbage_response") \
+                    .standard_normal(probs32.shape).astype(np.float32)
             emit({"id": jid, "model": model,
                   "pred": np.argmax(probs32, axis=-1).tolist(),
-                  "probs": probs32.tolist(),
-                  "rows_n": int(len(probs32)),
-                  "crc": int(zlib.crc32(probs32.tobytes()))})
+                  "probs": payload.tolist(),
+                  "rows_n": int(len(probs32)), "crc": int(crc)})
 
         fut.add_done_callback(_deliver)
         return True
