@@ -46,9 +46,16 @@ beside it.  It imports nothing of JAX and nothing of the JAX package.
    cut to 1024 train + 128 validation images.  The launch counts are
    zeroed just before and read just after; every training minibatch
    must have run ``lrn_bwd`` at both norm layers and every minibatch
-   ``lrn_fwd``.  Then one train superstep timed with CUDA events, and
-   each norm layer's backward at the activations and error of a real
-   training minibatch, kernel vs plain, in bf16.
+   ``lrn_fwd``.  The run writes a metrics dir (``telemetry.configure``)
+   and a ``logger.add_jsonl_sink`` file: its flushed snapshot's
+   ``fused.dispatches``, ``fused.minibatches`` and ``fused.*_images``
+   equal the run's own supersteps, minibatches and images; its journal
+   holds ``fused.first_dispatch`` and ``fused.summary`` with an MFU; the
+   sink the launcher's records.  Then one train superstep timed with
+   CUDA events, each norm layer's backward at the activations and error
+   of a real training minibatch, kernel vs plain, in bf16, and 3 + 3
+   train supersteps alternately with telemetry on and off: the ratio of
+   the medians within 1.15 (the hooks add no sync).
 5. Card vs CPU: one train superstep (k = 2, dropout 0, f32, TF32 off)
    from the same params and indices on the card and through the port's
    CPU plain path, the CPU replaying the card's choices at every max
@@ -204,17 +211,25 @@ beside it.  It imports nothing of JAX and nothing of the JAX package.
 24. Fleet: phase 3's package from an in-process ``FleetRouter`` of 2
    replicas on the card (``VELES_ONLINE=1``, ``--max-batch 64``, a
    16 GiB residency budget each), the learner rung engaged before any
-   traffic: each replica's spawn to hello and first answer; 48 one-row
+   traffic, and a metrics dir: each replica's warm-up before its hello
+   (one padded dispatch, its launches counted apart), spawn to hello and
+   first answer (under 2 s after the warm-up); 48 one-row
    requests from 4 threads, every answer's crc checked and held against
    an in-process engine as in phase 3, each replica routed at least a
    quarter, its ``lrn_fwd`` launches (from ``op=stats``, before and
    after) 2 layers x 2 members a dispatch, p50 / p99, hedges, the hedge
    threshold.  SIGKILL of replica 1 with 16 requests in flight: none
    lost, the victim's retried on the peer, the respawn's seconds and
-   first answer, the card's memory before the fleet, at its peak, after
-   the kill and after the respawn.  The learner rung on labeled
+   first answer (under 2 s), the card's memory before the fleet, at its
+   peak, after the kill and after the respawn; before the kill, the
+   victim's periodic flush holds every request it was sent.  The learner rung on labeled
    traffic: no step while engaged, ``lrn_bwd`` 2 a step after the
-   release.  Then the tier-1 fleet model (6x6x1 -> 12 -> 3): a healthy
+   release.  After shutdown each ``replica-<i>`` dir holds a snapshot
+   for every pid that lived there (the killed one's from before the
+   kill), each pid's ``serve.requests`` what the phase sent it, each
+   cleanly shut-down pid's journal ``serve.ready`` and, last,
+   ``serve.shutdown``, and the router's snapshot its ``fleet.*``
+   counters at shutdown.  Then the tier-1 fleet model (6x6x1 -> 12 -> 3): a healthy
    fleet and one whose replica 0 is armed with ``hive.slow_dispatch``
    (6 dispatches of 1.5 s), driven side by side by the same closed-loop
    stream (4 clients each, 12 s after a 2 s ramp): on the slow one a
@@ -226,11 +241,13 @@ beside it.  It imports nothing of JAX and nothing of the JAX package.
    a fleet whose replica 0 is armed with ``hive.garbage_response``:
    integrity strikes, an ejection, every answer the in-process
    engine's.
-25. Summary: ``serve``, ``train``, ``stream``, ``preempt``, ``data``,
+25. Summary: each phase's wall seconds on a ``phases`` line (each also
+   printed as it ends), then ``serve``, ``train``, ``stream``, ``preempt``, ``data``,
    ``mnist7``, ``cifar10``, ``quantized``, ``mnist_ae``, ``kohonen``,
    ``layers``, ``wine``, ``mnist_rbm``, ``mnist_dbn``, ``profile``,
    ``cohort``, ``som_cohort``, ``ga``, ``ensemble``, ``online`` and
-   ``fleet`` JSON lines, the total minutes, the card line, the
+   ``fleet`` JSON lines, each with its phase's ``seconds``, the total
+   minutes, the card line, the
    ``kernels`` line, then the device line last.
 
 ``python3 chip_smoke.py --only fleet`` runs phase 1's build, phase 3's
@@ -968,17 +985,111 @@ def _want_launches(train_mb: int, valid_mb: int) -> dict:
     return {"lrn_fwd": 2 * (train_mb + valid_mb), "lrn_bwd": 2 * train_mb}
 
 
-def train_phase(card: str):
-    """Full-width AlexNet, 2 epochs, through the port's entry path.
-    Returns the readings and the workflow (the profile phase goes on
-    with it)."""
+def _supersteps_per_epoch(n: int) -> int:
+    """The loader's firings for one class of ``n`` images."""
+    return -(-(-(-n // TRAIN_BATCH)) // SUPERSTEP)
+
+
+def _read_journal(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def train_telemetry(metrics_dir: str, sink: str, train_mb: int,
+                    valid_mb: int) -> dict:
+    """The run's flushed snapshot holds exactly the run's own supersteps,
+    minibatches and images; the journal its first dispatch and its
+    summary with an MFU; the sink the launcher's log records."""
+    from veles_tpu_torch import events, telemetry
+    t0 = time.perf_counter()
+    path = telemetry.flush()
+    flush_ms = 1e3 * (time.perf_counter() - t0)
+    check(path is not None, "train: no telemetry snapshot written")
+    with open(path) as f:
+        snap = json.load(f)
+    c = snap["counters"]
+    want = {"fused.dispatches": N_EPOCHS * (
+                _supersteps_per_epoch(N_TRAIN) +
+                _supersteps_per_epoch(N_VALID)),
+            "fused.minibatches": train_mb + valid_mb,
+            "fused.train_images": N_EPOCHS * N_TRAIN,
+            "fused.eval_images": N_EPOCHS * N_VALID}
+    got = {k: c.get(k) for k in want}
+    check(got == want, f"train: snapshot counters {got}, want {want}")
+    journal = _read_journal(os.path.join(
+        metrics_dir, f"journal-{os.getpid()}.jsonl"))
+    names = [e["event"] for e in journal]
+    summary = [e for e in journal if e["event"] == events.EV_FUSED_SUMMARY]
+    check(events.EV_FUSED_FIRST_DISPATCH in names and summary
+          and summary[-1]["mfu"] is not None and 0 < summary[-1]["mfu"] < 1,
+          f"train: journal events {names}, summary {summary}")
+    sink_rows = _read_journal(sink)
+    launcher_rows = [r for r in sink_rows if r["unit"] == "veles.launcher"]
+    check(launcher_rows, f"train: no launcher record among the sink's "
+          f"{len(sink_rows)} rows")
+    return {"counters": got, "journal_events": len(journal),
+            "first_dispatch_s": {e["kind"]: e["seconds"] for e in journal
+                                 if e["event"] ==
+                                 events.EV_FUSED_FIRST_DISPATCH},
+            "summary": summary[-1], "flush_ms": flush_ms,
+            "sink_rows": len(sink_rows),
+            "launcher_rows": len(launcher_rows),
+            "snapshot_bytes": os.path.getsize(path)}
+
+
+#: the telemetry on/off superstep ratio bar: telemetry adds no sync
+TELEMETRY_RATIO_BAR = 1.15
+
+
+def telemetry_on_off(w) -> dict:
+    """3 + 3 train supersteps, alternately with telemetry on and off,
+    each from an idle card to a synchronized one (host clock): the
+    median on over the median off."""
     import torch
 
+    from veles_tpu_torch import telemetry
+    ms = {True: [], False: []}
+    try:
+        for on in (True, False) * 3:
+            telemetry.set_enabled(on)
+            _next_train_superstep(w)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w.fused.run()
+            torch.cuda.synchronize()
+            ms[on].append(1e3 * (time.perf_counter() - t0))
+            w.fused.take_class_metrics()
+    finally:
+        telemetry.set_enabled(True)
+    ratio = float(np.median(ms[True]) / np.median(ms[False]))
+    check(ratio <= TELEMETRY_RATIO_BAR,
+          f"train: telemetry on/off superstep ratio {ratio:.3f} over "
+          f"{TELEMETRY_RATIO_BAR} (on {ms[True]}, off {ms[False]} ms)")
+    return {"on_ms": ms[True], "off_ms": ms[False], "ratio": ratio,
+            "bar": TELEMETRY_RATIO_BAR}
+
+
+def train_phase(card: str, workdir: str):
+    """Full-width AlexNet, 2 epochs, through the port's entry path, with
+    a metrics dir and an event sink.  Returns the readings and the
+    workflow (the profile phase goes on with it)."""
+    import torch
+
+    from veles_tpu_torch import telemetry
     from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.logger import add_jsonl_sink
     from veles_tpu_torch.ops import lrn_cuda
     from veles_tpu_torch.ops.lrn import GDLRNormalizer
 
-    launcher, launches, total_s = _drive(TRAIN_OVERRIDES)
+    metrics_dir = os.path.join(workdir, "train_metrics")
+    sink = os.path.join(workdir, "train_events.jsonl")
+    telemetry.reset()
+    telemetry.configure(metrics_dir)
+    detach = add_jsonl_sink(sink)
+    try:
+        launcher, launches, total_s = _drive(TRAIN_OVERRIDES)
+    finally:
+        detach()
     w = launcher.workflow
     ld, fused = w.loader, w.fused
     check(ld.max_minibatch_size == TRAIN_BATCH and
@@ -999,6 +1110,10 @@ def train_phase(card: str):
     check(all(np.isfinite(r["loss"]) for r in hist),
           f"non-finite loss in {hist}")
     check(w.decision.complete, "decision did not complete")
+    try:
+        tel = train_telemetry(metrics_dir, sink, train_mb, valid_mb)
+    finally:
+        telemetry.configure(None)
 
     # one train superstep timed with CUDA events (the loader goes on
     # past the last epoch: a validation firing, then train)
@@ -1044,6 +1159,15 @@ def train_phase(card: str):
                                              .abs().max()),
                         "window_term_share": float(
                             (b / (a + b).clamp(min=1e-30)).mean())})
+    tel["on_off"] = telemetry_on_off(w)
+    print(f"train: telemetry {tel['counters']}, flush "
+          f"{tel['flush_ms']:.2f} ms ({tel['snapshot_bytes']} bytes), MFU "
+          f"{tel['summary']['mfu']} at {tel['summary']['images_per_sec_wall']}"
+          f" img/s delivered, {tel['journal_events']} journal lines, "
+          f"{tel['launcher_rows']} of {tel['sink_rows']} sink rows the "
+          f"launcher's; superstep ms on {tel['on_off']['on_ms']} off "
+          f"{tel['on_off']['off_ms']} (ratio {tel['on_off']['ratio']:.3f}, "
+          f"bar {TELEMETRY_RATIO_BAR})  [{card}]", flush=True)
     images = N_EPOCHS * (N_TRAIN + N_VALID)
     return {"epochs": N_EPOCHS, "minibatch": TRAIN_BATCH,
             "superstep": SUPERSTEP, "dtype": "bfloat16",
@@ -1054,7 +1178,8 @@ def train_phase(card: str):
             "train_img_s": SUPERSTEP * TRAIN_BATCH / superstep_ms * 1e3,
             "run_wall_s": w.wall_time, "run_img_s_wall":
             images / w.wall_time, "drive_wall_s": total_s,
-            "lrn_bwd_in_situ": in_situ, "card": card}, w
+            "lrn_bwd_in_situ": in_situ, "telemetry": tel,
+            "card": card}, w
 
 
 # -- phase 5: one step on the card against the CPU plain path -----------
@@ -4073,11 +4198,92 @@ def _burst(router, model: str, rows: list, threads: int,
     return answers, lat
 
 
+#: a fresh or respawned replica's first answer, after its warm-up
+FIRST_ANSWER_BAR_S = 2.0
+
+
+def _snapshot(d: str, pid: int) -> dict:
+    with open(os.path.join(d, f"metrics-{pid}.json")) as f:
+        return json.load(f)
+
+
+def _wait_flushed(d: str, pid: int, requests: int,
+                  timeout: float = 30.0) -> dict:
+    """The replica's periodic flush (a heartbeat, then at most
+    ``telemetry.FLUSH_EVERY`` s) reaches ``requests`` on disk."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            snap = _snapshot(d, pid)
+        except (OSError, ValueError):
+            snap = {"counters": {}}
+        if snap["counters"].get("serve.requests", 0) >= requests:
+            return snap
+        check(time.monotonic() < deadline,
+              f"fleet: {d} pid {pid} flushed "
+              f"{snap['counters'].get('serve.requests', 0)} requests, "
+              f"want {requests}")
+        time.sleep(0.2)
+
+
+def _fleet_metrics(metrics_dir: str, pids: list, expect: dict,
+                   killed: tuple, routed_fleet: dict) -> dict:
+    """After shutdown: each replica dir holds a snapshot for every pid
+    that lived there, the killed one's from before the kill; each pid's
+    ``serve.requests`` is what the phase sent that pid (routed, and its
+    own direct requests: ``expect[pid]``, a (low, high) range only for
+    the killed pid, whose requests in flight at the kill came after its
+    last flush at most); each cleanly shut-down pid's journal holds
+    ``serve.ready`` and ends with ``serve.shutdown``; the router's
+    snapshot holds its ``fleet.*`` counters as they stood at shutdown."""
+    from veles_tpu_torch import events, telemetry
+    kill_pid, kill_wall = killed
+    per_replica = []
+    for i, replica_pids in enumerate(pids):
+        d = os.path.join(metrics_dir, f"replica-{i}")
+        have = sorted(int(f[len("metrics-"):-len(".json")])
+                      for f in os.listdir(d)
+                      if f.startswith("metrics-") and f.endswith(".json"))
+        check(have == sorted(replica_pids),
+              f"fleet: {d} holds snapshots of {have}, want "
+              f"{sorted(replica_pids)}")
+        counts = {}
+        for pid in replica_pids:
+            snap = _snapshot(d, pid)
+            counts[pid] = snap["counters"].get("serve.requests", 0)
+            lo, hi = expect[pid]
+            check(lo <= counts[pid] <= hi,
+                  f"fleet: pid {pid} counted {counts[pid]} requests, the "
+                  f"phase sent it {lo}-{hi}")
+            if pid == kill_pid:
+                check(snap["ts"] < kill_wall,
+                      f"fleet: the killed pid's snapshot is from "
+                      f"{snap['ts']}, the kill at {kill_wall}")
+                continue
+            evs = [e["event"] for e in _read_journal(
+                os.path.join(d, f"journal-{pid}.jsonl"))]
+            check(events.EV_SERVE_READY in evs and
+                  evs[-1] == events.EV_SERVE_SHUTDOWN,
+                  f"fleet: pid {pid}'s journal {evs}")
+        per_replica.append({"pids": replica_pids, "requests": counts,
+                            "sent": [expect[p] for p in replica_pids]})
+    router = _snapshot(metrics_dir, os.getpid())
+    on_disk = {k: v for k, v in router["counters"].items()
+               if k.startswith("fleet.")}
+    check(on_disk == routed_fleet,
+          f"fleet: the router's snapshot {on_disk} against its counters "
+          f"at shutdown {routed_fleet}")
+    telemetry.configure(None)
+    return {"replicas": per_replica,
+            "router_fleet_counters": len(on_disk)}
+
+
 def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
-    """Steps 1-3: full-width AlexNet from 2 replicas on the card: spawn,
-    the first answers, the burst against an in-process engine with the
+    """Steps 1-3: full-width AlexNet from 2 replicas on the card, with a
+    metrics dir: spawn (each replica warms up before its hello), the
+    first answers, the burst against an in-process engine with the
     launches read from each replica's stats, the SIGKILL failover with
-    its respawn, and the learner rung."""
+    its respawn, the learner rung, and the dirs after shutdown."""
     from veles_tpu_torch import telemetry
     from veles_tpu_torch.backends import make_device
     from veles_tpu_torch.config import root
@@ -4088,15 +4294,19 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
 
     used0 = _card_used()
     err = open(os.path.join(workdir, "fleet_alexnet.stderr"), "w")
+    metrics_dir = os.path.join(workdir, "fleet_metrics")
     t0 = time.perf_counter()
     router = FleetRouter(
         {"alexnet": pkg}, FLEET_REPLICAS, backend="cuda",
         max_batch=MAX_BATCH, max_wait_ms=20, hbm_budget=FLEET_HBM_BUDGET,
         heartbeat_every=1.0, cwd=HERE, stderr=err, start_timeout=600,
-        env=dict(ONLINE_ENV, VELES_ONLINE="1"))
+        env=dict(ONLINE_ENV, VELES_ONLINE="1"), metrics_dir=metrics_dir)
+    #: the requests the phase sent each replica directly
+    direct = [0] * FLEET_REPLICAS
     try:
         up_s = time.perf_counter() - t0
         spawn_s = [r.spawn_seconds for r in router.replicas]
+        pids = [[r.pid] for r in router.replicas]
         check(router.placement == {"alexnet": [0, 1]}
               and all(r.client.hello["online"] and r.capacity_bytes
                       == FLEET_HBM_BUDGET for r in router.replicas),
@@ -4120,6 +4330,7 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
             ts = time.perf_counter()
             a = r.client.request("alexnet", warm, timeout=600)
             first_s[r.idx] = (time.perf_counter() - ts, a)
+            direct[r.idx] += 1
 
         ts = [threading.Thread(target=first, args=(r,))
               for r in router.replicas]
@@ -4181,6 +4392,19 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
         del model, engine
         gauges = [s["gauges"].get("serve.first_dispatch_seconds")
                   for s in st1]
+        warmups = [s["warmup"] for s in st0]
+        check(all(w["dispatches"] == 1 and w["kernel_launches"] ==
+                  {"lrn_fwd": n_norm * N_MEMBERS} for w in warmups),
+              f"fleet: warm-ups {warmups}")
+        check(all(f < FIRST_ANSWER_BAR_S for f in first_s),
+              f"fleet: first answers {first_s} s after the warm-up, bar "
+              f"{FIRST_ANSWER_BAR_S} s")
+
+        # the victim's snapshot on disk holds every request sent so far
+        # (its heartbeat's periodic flush) before the kill
+        pre_kill = router.routed_counts()[1] + direct[1]
+        _wait_flushed(os.path.join(metrics_dir, "replica-1"),
+                      router.replicas[1].pid, pre_kill)
 
         # step 2: SIGKILL replica 1 with FLEET_KILL_INFLIGHT in flight
         retries0 = telemetry.counter("fleet.retries").value
@@ -4206,6 +4430,7 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
             time.sleep(0.005)
         on_victim = router.replicas[1].inflight
         t_kill = time.monotonic()
+        kill_wall = time.time()
         router.replicas[1].client.proc.kill()
         for t in ts:
             t.join(600)
@@ -4233,11 +4458,18 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
         respawn_s = time.monotonic() - t_kill
         check(router.replicas[1].deaths == deaths0 + 1,
               f"fleet: deaths {router.replicas[1].deaths}")
+        pids[1].append(router.replicas[1].pid)
+        # what replica 1 was sent before its respawn, and after
+        at_respawn = [router.routed_counts()[1], direct[1]]
         ts0 = time.perf_counter()
         _check_crc(router.replicas[1].client.request(
             "alexnet", warm, timeout=600), 1,
             "fleet: the respawned replica's first answer")
         respawn_first_s = time.perf_counter() - ts0
+        direct[1] += 1
+        check(respawn_first_s < FIRST_ANSWER_BAR_S,
+              f"fleet: the respawned replica's first answer took "
+              f"{respawn_first_s:.2f} s, bar {FIRST_ANSWER_BAR_S} s")
         used_respawn = _card_used()
 
         # step 3: the learner rung on labeled traffic
@@ -4252,6 +4484,7 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
                         "alexnet", rows_l, timeout=300, label=labels),
                         len(rows_l), f"fleet: labeled request to replica "
                         f"{r.idx}")
+                    direct[r.idx] += 1
             except Exception as e:  # noqa: BLE001 — reported below
                 lerrs.append(e)
 
@@ -4291,14 +4524,28 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
               f"fleet: lrn_bwd grew {grown} in {steps} steps")
         check(not any(s["online"]["suspended"] for s in st_r),
               f"fleet: still suspended {[s['online'] for s in st_r]}")
+        routed_final = router.routed_counts()
+        # a probe of an ejected replica reaches it outside the routing
+        probes = telemetry.counter("fleet.probe.sent").value
     finally:
         router.close()
         err.close()
+    routed_fleet = {k: v for k, v in telemetry.snapshot()["counters"].items()
+                    if k.startswith("fleet.")}
+    sent0 = routed_final[0] + direct[0]
+    sent_respawn = routed_final[1] - at_respawn[0] + direct[1] - \
+        at_respawn[1]
+    expect = {pids[0][0]: (sent0, sent0 + probes),
+              pid1: (pre_kill, pre_kill + FLEET_KILL_INFLIGHT),
+              pids[1][1]: (sent_respawn, sent_respawn + probes)}
+    metrics = _fleet_metrics(metrics_dir, pids, expect, (pid1, kill_wall),
+                             routed_fleet)
     lat_ms = sorted(lat.values())
     return {
         "up_s": up_s, "spawn_to_hello_s": spawn_s,
         "first_answer_s": first_s,
-        "first_dispatch_gauge_s": gauges,
+        "first_dispatch_gauge_s": gauges, "warmup": warmups,
+        "metrics": metrics,
         "requests": FLEET_REQUESTS, "threads": FLEET_THREADS,
         "burst_s": burst_s, "routed": routed, "dispatches": dispatches,
         "lrn_fwd_launches": launches,
@@ -4561,6 +4808,15 @@ def fleet_phase(card: str, workdir: str) -> dict:
           f" s, first answer {[round(s, 2) for s in alex['first_answer_s']]}"
           f" s (first dispatch {alex['first_dispatch_gauge_s']} s)  [{card}]",
           flush=True)
+    print(f"fleet: warm-up before each hello "
+          f"{[round(w['seconds'], 2) for w in alex['warmup']]} s, lrn_fwd "
+          f"{[w['kernel_launches']['lrn_fwd'] for w in alex['warmup']]} "
+          f"(counted apart); first answers after it "
+          f"{[round(f, 3) for f in alex['first_answer_s']]} s fresh, "
+          f"{fo['respawn_first_answer_s']:.3f} s respawned (bar "
+          f"{FIRST_ANSWER_BAR_S}); metrics dirs: requests by pid "
+          f"{[r['requests'] for r in alex['metrics']['replicas']]}  "
+          f"[{card}]", flush=True)
     print(f"fleet: {FLEET_REQUESTS} one-row requests from "
           f"{FLEET_THREADS} threads, routed {alex['routed']}, p50 "
           f"{alex['p50_ms']:.1f} / p99 {alex['p99_ms']:.1f} ms, "
@@ -4691,13 +4947,26 @@ def main() -> int:
     workdir = os.path.join(HERE, "_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
+    phases = {}
+
+    def timed(name, fn, *args):
+        """Run one phase, keeping (and printing) its wall seconds."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phases[name]:.1f} s", flush=True)
+        return out
+
     if sys.argv[1:] == ["--only", "fleet"]:
         # development: phase 1's build, the served package and phase 24
         # alone; no result lines
         try:
-            lrn_cuda.build()
-            build_package(workdir)
-            print("fleet " + json.dumps(fleet_phase(card_line(), workdir)))
+            timed("build", lrn_cuda.build)
+            timed("package", build_package, workdir)
+            fleet = timed("fleet", fleet_phase, card_line(), workdir)
+            fleet["seconds"] = phases["fleet"]
+            print("phases " + json.dumps(phases))
+            print("fleet " + json.dumps(fleet))
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1
@@ -4711,10 +4980,9 @@ def main() -> int:
         card = card_line()
         print(f"device: {name} x{torch.cuda.device_count()}, torch "
               f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-        t0 = time.perf_counter()
-        lrn_cuda.build()
-        print(f"build: lrn_fwd and lrn_bwd in "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        timed("build", lrn_cuda.build)
+        print(f"build: lrn_fwd and lrn_bwd in {phases['build']:.1f}s",
+              flush=True)
         for kname, info in lrn_cuda.build_info.items():
             print(f"build: {kname} {info['seconds']:.1f}s "
                   f"({info['path']})", flush=True)
@@ -4730,44 +4998,45 @@ def main() -> int:
             check(table and not spilled,
                   f"{kname}: ptxas reports spills in {spilled}")
         # phase 2: every kernel against its plain version
-        rows = kernel_phase(card)
+        rows = timed("kernels", kernel_phase, card)
         # phase 3: the serving path
-        serve, serve_launches = serve_phase(card, workdir)
+        serve, serve_launches = timed("serve", serve_phase, card, workdir)
         # phases 4 and 5: the training path
-        train, alexnet_w = train_phase(card)
-        t0 = time.perf_counter()
-        train["f32_card_vs_cpu"] = card_vs_cpu_phase()
-        train["f32_card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+        train, alexnet_w = timed("train", train_phase, card, workdir)
+        train["f32_card_vs_cpu"] = timed("card_vs_cpu", card_vs_cpu_phase)
+        train["f32_card_vs_cpu"]["seconds"] = phases["card_vs_cpu"]
         # phases 6 and 7: streaming, and preemption with resume
-        stream = stream_phase(card, workdir)
-        preempt = preempt_phase(card, workdir)
+        stream = timed("stream", stream_phase, card, workdir)
+        preempt = timed("preempt", preempt_phase, card, workdir)
         # phases 8-11: real data, the three small models, uint8 ingest
         data_dir = os.path.join(workdir, "data")
-        data = data_phase(card, data_dir)
-        mnist7, mnist7_w = mnist7_phase(card, data_dir)
-        cifar10 = cifar10_phase(card, data_dir)
-        quantized = quantized_phase(card, workdir)
+        data = timed("data", data_phase, card, data_dir)
+        mnist7, mnist7_w = timed("mnist7", mnist7_phase, card, data_dir)
+        cifar10 = timed("cifar10", cifar10_phase, card, data_dir)
+        quantized = timed("quantized", quantized_phase, card, workdir)
         # phases 12 and 13: BASELINE config #5
-        mnist_ae, mnist_ae_w = mnist_ae_phase(card, data_dir)
-        kohonen = kohonen_phase(card)
+        mnist_ae, mnist_ae_w = timed("mnist_ae", mnist_ae_phase, card,
+                                     data_dir)
+        kohonen = timed("kohonen", kohonen_phase, card)
         # phases 14-18: the zoo's long tail, and the profiler
-        layers = layers_phase(card)
-        wine = wine_phase(card)
-        mnist_rbm = mnist_rbm_phase(card, data_dir)
-        mnist_dbn = mnist_dbn_phase(card, data_dir)
-        profile = profile_phase(card, workdir, alexnet_w, train, mnist7_w,
-                                mnist_ae_w)
+        layers = timed("layers", layers_phase, card)
+        wine = timed("wine", wine_phase, card)
+        mnist_rbm = timed("mnist_rbm", mnist_rbm_phase, card, data_dir)
+        mnist_dbn = timed("mnist_dbn", mnist_dbn_phase, card, data_dir)
+        profile = timed("profile", profile_phase, card, workdir, alexnet_w,
+                        train, mnist7_w, mnist_ae_w)
         del alexnet_w, mnist7_w, mnist_ae_w
         torch.cuda.empty_cache()
         # phases 19-22: population-batched cohorts, the GA, ensembles
-        cohort = cohort_phase(card)
-        som_cohort = som_cohort_phase(card)
-        ga = ga_phase(card, workdir, data_dir)
-        ensemble = ensemble_phase(card, workdir, data_dir)
+        cohort = timed("cohort", cohort_phase, card)
+        som_cohort = timed("som_cohort", som_cohort_phase, card)
+        ga = timed("ga", ga_phase, card, workdir, data_dir)
+        ensemble = timed("ensemble", ensemble_phase, card, workdir,
+                         data_dir)
         # phase 23: online learning on the served ensemble, the handoff
-        online = online_phase(card, workdir)
+        online = timed("online", online_phase, card, workdir)
         # phase 24: the serving fleet
-        fleet = fleet_phase(card, workdir)
+        fleet = timed("fleet", fleet_phase, card, workdir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4802,6 +5071,17 @@ def main() -> int:
                         **_online_launches("lrn_bwd", online),
                         "fleet": fleet["launches"]["lrn_bwd"]},
                        card)]
+    results = {"serve": serve, "train": train, "stream": stream,
+               "preempt": preempt, "data": data, "mnist7": mnist7,
+               "cifar10": cifar10, "quantized": quantized,
+               "mnist_ae": mnist_ae, "kohonen": kohonen, "layers": layers,
+               "wine": wine, "mnist_rbm": mnist_rbm, "mnist_dbn": mnist_dbn,
+               "profile": profile, "cohort": cohort,
+               "som_cohort": som_cohort, "ga": ga, "ensemble": ensemble,
+               "online": online, "fleet": fleet}
+    for phase, res in results.items():
+        res["seconds"] = phases[phase]
+    print("phases " + json.dumps(phases))
     print("serve " + json.dumps(serve))
     print("train " + json.dumps(train))
     print("stream " + json.dumps(stream))

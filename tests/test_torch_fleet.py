@@ -276,10 +276,31 @@ def test_cli_round_trip(packages):
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--metrics-dir"])
-def test_cli_refuses_what_is_not_ported(packages, flag):
+def test_cli_refuses_what_is_not_ported(packages, flag, tmp_path):
+    """``--mesh`` is refused; ``--metrics-dir`` is ported now: the
+    fleet serves, and its dir holds the router's files and one
+    ``replica-<i>`` dir a replica, each with a snapshot and a journal
+    that ends in ``serve.shutdown``."""
+    value = "2" if flag == "--mesh" else str(tmp_path / "m")
     p = subprocess.run(
         [sys.executable, "-m", "veles_tpu_torch", "--serve-fleet", "2",
          f"alpha={packages['alpha']['port_pkg']}", "-b", "cpu", flag,
-         "2"], capture_output=True, text=True, cwd=REPO, timeout=120)
-    assert p.returncode == 2
-    assert flag in p.stderr and "ROADMAP item" in p.stderr
+         value], input=json.dumps({"op": "shutdown"}) + "\n",
+        capture_output=True, text=True, cwd=REPO, timeout=120)
+    if flag == "--mesh":
+        assert p.returncode == 2
+        assert flag in p.stderr and "ROADMAP item" in p.stderr
+        return
+    assert p.returncode == 0, p.stderr[-2000:]
+    d = tmp_path / "m"
+    assert sorted(f.name for f in d.glob("replica-*")) == \
+        ["replica-0", "replica-1"]
+    for sub in [d, d / "replica-0", d / "replica-1"]:
+        (snap,) = sub.glob("metrics-*.json")
+        (journal,) = sub.glob("journal-*.jsonl")
+        assert json.loads(snap.read_text())["pid"] == \
+            int(journal.stem.split("-")[1])
+        evs = [json.loads(ln)["event"]
+               for ln in journal.read_text().splitlines()]
+        assert evs[-1] == ("fleet.shutdown" if sub == d
+                           else "serve.shutdown")

@@ -74,6 +74,7 @@ def test_every_port_module_imports_with_jax_blocked():
             "veles_tpu_torch.online.trainer",
             "veles_tpu_torch.genetics.handoff",
             "veles_tpu_torch.telemetry", "veles_tpu_torch.events",
+            "veles_tpu_torch.logger",
             "veles_tpu_torch.faults", "veles_tpu_torch.serve.fleet",
             "veles_tpu_torch.serve.sentinel",
             "veles_tpu_torch.serve.router",

@@ -127,6 +127,9 @@ def test_uint8_codec_round_trip_and_verdict_equal_the_reference():
 # -- the tap --------------------------------------------------------------
 
 def test_tap_admits_and_joins_as_the_reference_does():
+    from veles_tpu import telemetry as ref_telemetry
+    from veles_tpu_torch import telemetry
+    telemetry.reset()
     rng = np.random.default_rng(7)
     taps = {"port": TrafficTap(0.6), "ref": RefTap(0.6)}
     bufs = {"port": ReplayBuffer(64, seed=2, holdout_every=4),
@@ -151,10 +154,16 @@ def test_tap_admits_and_joins_as_the_reference_does():
     # the stream parked more than the cap: the oldest were evicted
     assert taps["port"].pending_count() == taps["ref"].pending_count()
     assert PENDING_CAP - 10 < taps["port"].pending_count() <= PENDING_CAP
-    assert taps["port"].label_orphans == joins["port"].count(False)
+    # the online.* counters, the reference's and the port's alike
+    counts = {n: (telemetry.counter(n).value,
+                  ref_telemetry.counter(n).value)
+              for n in ("online.tapped_rows", "online.labeled_rows",
+                        "online.label_orphans")}
+    assert all(p == r for p, r in counts.values()), counts
+    assert counts["online.label_orphans"][0] == joins["port"].count(False)
     assert taps["port"].lineage_sample("m") == []
     _buffers_equal(bufs["port"], bufs["ref"])
-    assert taps["port"].labeled_rows > bufs["port"].capacity
+    assert counts["online.labeled_rows"][0] > bufs["port"].capacity
 
 
 # -- the gate ----------------------------------------------------------------

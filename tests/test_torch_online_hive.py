@@ -17,9 +17,14 @@ through the port's ``HiveClient``, after the reference's
 - a poisoned stream never promotes: every request that lands in the
   training partition carries a wrong label, sent on the wire, while the
   held-out ones carry the labels the packaged ensemble itself answers.
-  This stands in for the reference's ``online.poison_batch`` fault,
-  which corrupts exactly the training slot's labels.  Then the process
-  is killed: a waiter fails with ``ReplicaDied`` at once.
+  Then the process is killed: a waiter fails with ``ReplicaDied`` at
+  once;
+- the reference's own drill: clean labels on the wire and
+  ``online.poison_batch@slot=train&times=*`` armed through
+  ``$VELES_FAULTS``, so the tap corrupts exactly the training slot's
+  labels: never promoted either, and the hive's ``--metrics-dir``, read
+  with the reference's ``veles_tpu/obs.py``, holds the learner's
+  counters, its gate rounds and no promotion.
 """
 
 import os
@@ -94,11 +99,12 @@ def online_pkg(tmp_path_factory):
     return pkg
 
 
-def _client(pkg, **env):
+def _client(pkg, metrics_dir=None, **env):
     from veles_tpu_torch.serve.client import HiveClient
     return HiveClient({"alpha": pkg["port_pkg"]}, backend="cpu",
                       max_batch=8, max_wait_ms=2, heartbeat_every=0,
-                      online=True, env=dict(LEARN_ENV, **env), cwd=REPO)
+                      online=True, env=dict(LEARN_ENV, **env), cwd=REPO,
+                      metrics_dir=metrics_dir)
 
 
 @pytest.fixture(scope="module")
@@ -270,3 +276,43 @@ def test_poisoned_stream_never_promotes(online_pkg):
         assert time.monotonic() - t0 < 30
     finally:
         c.close()
+
+
+def test_poison_batch_fault_never_promotes(online_pkg, tmp_path):
+    """Clean labels (the packaged ensemble's own answers) on every
+    request, the training slot's corrupted by the armed fault."""
+    from veles_tpu import obs
+    xs = online_pkg["xs"]
+    clean = np.argmax(_host_oracle(online_pkg, xs), axis=-1)
+    mdir = str(tmp_path / "m")
+    c = _client(online_pkg, metrics_dir=mdir,
+                VELES_FAULTS="online.poison_batch@slot=train&times=*")
+    try:
+        deadline = time.monotonic() + 40
+        i, row = 0, None
+        while time.monotonic() < deadline:
+            for _ in range(8):
+                j = i % len(xs)
+                i += 1
+                r = c.request("alpha", xs[j][None], label=[int(clean[j])])
+                assert "error" not in r, r
+            row = c.learn().get("alpha")
+            if row and row["steps"] >= 12 and \
+                    row["shadow_error_pct"] is not None:
+                break
+            time.sleep(0.05)
+        assert row and row["steps"] >= 12, row
+        assert row["promotions"] == 0, \
+            f"poisoned labels were promoted: {row}"
+    finally:
+        c.close()
+    reg, snaps, _, evs = obs.load_dir(mdir)
+    assert len(snaps) == 1
+    assert reg.counters["online.steps"].value >= 12
+    assert reg.counters["online.labeled_rows"].value == i
+    assert "online.promotions" not in reg.counters
+    names = [e["event"] for e in evs]
+    assert "online.armed" in names and "online.gate" in names
+    assert all(e["verdict"] != "promote" for e in evs
+               if e["event"] == "online.gate")
+    assert names[-1] == "serve.shutdown"

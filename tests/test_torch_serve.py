@@ -305,10 +305,13 @@ def test_residency_spills_the_lru_model_and_restores_it(twins):
 
 
 def test_out_of_slice_flags_are_rejected():
+    """``--mesh`` is not in this slice; ``--metrics-dir`` is (the hive
+    writing it is ``tests/test_torch_metrics_cli.py``'s)."""
     from veles_tpu_torch.serve.hive import build_parser
-    for flag in (["--mesh", "2"], ["--metrics-dir", "m"]):
-        with pytest.raises(SystemExit):
-            build_parser().parse_args(["m=p.vpkg"] + flag)
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["m=p.vpkg", "--mesh", "2"])
+    args = build_parser().parse_args(["m=p.vpkg", "--metrics-dir", "m"])
+    assert args.metrics_dir == "m"
 
 
 def test_hive_subprocess_round_trip(twins):

@@ -1,7 +1,8 @@
 """The port's command line.
 
     python -m veles_tpu_torch [--supervise] [-b auto|cuda|cpu] [-s SEED]
-        [--snapshot FILE] [--profile DIR] WORKFLOW.py [CONFIG.py ...]
+        [--snapshot FILE] [--profile DIR] [--metrics-dir DIR]
+        [--log-events FILE] WORKFLOW.py [CONFIG.py ...]
         [root.x.y=value ...]
     python -m veles_tpu_torch --optimize POP:GEN [-b auto|cuda|cpu|
         cuda-evaluator|cpu-evaluator] [--ga-workers N] [--ga-cohort N]
@@ -12,10 +13,12 @@
         WORKFLOW.py [CONFIG.py ...]
     python -m veles_tpu_torch --serve-models NAME=PKG.vpkg [NAME=PKG ...]
         [-b auto|cuda|cpu] [--max-batch N] [--max-wait-ms MS]
+        [--metrics-dir DIR]
     python -m veles_tpu_torch --serve-fleet N NAME=PKG.vpkg [NAME=PKG ...]
         [-b auto|cuda|cpu] [--canary CNAME=PRIMARY[:FRACTION]] [--hot NAME]
         [--max-batch N] [--max-wait-ms MS] [--hbm-budget BYTES]
         [--slo-p99-ms MS] [--max-inflight N] [--deadline-ms MS]
+        [--metrics-dir DIR]
 
 The first trains: config files run in order, then the ``root.*``
 overrides, then the launcher drives the workflow file (its
@@ -28,7 +31,13 @@ the run before its next firing, writes a final snapshot and exits 14.
 its newest intact snapshot (a GA: its ``--ga-state``) whenever it ends
 early (``veles_tpu_torch/supervisor.py``).  ``--profile DIR`` writes a
 ``torch.profiler`` Chrome trace of the run and its per-layer FLOPs table
-(``flops_table.json``) into DIR.
+(``flops_table.json``) into DIR.  ``--metrics-dir DIR`` persists the
+run's telemetry in DIR (``metrics-<pid>.json`` snapshots and
+``journal-<pid>.jsonl``, the reference's formats; exported as
+``$VELES_METRICS_DIR``, so GA evaluators and a supervised child write
+there too), and ``--log-events FILE`` appends every ``veles.*`` log
+record to FILE as one JSON line.  ``scripts/obs_report.py DIR`` renders
+such a dir.
 
 ``--optimize POP:GEN`` tunes the config values wrapped in ``Tune(...)``
 (``veles_tpu_torch/genetics/``): a population of POP genomes for GEN
@@ -57,12 +66,13 @@ fourth form starts the serving process (``veles_tpu_torch/serve/hive.py``),
 the last a fleet of N of them behind one router
 (``veles_tpu_torch/serve/router.py``: placement, failover, hedging,
 ejection, admission control).  Not ported yet, and so refused: ``--dp``,
-and the fleet's ``--mesh`` and ``--metrics-dir``.
+and the fleet's ``--mesh``.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import logging
 import os
@@ -91,6 +101,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the run and a "
                         "per-layer FLOPs table into DIR")
+    p.add_argument("--metrics-dir", default=None, metavar="DIR",
+                   help="write per-process telemetry snapshots "
+                        "(metrics-<pid>.json) and the run journal "
+                        "(journal-<pid>.jsonl) into DIR; exported as "
+                        "$VELES_METRICS_DIR so child processes write "
+                        "there too")
+    p.add_argument("--log-events", default=None, metavar="FILE",
+                   help="append every log record to FILE as JSON lines")
     p.add_argument("--optimize", default=None, metavar="POP:GEN",
                    help="GA-tune the config values wrapped in Tune(...): "
                         "population size : generations (e.g. 8:5)")
@@ -155,6 +173,13 @@ def main(argv=None) -> int:
                                       if a not in overrides])
     logging.basicConfig(level=logging.INFO,
                         format="%(levelname)s %(name)s: %(message)s")
+    from veles_tpu_torch import telemetry
+    from veles_tpu_torch.logger import add_jsonl_sink, setup_logging
+    setup_logging()
+    if args.log_events:
+        atexit.register(add_jsonl_sink(args.log_events))
+    if args.metrics_dir:
+        telemetry.configure(args.metrics_dir)
 
     from veles_tpu_torch.launcher import (Launcher, apply_config_file,
                                           drive_workflow)
@@ -288,6 +313,7 @@ def run_optimizer(args, workflow_file: str, config_files, overrides) -> int:
     import subprocess
     from concurrent.futures import ThreadPoolExecutor
 
+    from veles_tpu_torch import faults, knobs
     from veles_tpu_torch.config import root
     from veles_tpu_torch.genetics import GeneticOptimizer, find_tunes
     from veles_tpu_torch.supervisor import install_ga_stop
@@ -360,6 +386,8 @@ def run_optimizer(args, workflow_file: str, config_files, overrides) -> int:
     evaluate_cohort = pool.evaluate_cohort \
         if pool is not None and args.ga_cohort != 1 else None
     stop_check, finish_preempt = install_ga_stop()
+    faults.maybe_inject_sigterm(attempt=knobs.get(knobs.SUPERVISE_ATTEMPT),
+                                mode="ga")
     try:
         opt = GeneticOptimizer(evaluate_one, tunes, population=pop,
                                generations=gen, evaluate_many=evaluate_many,

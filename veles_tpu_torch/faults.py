@@ -19,8 +19,17 @@ Arming syntax (``VELES_FAULTS``)::
   for the call site to read.
 
 The registry knows the reference's points (``POINTS``), so a string
-that arms the reference arms the port the same way.  The port wires the
-serving fleet's four:
+that arms the reference arms the port the same way.  The port wires
+every one of them but ``multihost.peer_exit`` (multi-GPU) and
+``stream.corrupt_file`` (the image loader): ``evaluator.hang`` and
+``evaluator.garbage_line`` in the GA evaluator, ``snapshot.torn_write``
+in the snapshotter, ``checkpoint.corrupt`` in the GA's state file,
+``device.oom_on_put`` on the streaming upload, the resident data set's
+upload and a GA cohort, ``preempt.sigterm`` and
+``supervisor.child_crash`` through :func:`maybe_inject_sigterm` and
+:func:`maybe_inject_child_crash`, ``online.poison_batch`` in the tap,
+``online.swap_mid_request`` in the promotion, and the serving fleet's
+four:
 
 ==========================  ==========================================
 ``hive.slow_dispatch``      a serving micro-batch dispatch stalls
@@ -52,8 +61,10 @@ import os
 import zlib
 from typing import Any, Dict, List, Optional
 
-ENV_VAR = "VELES_FAULTS"
-SEED_ENV_VAR = "VELES_FAULTS_SEED"
+from veles_tpu_torch import knobs
+
+ENV_VAR = knobs.FAULTS
+SEED_ENV_VAR = knobs.FAULTS_SEED
 
 #: every valid injection-point name — ``arm()`` rejects unknown points
 #: so a typo'd drill fails loudly instead of silently injecting nothing
@@ -152,7 +163,7 @@ def arm(spec_str: Optional[str] = None) -> None:
     process start (module import calls ``arm(None)``)."""
     global _specs
     if spec_str is None:
-        spec_str = os.environ.get(ENV_VAR, "")
+        spec_str = knobs.get(ENV_VAR)
     _specs = parse(spec_str) if spec_str else {}
     if _specs:
         _log.warning("FAULT INJECTION ARMED: %s",
@@ -187,7 +198,7 @@ def fire(point: str, **ctx: Any) -> Optional[Dict[str, str]]:
 
 
 def seed() -> int:
-    return int(os.environ.get(SEED_ENV_VAR, "0"))
+    return int(knobs.get(SEED_ENV_VAR))
 
 
 def rng(point: str):
@@ -219,6 +230,50 @@ def hang(seconds: float = 3600.0) -> None:
     deadline = time.monotonic() + seconds
     while time.monotonic() < deadline:
         time.sleep(min(1.0, max(0.0, deadline - time.monotonic())))
+
+
+def maybe_inject_sigterm(**ctx: Any) -> None:
+    """``preempt.sigterm``: deliver a real SIGTERM to this process
+    (after ``after`` seconds, from a timer thread), so a drill rehearses
+    a preemption notice end to end: the graceful-stop handler must
+    snapshot and exit 14 within ``$VELES_PREEMPT_GRACE``.  Call sites
+    pass ``attempt`` (``$VELES_SUPERVISE_ATTEMPT``) so a resumed child
+    is not preempted again."""
+    f = fire("preempt.sigterm", **ctx)
+    if not f:
+        return
+    import signal
+    import threading
+    import time
+    delay = float(f.get("after", 0.0))
+
+    def _term() -> None:
+        if delay > 0:
+            time.sleep(delay)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    threading.Thread(target=_term, daemon=True,
+                     name="fault-preempt-sigterm").start()
+
+
+def maybe_inject_child_crash(**ctx: Any) -> None:
+    """``supervisor.child_crash``: SIGKILL this process (no handler, no
+    snapshot, no atexit flush); the supervisor must resume the run from
+    the newest intact snapshot or GA state.  Call sites pass
+    ``attempt`` / ``gen`` so a drill targets exactly one crash."""
+    if fire("supervisor.child_crash", **ctx):
+        import signal
+        import sys
+        sys.stderr.flush()
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def truncate_file(path: str, keep_fraction: float = 0.5) -> None:
+    """A torn write: keep only the leading fraction of ``path`` (at
+    least 1 byte, strictly less than the whole)."""
+    size = os.path.getsize(path)
+    keep = max(1, min(size - 1, int(size * keep_fraction)))
+    os.truncate(path, keep)
 
 
 # arm from the environment at import: children of an armed process

@@ -5,11 +5,16 @@ under the same names.  The operators draw from the ``"genetics"`` stream
 of ``veles_tpu_torch.prng``, whose numpy generator is bitwise the
 reference's, so one seed breeds the same populations; the state file is
 the reference's JSON (format 2) with its embedded CRC32, ``.prev``
-rotation and atomic write, readable by either package.  Plain counters
-on the optimizer stand in for the reference's registry and fault
-sites: ``eval_count`` / ``eval_seconds``, ``cohort_sizes`` (each
-generation's bucket sizes) and ``cohort_fallbacks`` (buckets whose
-cohort evaluation failed and went per genome).
+rotation and atomic write, readable by either package.  Counters on
+the optimizer: ``eval_count`` / ``eval_seconds``, ``cohort_sizes``
+(each generation's bucket sizes) and ``cohort_fallbacks`` (buckets
+whose cohort evaluation failed and went per genome); beside them the
+reference's ``ga.*`` telemetry and journal events.  Each generation's
+number is exported as ``$VELES_GA_GENERATION`` for the evaluators and
+fault qualifiers.  Fault points: ``supervisor.child_crash`` after a
+generation's evaluation, before its checkpoint
+(:func:`~veles_tpu_torch.faults.maybe_inject_child_crash`), and
+``checkpoint.corrupt`` (``gen``), a torn state file.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from veles_tpu_torch import prng
+from veles_tpu_torch import events, faults, knobs, prng, telemetry
 from veles_tpu_torch.config import Config
 
 log = logging.getLogger("veles.genetics")
@@ -258,6 +263,8 @@ class GeneticOptimizer:
 
     def _fitness_many(self, genomes: np.ndarray,
                       gen: Optional[int] = None) -> np.ndarray:
+        if gen is not None:
+            os.environ[knobs.GA_GENERATION] = str(gen)
         t0 = time.perf_counter()
         fits = self._fitness_many_inner(genomes)
         dt = time.perf_counter() - t0
@@ -265,10 +272,20 @@ class GeneticOptimizer:
         #: record, comparable across execution modes
         self.eval_count += len(genomes)
         self.eval_seconds += dt
+        telemetry.counter(events.CTR_GA_EVALUATIONS).inc(len(genomes))
+        telemetry.counter(events.CTR_GA_EVAL_SECONDS).inc(dt)
+        telemetry.histogram(events.HIST_GA_GENERATION_SECONDS).record(dt)
+        telemetry.event(events.EV_GA_GENERATION_EVALUATED, gen=gen,
+                        genomes=len(genomes), seconds=round(dt, 2))
         if dt > 0:
             log.info("generation %s: evaluated %d genomes in %.1fs "
                      "(%.2f genomes/s)", gen, len(genomes), dt,
                      len(genomes) / dt)
+        # the worst crash point: after the generation's work, before its
+        # checkpoint (the resumed run re-evaluates it bit-identically)
+        faults.maybe_inject_child_crash(
+            gen=gen, site="ga_generation",
+            attempt=knobs.get(knobs.SUPERVISE_ATTEMPT))
         return fits
 
     def _fitness_many_inner(self, genomes: np.ndarray) -> np.ndarray:
@@ -374,6 +391,8 @@ class GeneticOptimizer:
         try:
             with os.fdopen(fd, "w") as f:
                 json.dump(state, f)
+            if faults.fire("checkpoint.corrupt", gen=gen):
+                faults.truncate_file(tmp)
             if os.path.exists(self.state_path):
                 os.replace(self.state_path, self.state_path + ".prev")
             os.replace(tmp, self.state_path)
@@ -433,9 +452,14 @@ class GeneticOptimizer:
                             "trying predecessor", path, e)
                 continue
             if path != self.state_path:
+                telemetry.counter(events.CTR_GA_CHECKPOINT_FALLBACKS).inc()
+                telemetry.event(events.EV_GA_CHECKPOINT_FALLBACK,
+                                corrupt=self.state_path, used=path)
                 log.warning("resuming from intact predecessor %s", path)
             break
         if state is None:
+            telemetry.event(events.EV_GA_CHECKPOINT_UNRECOVERABLE,
+                            path=self.state_path)
             raise SnapshotCorruptError(
                 f"GA checkpoint {self.state_path} and its .prev "
                 f"predecessor are both corrupt ({errors}); remove "
@@ -466,6 +490,8 @@ class GeneticOptimizer:
         resumed = self._load_state()
         if resumed is not None:
             start_gen, pop, fits = resumed
+            telemetry.event(events.EV_GA_RESUMED, generation=start_gen,
+                            state=self.state_path)
             log.info("resumed GA at generation %d from %s", start_gen,
                      self.state_path)
         else:
@@ -483,6 +509,7 @@ class GeneticOptimizer:
                 # checkpoint written after the previous generation is
                 # the resume point; a resumed run continues the
                 # remaining generations bit-identically
+                telemetry.event(events.EV_PREEMPT_GA_STOP, generation=gen)
                 log.warning(
                     "graceful stop: breeding halted before generation "
                     "%d; resume continues from the checkpoint", gen)
@@ -491,6 +518,8 @@ class GeneticOptimizer:
             pop, fits = pop[order], fits[order]
             self.history.append([(float(f), self._decode(g))
                                  for f, g in zip(fits, pop)])
+            telemetry.event(events.EV_GA_GENERATION, gen=gen,
+                            best=float(fits[0]))
             log.info("generation %d: best=%.4f %s", gen, fits[0],
                      self._decode(pop[0]))
             nxt = list(pop[:self.elite])

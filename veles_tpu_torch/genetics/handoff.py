@@ -29,6 +29,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from veles_tpu_torch import events, telemetry
 from veles_tpu_torch.serve.residency import HostedModel, ResidencyManager
 
 log = logging.getLogger("veles_tpu_torch.genetics.handoff")
@@ -116,6 +117,8 @@ class GAServingHandoff:
         engine = self.manager.swap_params(
             self.name, self._gather(stacked_params, idx))
         self.adopt_seconds = time.perf_counter() - t0
+        telemetry.event(events.EV_GA_HANDOFF, model=self.name,
+                        members=self.k, seconds=round(self.adopt_seconds, 5))
         log.info("GA handoff: %d members adopted on the device into %r "
                  "in %.2f ms (host time)", self.k, self.name,
                  1000.0 * self.adopt_seconds)

@@ -24,12 +24,18 @@ tighter than the ``timeout`` cap:
 
 Restarts back off exponentially with jitter once they come in a row,
 and ``max_barren_restarts`` restarts that resolve nothing score the rest
-of the generation inf.  Plain counters on the pool stand in for the
-reference's registry: ``hangs_detected``, ``restarts``,
-``genome_retries``, ``genomes_lost``, and ``fallbacks``, the cohort
-splits and per-genome fallbacks its evaluator reported
-(``genetics/worker.py``), with ``cohort_stats`` (members, seconds and
-minibatches of each trained chunk).
+of the generation inf.  ``hangs_detected``, ``restarts``,
+``genome_retries`` and ``genomes_lost`` read the process's ``ga.*``
+telemetry counters (this pool's share: the count since it was made), as
+the reference's do; ``fallbacks`` counts the cohort splits and
+per-genome fallbacks its evaluator reported (``genetics/worker.py``),
+with ``cohort_stats`` (members, seconds and minibatches of each trained
+chunk).  The evaluator flushes its
+telemetry snapshot after every job; when it dies or closes, the pool
+folds that snapshot into its own registry
+(``telemetry.adopt_child_snapshot``), so a GA run leaves one aggregate
+view.  Each job carries the generation (``gen``, from
+``$VELES_GA_GENERATION``) for fault qualifiers.
 """
 
 from __future__ import annotations
@@ -45,7 +51,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from veles_tpu_torch import events, knobs, telemetry
+
 log = logging.getLogger("veles.genetics.pool")
+
+#: the pool's supervision counters, by attribute
+_COUNTS = {"hangs_detected": events.CTR_GA_HANGS_DETECTED,
+           "restarts": events.CTR_GA_EVALUATOR_RESTARTS,
+           "genome_retries": events.CTR_GA_GENOME_RETRIES,
+           "genomes_lost": events.CTR_GA_GENOMES_LOST}
 
 
 class ChipEvaluatorPool:
@@ -107,13 +121,12 @@ class ChipEvaluatorPool:
         #: EMA of measured per-genome durations (seconds) — feeds the
         #: adaptive deadline; survives evaluator restarts
         self.genome_duration_ema: Optional[float] = None
-        #: supervision counters of this pool; the last-hang fields
+        #: the supervision counters' values when this pool was made: the
+        #: properties report this pool's share.  The last-hang fields
         #: describe the CURRENT generation only (reset by
         #: ``_begin_generation``)
-        self.hangs_detected = 0
-        self.restarts = 0
-        self.genome_retries = 0
-        self.genomes_lost = 0
+        self._counts_base = {attr: telemetry.counter(name).value
+                             for attr, name in _COUNTS.items()}
         #: cohort splits and per-genome fallbacks the evaluator reported
         self.fallbacks = 0
         #: {"members", "seconds", "minibatches"} of each trained chunk
@@ -121,13 +134,38 @@ class ChipEvaluatorPool:
         self.last_hang_wait: Optional[float] = None
         self.last_hang_kind: Optional[str] = None
         self._consecutive_restarts = 0
+        #: evaluator pids whose snapshot was already merged
+        self._adopted_pids: set = set()
         self._backoff_rng = np.random.default_rng(seed ^ 0x5EED)
+
+    def _count(self, attr: str) -> int:
+        return max(0, int(telemetry.counter(_COUNTS[attr]).value
+                          - self._counts_base[attr]))
+
+    @property
+    def hangs_detected(self) -> int:
+        return self._count("hangs_detected")
+
+    @property
+    def restarts(self) -> int:
+        return self._count("restarts")
+
+    @property
+    def genome_retries(self) -> int:
+        return self._count("genome_retries")
+
+    @property
+    def genomes_lost(self) -> int:
+        return self._count("genomes_lost")
 
     def _note_hang(self, kind: str, wait: float) -> None:
         """One detected hang: how it was caught and after how long."""
         self.last_hang_kind = kind
         self.last_hang_wait = wait
-        self.hangs_detected += 1
+        telemetry.counter(events.CTR_GA_HANGS_DETECTED).inc()
+        telemetry.gauge(events.GAUGE_GA_LAST_HANG_WAIT).set(round(wait, 3))
+        telemetry.event(events.EV_GA_HANG_DETECTED, kind=kind,
+                        wait=round(wait, 3))
 
     def _begin_generation(self) -> None:
         """Reset the per-generation hang descriptors (the counters
@@ -167,9 +205,10 @@ class ChipEvaluatorPool:
         """Restart after a death/hang, with exponential backoff +
         deterministic jitter once restarts come consecutively (a
         crash-looping evaluator must not storm the host)."""
-        self.restarts += 1
+        telemetry.counter(events.CTR_GA_EVALUATOR_RESTARTS).inc()
         self._consecutive_restarts += 1
         n = self._consecutive_restarts
+        telemetry.event(events.EV_GA_EVALUATOR_RESTART, consecutive=n)
         if n > 1:
             delay = min(self.restart_backoff_cap,
                         self.restart_backoff * (2.0 ** (n - 2)))
@@ -219,6 +258,17 @@ class ChipEvaluatorPool:
             self._proc.kill()
             self._proc.wait(timeout=10)
         self._proc = None
+        self._adopt_child_metrics()
+
+    def _adopt_child_metrics(self) -> None:
+        """Fold the dead or closed evaluator's last snapshot into this
+        process's registry, once per pid."""
+        pid = (self.hello or {}).get("pid")
+        if not pid or pid in self._adopted_pids:
+            return
+        if telemetry.adopt_child_snapshot(pid):
+            self._adopted_pids.add(pid)
+            log.debug("merged evaluator pid %s telemetry snapshot", pid)
 
     def _read_stdout(self, proc, lines) -> None:
         for line in proc.stdout:
@@ -275,6 +325,9 @@ class ChipEvaluatorPool:
         """Fan the host-side staging hook out over the prep threads and
         draw wire ids — the CPU-parallel share of a generation."""
         lock = threading.Lock()
+        # the generation the optimizer exported: fault qualifiers and
+        # the evaluator's log can target one
+        gen = int(knobs.get(knobs.GA_GENERATION))
 
         def prep_one(values):
             if self.prep is not None:
@@ -282,7 +335,8 @@ class ChipEvaluatorPool:
             with lock:   # id draw is the only shared state
                 self._next_id += 1
                 jid = self._next_id
-            return {"id": jid, "values": values, "seed": self.seed}
+            return {"id": jid, "values": values, "seed": self.seed,
+                    "gen": gen}
 
         with ThreadPoolExecutor(self.workers) as pool:
             return list(pool.map(prep_one, values_list))
@@ -302,6 +356,7 @@ class ChipEvaluatorPool:
         ema = self.genome_duration_ema
         self.genome_duration_ema = dt if ema is None \
             else 0.7 * ema + 0.3 * dt
+        telemetry.histogram(events.HIST_GA_GENOME_SECONDS).record(dt)
 
     def evaluate_many(self, values_list: List[Dict[str, Any]]) \
             -> List[float]:
@@ -346,7 +401,8 @@ class ChipEvaluatorPool:
                 # now the gene is the prime suspect: score it inf
                 pending.pop(0)
                 fits[head["id"]] = float("inf")
-                self.genomes_lost += 1
+                telemetry.counter(events.CTR_GA_GENOMES_LOST).inc()
+                telemetry.event(events.EV_GA_GENOME_LOST, job=head["id"])
                 log.warning(
                     "evaluator lost genome %s twice (%s); scoring inf,"
                     " restarting for %d remaining", head["id"],
@@ -356,7 +412,8 @@ class ChipEvaluatorPool:
                 # its own accord — give the innocent-until-proven
                 # genome one retry on the fresh evaluator
                 retried.add(head["id"])
-                self.genome_retries += 1
+                telemetry.counter(events.CTR_GA_GENOME_RETRIES).inc()
+                telemetry.event(events.EV_GA_GENOME_RETRY, job=head["id"])
                 log.warning(
                     "evaluator lost genome %s in flight; "
                     "retrying it once on a fresh evaluator",
@@ -387,7 +444,7 @@ class ChipEvaluatorPool:
         jobs = self._prep_jobs(values_list)
         job = {"id": jobs[0]["id"],
                "members": [j["values"] for j in jobs],
-               "seed": self.seed}
+               "seed": self.seed, "gen": jobs[0]["gen"]}
         timeout = self.timeout * max(1, len(values_list))
         for attempt in (1, 2):
             try:

@@ -37,7 +37,16 @@ in half and retried, and a failing singleton is trained per genome: the
 reference's semantics for a bad genome.  Every such split and
 per-genome fallback is counted in the result's ``fallbacks``.
 
-Not ported: the mesh (``--dp``), fault injection and telemetry.
+Telemetry: each job is the ``evaluator.job_seconds`` span (journalled)
+and counts into ``evaluator.jobs`` / ``evaluator.job_errors``; the
+process flushes its snapshot after the hello and after every job,
+before its result line, so the pool merges a dead evaluator's numbers
+at most one genome stale.  Fault points (``job``, ``seq``: the job's
+ordinal in this evaluator, ``gen``): ``evaluator.hang`` stalls a job
+``seconds`` (3600), its heartbeats silenced too with ``silent=1``;
+``evaluator.garbage_line`` prints a line of garbage before a result.
+
+Not ported: the mesh (``--dp``).
 """
 
 from __future__ import annotations
@@ -51,6 +60,8 @@ import os
 import sys
 import threading
 import time
+
+from veles_tpu_torch import knobs
 
 log = logging.getLogger("veles.genetics.worker")
 
@@ -274,6 +285,7 @@ def _evaluate_cohort(workflow_file, config_files, overrides, pristine, args,
 
 def serve(args) -> int:
     """The evaluator loop: one device for the whole GA run."""
+    from veles_tpu_torch import events, faults, telemetry
     from veles_tpu_torch.backends import make_device
     from veles_tpu_torch.config import root
 
@@ -297,18 +309,22 @@ def serve(args) -> int:
             print(json.dumps(obj), flush=True)
 
     emit(hello)
-    hb_state = {"job": None}
+    telemetry.flush()   # even a job-less evaluator leaves a snapshot
+    hb_state = {"job": None, "silent": False}
     hb_stop = threading.Event()
 
     def hb_loop() -> None:
         n = 0
         while not hb_stop.wait(args.heartbeat_every):
+            if hb_state["silent"]:
+                continue
             emit({"hb": n, "pid": os.getpid(), "job": hb_state["job"]})
             n += 1
 
     if args.heartbeat_every > 0:
         threading.Thread(target=hb_loop, daemon=True,
                          name="serve-heartbeat").start()
+    seq = 0   # the job's ordinal in this evaluator's life
     for line in sys.stdin:
         line = line.strip()
         if not line:
@@ -318,25 +334,49 @@ def serve(args) -> int:
             break
         result = {"id": job["id"], "pid": os.getpid()}
         hb_state["job"] = job["id"]
+        fault_ctx = {"job": job["id"], "seq": seq}
+        if "gen" in job:
+            fault_ctx["gen"] = job["gen"]
+        seq += 1
         seed = int(job.get("seed", args.seed))
+        telemetry.counter(events.CTR_EVALUATOR_JOBS).inc()
         try:
-            if "members" in job:
-                fits, fallbacks, stats = _evaluate_cohort(
-                    workflow_file, config_files, overrides, pristine, args,
-                    job["members"], seed)
-                result.update(fitnesses=fits, fallbacks=fallbacks,
-                              stats=stats)
-            else:
-                _rebuild_root(pristine, config_files, overrides,
-                              job["values"])
-                result["fitness"] = _evaluate(workflow_file, args.backend,
-                                              seed)
+            with telemetry.span(events.SPAN_EVALUATOR_JOB_SECONDS,
+                                journal=True, job=job["id"],
+                                cohort=len(job.get("members", [])) or None):
+                hang = faults.fire("evaluator.hang", **fault_ctx)
+                if hang:
+                    # a stall mid-genome: heartbeats go on unless the
+                    # drill asked for a wedged process (silent)
+                    hb_state["silent"] = bool(hang.get("silent"))
+                    faults.hang(float(hang.get("seconds", 3600.0)))
+                    hb_state["silent"] = False
+                if "members" in job:
+                    fits, fallbacks, stats = _evaluate_cohort(
+                        workflow_file, config_files, overrides, pristine,
+                        args, job["members"], seed)
+                    result.update(fitnesses=fits, fallbacks=fallbacks,
+                                  stats=stats)
+                else:
+                    _rebuild_root(pristine, config_files, overrides,
+                                  job["values"])
+                    result["fitness"] = _evaluate(workflow_file,
+                                                  args.backend, seed)
         except KeyboardInterrupt:
             raise
         except Exception as e:  # noqa: BLE001 — bad genes score inf at
             # the parent; the evaluator outlives them
             result["error"] = f"{type(e).__name__}: {e}"
+            telemetry.counter(events.CTR_EVALUATOR_JOB_ERRORS).inc()
         hb_state["job"] = None
+        # before the result line: once the parent has it, it may kill
+        # and merge at any time
+        telemetry.flush()
+        if faults.fire("evaluator.garbage_line", **fault_ctx):
+            # a torn protocol line: the pool must read it as noise and
+            # proof of life, never as a result
+            with emit_lock:
+                print(faults.garbage_text(point="evaluator"), flush=True)
         emit(result)
     hb_stop.set()
     return 0
@@ -361,8 +401,7 @@ def main(argv=None) -> int:
                    help="serve mode: the most members of one cohort "
                         "(0: the device memory budget alone decides)")
     p.add_argument("--heartbeat-every", type=float,
-                   default=float(os.environ.get("VELES_HEARTBEAT_EVERY",
-                                                "5.0")),
+                   default=float(knobs.get(knobs.HEARTBEAT_EVERY)),
                    help="serve mode: seconds between heartbeat lines "
                         "(0 disables)")
     p.add_argument("-b", "--backend", default="auto")
@@ -370,7 +409,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     # genome workers are the GA's children: a signal kills them plainly
     # and the parent's retry/inf contract handles it
-    os.environ["VELES_PREEMPT_DISABLE"] = "1"
+    os.environ[knobs.PREEMPT_DISABLE] = "1"
     if args.serve:
         return serve(args)
     if args.values is None:

@@ -7,9 +7,14 @@ with its name, default, parser and a one-line doc, and read through
 default on a malformed value, so an env typo degrades instead of taking
 down a run.
 
-This copy holds the online-learning tier's knobs and the serving
-fleet's (the hive's ``SERVE_*``, ``FLEET_*`` and ``TRAFFIC_*``, and
-``HEARTBEAT_EVERY``), with the reference's names, defaults and types.
+This copy holds the knobs the port reads, with the reference's names,
+defaults and types: fault injection and supervision (``FAULTS*``,
+``PREEMPT_*``, ``SUPERVISE_*``, ``RESUME_MANIFEST``), the GA's
+``GA_GENERATION``, the observability core's ``METRICS_DIR``, the
+device budgets (``HBM_BUDGET``, ``MAX_RESIDENT_BYTES``), the SOM's
+``SOM_FUSED`` / ``SOM_SUPERSTEP``, the online-learning tier's, and the
+serving fleet's (the hive's ``SERVE_*``, ``FLEET_*`` and
+``TRAFFIC_*``, and ``HEARTBEAT_EVERY``).
 """
 
 from __future__ import annotations
@@ -58,11 +63,84 @@ def _knob(name: str, default: Any, parser: Callable[[str], Any],
     return name
 
 
+def names() -> frozenset:
+    """Every declared knob name."""
+    return frozenset(KNOBS)
+
+
 def get(name: str, environ: Optional[Dict[str, str]] = None) -> Any:
     """The parsed value of a declared knob (its default when unset or
     malformed).  KeyError for an undeclared name."""
     return KNOBS[name].read(environ)
 
+
+# -- robustness and supervision --------------------------------------------
+
+FAULTS = _knob(
+    "VELES_FAULTS", "", str,
+    "Arm fault injection points: `point[@qual=v[&qual=v...]]`, "
+    "comma-separated; inherited by child processes (faults.py).")
+FAULTS_SEED = _knob(
+    "VELES_FAULTS_SEED", 0, int,
+    "Seed for the deterministic garbage and rng of injected faults.")
+PREEMPT_GRACE = _knob(
+    "VELES_PREEMPT_GRACE", 25.0, float,
+    "Seconds a graceful stop may take before the watchdog "
+    "hard-snapshots and exits 14.")
+PREEMPT_DISABLE = _knob(
+    "VELES_PREEMPT_DISABLE", False, flag,
+    "Opt this process out of SIGTERM/SIGINT graceful-stop handlers "
+    "(set for GA evaluator children).")
+SUPERVISE_ATTEMPT = _knob(
+    "VELES_SUPERVISE_ATTEMPT", 0, int,
+    "Exported by the supervisor to each child: 0 first launch, "
+    "incrementing per restart (fault qualifiers target one attempt).")
+SUPERVISE_MAX_CRASHES = _knob(
+    "VELES_SUPERVISE_MAX_CRASHES", 5, int,
+    "Genuine crashes inside the crash window before --supervise "
+    "gives up loudly.")
+SUPERVISE_CRASH_WINDOW = _knob(
+    "VELES_SUPERVISE_CRASH_WINDOW", 300.0, float,
+    "Seconds of sliding window the supervisor counts crashes in.")
+RESUME_MANIFEST = _knob(
+    "VELES_RESUME_MANIFEST", "", str,
+    "Extra path every snapshot writer merge-updates the resume "
+    "manifest at (the supervisor exports it).")
+
+# -- genetic search --------------------------------------------------------
+
+GA_GENERATION = _knob(
+    "VELES_GA_GENERATION", 0, int,
+    "Exported by the GA parent so evaluator jobs and fault "
+    "qualifiers (`@gen=N`) can target one generation.")
+
+# -- observability ---------------------------------------------------------
+
+METRICS_DIR = _knob(
+    "VELES_METRICS_DIR", "", str,
+    "Arm telemetry persistence: journal-<pid>.jsonl and atomic "
+    "metrics-<pid>.json snapshots under this directory; inherited by "
+    "children.")
+
+# -- device budgets and the SOM ---------------------------------------------
+
+HBM_BUDGET = _knob(
+    "VELES_HBM_BUDGET", 0, int,
+    "Device-memory byte budget of the process-wide arbiter (the "
+    "residency ledger a hive and the online tier charge): non-zero "
+    "overrides half the card's memory; 0 keeps that default.")
+MAX_RESIDENT_BYTES = _knob(
+    "VELES_MAX_RESIDENT_BYTES", 8 << 30, int,
+    "Device byte budget for device-resident datasets; over budget "
+    "the loader streams from the host.")
+SOM_FUSED = _knob(
+    "VELES_SOM_FUSED", True, flag,
+    "Train Kohonen SOM workflows a superstep group per dispatch; `0` "
+    "falls back to one dispatch per minibatch.")
+SOM_SUPERSTEP = _knob(
+    "VELES_SOM_SUPERSTEP", 0, int,
+    "Minibatches per SOM dispatch group (the SOM loader's "
+    "superstep); 0 groups the whole class per firing.")
 
 # -- online learning ------------------------------------------------------
 

@@ -24,9 +24,17 @@ standalone mode:
   and then writes the analytic per-layer FLOPs table,
   ``DIR/flops_table.json``, atomically.
 
+The preemption path journals ``preempt.requested``,
+``preempt.deadline_exceeded`` and ``preempt.final_snapshot``, counts
+the final snapshots, gauges their seconds, and flushes the telemetry
+snapshot before every ``os._exit`` (atexit never runs there).  The
+Launcher sets up logging (``logger.setup_logging``).  Fault point
+``preempt.sigterm`` (:func:`~veles_tpu_torch.faults.maybe_inject_sigterm`)
+delivers a real SIGTERM at the start of :meth:`Launcher.run`.
+
 :func:`workflow_fitness` is the GA's fitness of a finished run.  Left
-out: the multihost abort path, master/slave, the data-parallel mesh and
-telemetry.
+out: the multihost abort path, master/slave and the data-parallel
+mesh.
 """
 
 from __future__ import annotations
@@ -42,15 +50,13 @@ import threading
 import time
 from typing import Any, Optional
 
-from veles_tpu_torch import prng, profiling
+from veles_tpu_torch import events, faults, knobs, prng, profiling, \
+    telemetry
 from veles_tpu_torch.backends import make_device
 from veles_tpu_torch.config import root
+from veles_tpu_torch.logger import setup_logging
 
 log = logging.getLogger("veles.launcher")
-
-#: set in a GA's genome workers: their Launchers install no preemption
-#: handlers
-PREEMPT_DISABLE_ENV = "VELES_PREEMPT_DISABLE"
 
 
 class Launcher:
@@ -60,8 +66,7 @@ class Launcher:
 
     #: exit code of a graceful stop after a preemption signal
     PREEMPT_EXIT = 14
-    PREEMPT_GRACE_ENV = "VELES_PREEMPT_GRACE"
-    PREEMPT_GRACE_DEFAULT = 25.0
+    PREEMPT_GRACE_ENV = knobs.PREEMPT_GRACE
 
     def __init__(self, backend: str = "auto", seed: int = 1234,
                  snapshot: Optional[str] = None,
@@ -70,6 +75,7 @@ class Launcher:
         self.snapshot = snapshot
         #: where ``run`` writes its profiler trace and FLOPs table
         self.profile_dir = profile
+        setup_logging()
         prng.seed_all(seed)
         self.device = make_device(backend)
         self.workflow = None
@@ -99,6 +105,8 @@ class Launcher:
 
     def run(self) -> None:
         uninstall = self._install_preempt_handlers()
+        faults.maybe_inject_sigterm(
+            attempt=knobs.get(knobs.SUPERVISE_ATTEMPT), mode="standalone")
         try:
             with profiling.trace(self.profile_dir):
                 self.workflow.run()
@@ -132,7 +140,7 @@ class Launcher:
         (``$VELES_PREEMPT_DISABLE``) installs none: the GA parent owns
         preemption.  Returns the uninstaller."""
         if threading.current_thread() is not threading.main_thread() or \
-                os.environ.get(PREEMPT_DISABLE_ENV):
+                knobs.get(knobs.PREEMPT_DISABLE):
             return lambda: None
         prev = {sig: signal.signal(sig, self._on_preempt_signal)
                 for sig in (signal.SIGTERM, signal.SIGINT)}
@@ -154,8 +162,7 @@ class Launcher:
                          name="preempt-watchdog").start()
 
     def preempt_grace(self) -> float:
-        return float(os.environ.get(self.PREEMPT_GRACE_ENV,
-                                    self.PREEMPT_GRACE_DEFAULT))
+        return float(knobs.get(self.PREEMPT_GRACE_ENV))
 
     def _signal_name(self) -> str:
         return signal.Signals(self._preempt_signum).name
@@ -163,6 +170,8 @@ class Launcher:
     def _preempt_watchdog(self) -> None:
         grace = self.preempt_grace()
         name = self._signal_name()
+        telemetry.event(events.EV_PREEMPT_REQUESTED, signal=name,
+                        grace=grace, multihost=False)
         log.warning("preemption requested (%s): stopping at the next "
                     "firing; final snapshot due within %.0fs ($%s)",
                     name, grace, self.PREEMPT_GRACE_ENV)
@@ -171,6 +180,7 @@ class Launcher:
         # the loop is wedged inside a firing: snapshot from here, bounded
         log.error("graceful stop missed the %.0fs grace; final snapshot "
                   "from the watchdog", grace)
+        telemetry.event(events.EV_PREEMPT_DEADLINE_EXCEEDED, grace=grace)
         t = threading.Thread(target=self.final_snapshot,
                              args=(f"preempt-{name}",), daemon=True)
         t.start()
@@ -181,6 +191,8 @@ class Launcher:
         """The loop stopped between firings: write the final snapshot
         and exit 14."""
         path = self.final_snapshot(f"preempt-{self._signal_name()}")
+        telemetry.gauge(events.GAUGE_PREEMPT_SNAPSHOT_SECONDS).set(
+            round(self.final_snapshot_seconds or 0.0, 3))
         self._preempt_done.set()
         log.warning("preempted: final snapshot %s (%.2fs); exiting %d",
                     path or "FAILED", self.final_snapshot_seconds or 0.0,
@@ -188,6 +200,8 @@ class Launcher:
         self._exit()
 
     def _exit(self) -> None:
+        # os._exit follows: atexit (and its flush) never runs
+        telemetry.flush()
         logging.shutdown()
         sys.stdout.flush()
         sys.stderr.flush()
@@ -210,7 +224,12 @@ class Launcher:
             t0 = time.perf_counter()
             save_workflow(self.workflow, path)
             self.final_snapshot_seconds = time.perf_counter() - t0
+            telemetry.counter(events.CTR_PREEMPT_FINAL_SNAPSHOTS).inc()
+            telemetry.event(events.EV_PREEMPT_FINAL_SNAPSHOT, path=path,
+                            reason=reason,
+                            seconds=round(self.final_snapshot_seconds, 3))
             write_resume_manifest(path, reason=reason)
+            telemetry.flush()
         except Exception as e:  # noqa: BLE001 — the exit must land
             log.exception("final snapshot (%s) failed: %s", reason, e)
             return None

@@ -43,6 +43,10 @@ do not.  ``load_data`` runs again on every ``initialize`` (the port's
 loaders regenerate their data), and a resumed loader keeps its pickled
 order instead of drawing a new shuffle.
 
+Telemetry: each epoch's wall seconds (from the first firing, or the
+last epoch end) go to ``loader.epoch_seconds``, with a
+``loader.epoch`` event and the ``loader.epochs`` counter.
+
 Not ported: the host ``fill_minibatch`` path and the master/slave
 hooks.
 """
@@ -55,7 +59,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from veles_tpu_torch import prng
+from veles_tpu_torch import events, prng, telemetry
 
 TEST, VALID, TRAIN = 0, 1, 2
 CLASS_NAMES = ("test", "validation", "train")
@@ -108,11 +112,13 @@ class Loader:
         self.assembled_minibatches = 0
         self._prefetch_pool = None
         self._prefetch_future = None       # (key, Future)
+        #: monotonic start of the current epoch (None before a firing)
+        self._epoch_t0 = None
 
     #: process-local state a snapshot drops
     _unpicklable = ("device", "_prefetch_pool", "_prefetch_future",
                     "superstep_data", "superstep_labels",
-                    "superstep_targets")
+                    "superstep_targets", "_epoch_t0")
 
     def __getstate__(self) -> dict:
         d = dict(self.__dict__)
@@ -124,6 +130,7 @@ class Loader:
         self.__dict__.update(state)
         self.__dict__.setdefault("dequant", None)
         self.__dict__.setdefault("superstep_targets", None)
+        self.__dict__["_epoch_t0"] = None
 
     # -- subclass contract --------------------------------------------
 
@@ -207,6 +214,8 @@ class Loader:
         self.last_minibatch = False
         self.class_ended = False
 
+        if self._epoch_t0 is None:   # the first firing of a (resumed) run
+            self._epoch_t0 = time.monotonic()
         klass = self._present_classes[self._class_cursor]
         n = len(self._order[klass])
         idxs, masks, self._pos = self._next_group()
@@ -226,6 +235,14 @@ class Loader:
             if self._class_cursor >= len(self._present_classes):
                 self.epoch_ended = True
                 self.epoch_number += 1
+                dt = time.monotonic() - self._epoch_t0
+                telemetry.histogram(
+                    events.HIST_LOADER_EPOCH_SECONDS).record(dt)
+                telemetry.counter(events.CTR_LOADER_EPOCHS).inc()
+                telemetry.event(events.EV_LOADER_EPOCH,
+                                epoch=self.epoch_number,
+                                seconds=round(dt, 3))
+                self._epoch_t0 = time.monotonic()
                 self._reset_epoch()
         # the next group is now fully determined: assemble it while the
         # device computes this one

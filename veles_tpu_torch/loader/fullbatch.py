@@ -54,7 +54,10 @@ A snapshot carries no host or device array: ``load_data`` runs again
 at every ``initialize`` (the synthetic and file loaders regenerate or
 re-read their data; an :class:`ArrayLoader` keeps its split arrays).
 :class:`DeviceArrayLoader` takes splits that are already tensors on the
-device and never makes a host copy.  Not ported: the reference's mesh
+device and never makes a host copy.  A resident upload that runs out
+of card memory (or fault point ``device.oom_on_put``, ``site=
+resident_dataset``) degrades to streaming from the host, counted in
+``device.oom_degraded``.  Not ported: the reference's mesh
 placements (row-sharded residency) and the host ``fill_minibatch``
 path.
 """
@@ -62,11 +65,12 @@ path.
 from __future__ import annotations
 
 import logging
-import os
 from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from veles_tpu_torch import events, faults, knobs, telemetry
 
 from veles_tpu_torch.loader.base import TEST, TRAIN, VALID, Loader
 from veles_tpu_torch.loader.quantize import (derive_dequant,
@@ -76,8 +80,8 @@ from veles_tpu_torch.normalization import make_normalizer
 log = logging.getLogger("veles.loader")
 
 #: the residency budget's default, and the variable that overrides it
-DEFAULT_RESIDENT_BYTES = 8 << 30
-RESIDENT_BYTES_ENV = "VELES_MAX_RESIDENT_BYTES"
+RESIDENT_BYTES_ENV = knobs.MAX_RESIDENT_BYTES
+DEFAULT_RESIDENT_BYTES = knobs.KNOBS[RESIDENT_BYTES_ENV].default
 
 
 class FullBatchLoader(Loader):
@@ -198,8 +202,7 @@ class FullBatchLoader(Loader):
     def _resident_budget(self) -> int:
         if self.max_resident_bytes is not None:
             return int(self.max_resident_bytes)
-        return int(os.environ.get(RESIDENT_BYTES_ENV,
-                                  DEFAULT_RESIDENT_BYTES))
+        return int(knobs.get(RESIDENT_BYTES_ENV))
 
     def _decide_residency(self) -> None:
         data_bytes = self.host_data.nbytes
@@ -219,6 +222,26 @@ class FullBatchLoader(Loader):
         self._decide_residency()
         if not self.device_resident:
             return
+        try:
+            self._upload(device)
+        except torch.cuda.OutOfMemoryError as e:
+            # the budget said the set fits, the card disagreed (other
+            # tenants, fragmentation): stream from the host instead
+            self.original_data = self.original_labels = None
+            self.original_targets = None
+            telemetry.counter(events.CTR_DEVICE_OOM_DEGRADED).inc()
+            telemetry.event(events.EV_DEVICE_OOM_DEGRADED,
+                            site="resident_dataset")
+            log.warning("%s: the data set's upload hit device OOM (%s); "
+                        "streaming from the host instead", self.name, e)
+            self.device_resident = False
+            return
+        self.host_data = self.host_labels = self.host_targets = None
+
+    def _upload(self, device: Any) -> None:
+        if faults.fire("device.oom_on_put", site="resident_dataset"):
+            raise torch.cuda.OutOfMemoryError(
+                "fault-injected OOM on the resident dataset upload")
         data = self.host_data
         if data.dtype.kind == "f" and data.dtype != np.float32:
             data = data.astype(np.float32)
@@ -230,7 +253,6 @@ class FullBatchLoader(Loader):
         elif self.host_targets is not None:
             self.original_targets = device.put(
                 np.asarray(self.host_targets, np.float32))
-        self.host_data = self.host_labels = self.host_targets = None
 
     def normalized_host_rows(self, indices) -> np.ndarray:
         """f32 normalized rows for GLOBAL ``indices`` (or a slice),

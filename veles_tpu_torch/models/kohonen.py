@@ -16,7 +16,9 @@ The reference wires the workflow on its unit graph (``Repeater``,
 decision, until ``decision.complete`` or :meth:`request_stop`.  Each
 firing of the loader is a whole class (the loader clamps its group to
 the class), which the trainer runs on the device in one go: the
-reference's fused wiring, and the port's only one.
+reference's fused wiring.  ``$VELES_SOM_SUPERSTEP`` groups that many
+minibatches a firing instead, and ``$VELES_SOM_FUSED=0`` one, the
+reference's eager loop.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import logging
 import time
 from typing import Any, Optional
 
+from veles_tpu_torch import knobs
 from veles_tpu_torch.loader.synthetic import SyntheticClassificationLoader
 from veles_tpu_torch.models import model_config
 from veles_tpu_torch.ops.decision import DecisionGD
@@ -78,7 +81,9 @@ class KohonenWorkflow:
         trainer up on the device."""
         self.device = device
         if train:
-            self.loader.superstep = WHOLE_CLASS
+            self.loader.superstep = (
+                int(knobs.get(knobs.SOM_SUPERSTEP)) or WHOLE_CLASS) \
+                if knobs.get(knobs.SOM_FUSED) else 1
             self.loader.initialize(device)
             batch = self.loader.max_minibatch_size
         self.forward.initialize((batch,) + tuple(self.loader.sample_shape))

@@ -38,6 +38,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from veles_tpu_torch import events, telemetry
 from veles_tpu_torch.loader.base import TRAIN, VALID
 from veles_tpu_torch.loader.fullbatch import ArrayLoader, DeviceArrayLoader
 from veles_tpu_torch.loader.synthetic import MnistLoader
@@ -136,6 +137,8 @@ def pretrain(device, loader_cfg: Optional[Dict[str, Any]] = None,
                 targets_from_data=True, minibatch_size=mb),
                 [rbm_layer(n_hid)], epochs, device)
             handoff = compute_h2d + wk.loader.ingest_h2d_bytes
+            telemetry.event(events.EV_DBN_STAGE_HANDOFF, stage=depth,
+                            rows=int(h.shape[0]), h2d_bytes=int(handoff))
             if stats is not None:
                 stats["interstage_h2d_bytes"] += int(handoff)
                 stats["stages"].append(

@@ -20,12 +20,21 @@ After a verdict that moved params the gate rests 4 full rounds
 (``cooldown_until_step``).  ``time_to_serve_ms``, from the shadow's last
 step to the first request served on the promoted params, is armed at
 swap time through the engine's next-dispatch hook.
+
+Telemetry: each round journals ``online.gate``; a promotion and a
+rollback count and journal (``online.promoted`` with the swap's ms);
+the first request served on promoted params sets
+``online.time_to_serve``.  Fault point ``online.swap_mid_request``
+(``model``) stalls the promotion ``seconds`` (0.25) before its swap,
+so a drill lands the swap among requests in flight.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Any
+
+from veles_tpu_torch import events, faults, telemetry
 
 #: gate lifecycle states
 GATE_STATES = ("filling", "training", "promoted", "rolled_back")
@@ -68,13 +77,26 @@ class PromotionGate:
         self.shadow_error_pct = shadow_err
         self.incumbent_error_pct = incumbent_err
         if incumbent_err - shadow_err >= self.margin:
-            return "promote"
-        if shadow_err - incumbent_err >= self.margin:
-            return "rollback"
-        return "continue"
+            verdict = "promote"
+        elif shadow_err - incumbent_err >= self.margin:
+            verdict = "rollback"
+        else:
+            verdict = "continue"
+        telemetry.event(events.EV_ONLINE_GATE, model=self.model,
+                        steps=steps, shadow_error_pct=round(shadow_err, 4),
+                        incumbent_error_pct=round(incumbent_err, 4),
+                        margin=self.margin, verdict=verdict)
+        return verdict
+
+    def state_code(self) -> int:
+        """The state's index in :data:`GATE_STATES` (a gauge's value)."""
+        return GATE_STATES.index(self.state)
 
     def promote(self, stacked_params: Any, steps: int) -> None:
         """Hand the shadow's device tree to the serving engine."""
+        f = faults.fire("online.swap_mid_request", model=self.model)
+        if f:
+            time.sleep(float(f.get("seconds", 0.25)))
         t0 = time.perf_counter()
         engine = self.residency.swap_params(self.model, stacked_params)
         self.last_promotion = {
@@ -85,15 +107,28 @@ class PromotionGate:
 
         def _first_served() -> None:
             if last_step is not None:
-                self.time_to_serve_ms = round(
-                    1000.0 * (time.monotonic() - last_step), 3)
+                dt = time.monotonic() - last_step
+                self.time_to_serve_ms = round(1000.0 * dt, 3)
+                telemetry.gauge(events.GAUGE_ONLINE_TIME_TO_SERVE).set(
+                    round(dt, 6))
 
         engine.notify_next_dispatch(_first_served)
         self.promotions += 1
         self.state = "promoted"
         self.cooldown_until_step = steps + 4 * self.min_steps
+        telemetry.counter(events.CTR_ONLINE_PROMOTIONS).inc()
+        telemetry.event(events.EV_ONLINE_PROMOTED, model=self.model,
+                        steps=steps, shadow_error_pct=self.shadow_error_pct,
+                        incumbent_error_pct=self.incumbent_error_pct,
+                        swap_ms=round(self.last_promotion["swap_ms"], 3),
+                        lineage=None)
 
     def rollback(self, steps: int) -> None:
         self.rollbacks += 1
         self.state = "rolled_back"
         self.cooldown_until_step = steps + 4 * self.min_steps
+        telemetry.counter(events.CTR_ONLINE_ROLLBACKS).inc()
+        telemetry.event(events.EV_ONLINE_ROLLBACK, model=self.model,
+                        steps=steps, shadow_error_pct=self.shadow_error_pct,
+                        incumbent_error_pct=self.incumbent_error_pct,
+                        lineage=None)

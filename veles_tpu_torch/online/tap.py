@@ -13,10 +13,15 @@ field: one int per row, or one for the whole request) or deliver it
 late as a ``{"label_of": <wire id>, "label": [...]}`` line.  Tapped but
 unlabeled rows wait in a bounded FIFO map keyed by wire id
 (:data:`PENDING_CAP`); a label for an id that was never tapped, or was
-already evicted, counts in :attr:`TrafficTap.label_orphans` and drops.
+already evicted, counts as an orphan and drops.
 
-The reference's lineage of trace ids and its ``online.poison_batch``
-fault site come with the port's tracing and fault injection;
+Telemetry: ``online.tapped_rows``, ``online.labeled_rows`` and
+``online.label_orphans`` (a hive's ``op=stats`` ``online`` entry).  Fault
+point ``online.poison_batch`` (``model``, ``slot``: ``train`` or
+``holdout``) replaces a labeled batch's labels with deterministic
+garbage, the poisoned stream the promotion gate must never promote.
+
+The reference's lineage of trace ids comes with the port's tracing;
 :meth:`TrafficTap.lineage_sample` returns an empty list until then.
 """
 
@@ -27,6 +32,7 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
+from veles_tpu_torch import events, faults, telemetry
 from veles_tpu_torch.online.buffer import ReplayBuffer
 
 #: tapped-but-unlabeled requests held before the oldest is evicted
@@ -45,11 +51,6 @@ class TrafficTap:
         self._pending: Dict[Any, Tuple[str, np.ndarray]] = {}
         #: model name -> ReplayBuffer (armed by the learner)
         self.buffers: Dict[str, ReplayBuffer] = {}
-        #: counters: rows tapped, rows that entered a buffer labeled,
-        #: late labels that found no tapped request
-        self.tapped_rows = 0
-        self.labeled_rows = 0
-        self.label_orphans = 0
 
     def arm(self, model: str, buffer: ReplayBuffer) -> None:
         with self._lock:
@@ -75,14 +76,14 @@ class TrafficTap:
             if not take:
                 return
             rows = np.asarray(rows, np.float32)
-            self.tapped_rows += len(rows)
+            telemetry.counter(events.CTR_ONLINE_TAPPED_ROWS).inc(len(rows))
             if label is None:
                 while len(self._pending) >= PENDING_CAP:
                     # FIFO eviction: dicts keep insertion order
                     self._pending.pop(next(iter(self._pending)))
                 self._pending[jid] = (model, rows)
                 return
-        self._admit(buf, rows, label)
+        self._admit(model, buf, rows, label)
 
     def label_for(self, jid: Any, label: Any) -> bool:
         """A late ``label_of`` line: join by wire id.  False (and an
@@ -90,19 +91,29 @@ class TrafficTap:
         with self._lock:
             hit = self._pending.pop(jid, None)
             if hit is None:
-                self.label_orphans += 1
+                telemetry.counter(events.CTR_ONLINE_LABEL_ORPHANS).inc()
                 return False
             buf = self.buffers.get(hit[0])
         if buf is None:
             return False
-        self._admit(buf, hit[1], label)
+        self._admit(hit[0], buf, hit[1], label)
         return True
 
-    def _admit(self, buf: ReplayBuffer, rows: np.ndarray,
+    def _admit(self, model: str, buf: ReplayBuffer, rows: np.ndarray,
                label: Any) -> None:
-        buf.add(rows, np.asarray(label, np.int32).reshape(-1))
-        with self._lock:
-            self.labeled_rows += len(rows)
+        labels = np.asarray(label, np.int32).reshape(-1)
+        # the slot this batch lands in (the buffer's holdout rule)
+        slot = "holdout" if buf.holdout_every > 0 and \
+            (buf._seen + 1) % buf.holdout_every == 0 else "train"
+        if faults.fire("online.poison_batch", model=model, slot=slot):
+            # deterministic garbage labels: the same seed corrupts the
+            # same way, run to run
+            labels = faults.rng("online.poison_batch").integers(
+                0, max(2, int(labels.max()) + 1),
+                size=len(labels) if len(labels) > 1 else len(rows),
+                dtype=np.int32)
+        buf.add(rows, labels)
+        telemetry.counter(events.CTR_ONLINE_LABELED_ROWS).inc(len(rows))
 
     # -- introspection -------------------------------------------------
 

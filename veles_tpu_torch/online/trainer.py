@@ -53,7 +53,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from veles_tpu_torch import knobs
+from veles_tpu_torch import events, knobs, telemetry
 from veles_tpu_torch.engine import core as engine_core
 from veles_tpu_torch.online.buffer import ReplayBuffer
 from veles_tpu_torch.online.promote import PromotionGate
@@ -264,13 +264,11 @@ class OnlineLearner:
         self._gates: Dict[str, PromotionGate] = {}
         #: EMA of the fetched step's wall ms: the SLO headroom input
         self._step_ema_ms: Optional[float] = None
-        #: counters: skipped opportunities (serving busy or no
-        #: headroom), completed gate rounds, rounds aborted by traffic,
-        #: seconds spent in steps
-        self.steps_skipped_busy = 0
+        #: completed gate rounds and rounds aborted by traffic (skipped
+        #: opportunities and step seconds count in the online.*
+        #: telemetry counters)
         self.gate_rounds = 0
         self.gate_aborts = 0
-        self.step_seconds = 0.0
         self._stop = threading.Event()
         #: a suspended learner stays armed (taps keep filling the
         #: buffers) but takes no steps
@@ -313,6 +311,10 @@ class OnlineLearner:
         # budget must see
         self.residency.reserve(f"{name}@shadow", trainer.nbytes,
                                pool="train")
+        telemetry.event(events.EV_ONLINE_ARMED, model=name,
+                        members=trainer.n_members,
+                        micro_batch=self.micro_batch,
+                        buffer_rows=self.buffer_rows)
         log.info("online: armed %r (%d members, micro_batch=%d, "
                  "buffer=%d rows)", name, trainer.n_members,
                  self.micro_batch, self.buffer_rows)
@@ -392,7 +394,8 @@ class OnlineLearner:
                 if time.monotonic() < self._rest_until:
                     continue   # the duty throttle rests; not busy
                 if not self._serving_idle() or not self._headroom():
-                    self.steps_skipped_busy += 1
+                    telemetry.counter(
+                        events.CTR_ONLINE_STEPS_SKIPPED_BUSY).inc()
                     continue
                 try:
                     self._step_one(name, trainer, buf, gate)
@@ -419,9 +422,13 @@ class OnlineLearner:
         ms = 1000.0 * dt
         self._step_ema_ms = ms if self._step_ema_ms is None else \
             0.8 * self._step_ema_ms + 0.2 * ms
-        self.step_seconds += dt
-        self.residency.reserve(f"{name}@buffer", buf.nbytes,
-                               pool="scratch")
+        telemetry.counter(events.CTR_ONLINE_STEPS).inc()
+        telemetry.counter(events.CTR_ONLINE_STEP_ROWS).inc(
+            trainer.micro_batch)
+        telemetry.counter(events.CTR_ONLINE_STEP_SECONDS).inc(dt)
+        telemetry.histogram(events.HIST_ONLINE_STEP_DISPATCH_SECONDS).record(
+            dt)
+        self._publish_gauges(name, trainer, buf, gate)
         if gate.due(trainer.steps):
             self._gate_round(name, trainer, buf, gate)
 
@@ -431,7 +438,7 @@ class OnlineLearner:
         # traffic that arrived during the step defers it (last_gate_step
         # stays, so it re-arms after the next idle step)
         if not self._serving_idle():
-            self.steps_skipped_busy += 1
+            telemetry.counter(events.CTR_ONLINE_STEPS_SKIPPED_BUSY).inc()
             return
         # the newest rows only: the round's cost stays fixed however
         # full the holdout partition is
@@ -454,8 +461,10 @@ class OnlineLearner:
             trainer.error_pct(engine.stacked_params, hx, hl, abort=_busy)
         if shadow_err is None or incumbent_err is None:
             self.gate_aborts += 1
-            self.steps_skipped_busy += 1
+            telemetry.counter(events.CTR_ONLINE_STEPS_SKIPPED_BUSY).inc()
             return
+        telemetry.histogram(events.HIST_ONLINE_GATE_SECONDS).record(
+            time.perf_counter() - t0)
         self.gate_rounds += 1
         verdict = gate.decide(trainer.steps, shadow_err, incumbent_err)
         log.info("online: gate round for %r at step %d: shadow %.2f%% "
@@ -472,6 +481,20 @@ class OnlineLearner:
         # the whole round is scavenged work: it pays duty rest
         self._rest_until = time.monotonic() + \
             self._rest_for(time.perf_counter() - t0)
+        self._publish_gauges(name, trainer, buf, gate)
+
+    def _publish_gauges(self, name: str, trainer: ShadowTrainer,
+                        buf: ReplayBuffer, gate: PromotionGate) -> None:
+        nbytes = buf.nbytes
+        self.residency.reserve(f"{name}@buffer", nbytes, pool="scratch")
+        telemetry.gauge(events.GAUGE_ONLINE_BUFFER_ROWS).set(
+            buf.train_rows + buf.holdout_rows)
+        telemetry.gauge(events.GAUGE_ONLINE_BUFFER_BYTES).set(nbytes)
+        telemetry.gauge(f"online.model.{name}.buffer_rows").set(
+            buf.train_rows)
+        telemetry.gauge(f"online.model.{name}.steps").set(trainer.steps)
+        telemetry.gauge(f"online.model.{name}.gate_state").set(
+            gate.state_code())
 
     # -- introspection -------------------------------------------------
 
@@ -504,19 +527,25 @@ class OnlineLearner:
 
     def counters(self) -> Dict[str, Any]:
         """The learner's counters (the hive's ``op=stats`` ``online``
-        entry)."""
+        entry): the process's ``online.*`` telemetry counters (a hive
+        holds one learner) beside the learner's own."""
         with self._lock:
             trainers = list(self._trainers.values())
             gates = dict(self._gates)
+
+        def ctr(name: str):
+            return telemetry.counter(name).value
+
         return {"steps": sum(t.steps for t in trainers),
-                "steps_skipped_busy": self.steps_skipped_busy,
+                "steps_skipped_busy": ctr(
+                    events.CTR_ONLINE_STEPS_SKIPPED_BUSY),
                 "gate_rounds": self.gate_rounds,
                 "gate_aborts": self.gate_aborts,
-                "step_seconds": self.step_seconds,
+                "step_seconds": ctr(events.CTR_ONLINE_STEP_SECONDS),
                 "step_ema_ms": self._step_ema_ms,
                 "suspended": self.suspended,
-                "tapped_rows": self.tap.tapped_rows,
-                "labeled_rows": self.tap.labeled_rows,
-                "label_orphans": self.tap.label_orphans,
+                "tapped_rows": ctr(events.CTR_ONLINE_TAPPED_ROWS),
+                "labeled_rows": ctr(events.CTR_ONLINE_LABELED_ROWS),
+                "label_orphans": ctr(events.CTR_ONLINE_LABEL_ORPHANS),
                 "last_promotion": {name: g.last_promotion
                                    for name, g in gates.items()}}

@@ -43,8 +43,17 @@ Counterpart of ``veles_tpu/ops/fused.py``:
   may change a layer's param shapes (``ResizableAll2All.resize``): the
   layer's momentum buffers are then reshaped as the reference's
   ``reconcile_velocities`` does, and :meth:`~FusedStepRunner.
-  invalidate_trace` rebuilds the chains.  Not ported: mesh and
-  data-sharded placement, telemetry.
+  invalidate_trace` rebuilds the chains.  Telemetry, as the
+  reference's: each firing's host submission seconds (never a device
+  wait) into ``fused.<kind>_dispatch_seconds``, the first firing of a
+  kind apart (``fused.first_<kind>_dispatch_seconds`` and the
+  ``fused.first_dispatch`` event); ``fused.dispatches``,
+  ``fused.minibatches``, ``fused.<kind>_images`` / ``_seconds``; the
+  streamed wire bytes and staging seconds; and at :meth:`stop` the
+  delivered images/s and MFU (``fused.summary``).  A streamed upload
+  that runs out of card memory (or fault point ``device.oom_on_put``,
+  ``site=stream``) waits for the in-flight firings and retries once.
+  Not ported: mesh and data-sharded placement.
 - :class:`EnsembleEvalEngine`, the serving half of the reference's
   class.  Every member's params are stacked along a leading member axis
   and uploaded once; a prediction runs each member's forward in the
@@ -65,8 +74,14 @@ Counterpart of ``veles_tpu/ops/fused.py``:
   through ``ResidencyManager.swap_params``): a dispatch reads the tree
   once, so it answers wholly from the old params or wholly from the
   new.  :meth:`~EnsembleEvalEngine.notify_next_dispatch` arms a
-  one-shot hook fired after the next serving dispatch.  Left for later
-  slices: member sharding over a mesh, row-sharded attachment.
+  one-shot hook fired after the next serving dispatch.
+  :meth:`~EnsembleEvalEngine.warm_up` runs one dispatch of zeros at the
+  serving shape before a hive's hello, so cuDNN's first use lands
+  there and not in a client's request; it counts apart
+  (``warmup_dispatches``, ``warmup_seconds``) and only it sets the
+  first-dispatch gauge.  Scoring and host predictions count into
+  ``ensemble.*``.  Left for later slices: member sharding over a mesh,
+  row-sharded attachment.
 - :class:`PopulationTrainEngine` (``ops/population.py``): P genomes
   trained as one cohort under ``torch.func.vmap``.
 """
@@ -81,7 +96,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from veles_tpu_torch import events, prng, telemetry
+from veles_tpu_torch import events, faults, prng, profiling, telemetry
 from veles_tpu_torch.engine import core as engine_core
 from veles_tpu_torch.loader.base import TRAIN
 from veles_tpu_torch.ops import batching
@@ -133,10 +148,15 @@ class FusedStepRunner:
         self._acc_carry: Optional[np.ndarray] = None
         self._conf_carry: Optional[np.ndarray] = None
         self._stream_state = None
+        #: streamed uploads retried after a device OOM
+        self.stream_oom_retries = 0
+        self._first_run_ts: Optional[float] = None
+        self._dispatch_seen: set = set()
 
     #: rebuilt by initialize, never pickled
     _unpicklable = ("device", "_params", "_opt", "_acc", "_conf", "_ingest",
-                    "_forward", "_backward", "_cast", "_stream_state")
+                    "_forward", "_backward", "_cast", "_stream_state",
+                    "_first_run_ts", "_dispatch_seen")
 
     def _to_host(self, d: dict) -> None:
         """Write the live device state into ``d`` as host arrays: params,
@@ -162,8 +182,10 @@ class FusedStepRunner:
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)
         self.__dict__.setdefault("_conf_carry", None)
+        self.__dict__.setdefault("stream_oom_retries", 0)
         for key in self._unpicklable:
             self.__dict__[key] = None
+        self._dispatch_seen = set()
         self.restored = self._host_params is not None
 
     def initialize(self, device: Any,
@@ -238,6 +260,12 @@ class FusedStepRunner:
                 self._opt[gd.name] = {pn: torch.zeros_like(t) for pn, t in
                                       self._params[f.name].items()}
         self._host_params = self._host_opt = None
+        # params and velocities are this runner's device footprint: the
+        # arbiter's train pool
+        from veles_tpu_torch.serve import residency
+        residency.charge(self.device, self.name,
+                         residency.tree_nbytes(self._params) +
+                         residency.tree_nbytes(self._opt), "train")
 
     def _lr_rows(self, k: int) -> List[List[List[float]]]:
         """This superstep's (k, n_gd, 2) rates, each rounded to f32 as the
@@ -281,6 +309,9 @@ class FusedStepRunner:
         else:
             self.processed_eval_images += images
             cparams = self._cast(self._params)
+        if self._first_run_ts is None:
+            self._first_run_ts = time.monotonic()
+        t0 = time.perf_counter()
         use_targets = self.evaluator.wants_targets
         if self.streaming:
             xb, tb = self._upload_superstep(k, use_targets)
@@ -320,6 +351,62 @@ class FusedStepRunner:
             # the staging buffer of this firing is free again once the
             # device has run everything queued so far
             self._stream_state.release()
+        self._record_dispatch("train" if train else "eval",
+                              time.perf_counter() - t0, k, images)
+
+    def _record_dispatch(self, kind: str, dt: float, k: int,
+                         images: float) -> None:
+        """One firing's host submission seconds (the device may still
+        be running it).  The first firing of each kind meets cuDNN's
+        first use and goes to a gauge and the journal, not the
+        steady-state histogram."""
+        if not telemetry.enabled():
+            return
+        if kind not in self._dispatch_seen:
+            self._dispatch_seen.add(kind)
+            telemetry.gauge(f"fused.first_{kind}_dispatch_seconds").set(dt)
+            telemetry.event(events.EV_FUSED_FIRST_DISPATCH, kind=kind,
+                            seconds=round(dt, 4),
+                            streaming=bool(self.streaming))
+        else:
+            telemetry.histogram(f"fused.{kind}_dispatch_seconds").record(dt)
+        telemetry.counter(events.CTR_FUSED_DISPATCHES).inc()
+        telemetry.counter(f"fused.{kind}_seconds").inc(dt)
+        telemetry.counter(events.CTR_FUSED_MINIBATCHES).inc(k)
+        telemetry.counter(f"fused.{kind}_images").inc(images)
+
+    def stop(self) -> None:
+        """The end of a run: the delivered-rate summary."""
+        self._record_telemetry_summary()
+
+    def _record_telemetry_summary(self) -> None:
+        """Train images/s over the host's clock since the first firing
+        (the run's delivered rate, host gaps included), the analytic
+        GFLOPs an image and, where the card's peak is known, the MFU."""
+        if self._first_run_ts is None or not telemetry.enabled():
+            return
+        elapsed = time.monotonic() - self._first_run_ts
+        self._first_run_ts = None   # stop() may run more than once
+        images = self.processed_images
+        if elapsed <= 0 or images <= 0:
+            return
+        rate = images / elapsed
+        telemetry.gauge(events.GAUGE_FUSED_TRAIN_IMAGES_PER_SEC_WALL).set(
+            round(rate, 3))
+        try:
+            flops = profiling.model_flops_per_sample(self.forwards)["train"]
+            telemetry.gauge(events.GAUGE_FUSED_TRAIN_GFLOPS_PER_IMAGE).set(
+                round(flops / 1e9, 4))
+            u = profiling.mfu(rate, flops, self.device)
+            if u is not None:
+                telemetry.gauge(events.GAUGE_FUSED_MFU).set(round(u, 5))
+            telemetry.event(
+                events.EV_FUSED_SUMMARY, images=images,
+                images_per_sec_wall=round(rate, 2),
+                mfu=round(u, 5) if u is not None else None,
+                streaming=bool(self.streaming))
+        except Exception:  # noqa: BLE001 — the summary is best-effort
+            log.exception("telemetry summary failed")
 
     def _upload_superstep(self, k: int, use_targets: bool):
         """The loader's host superstep as device tensors ((k, mb, ...)
@@ -332,15 +419,38 @@ class FusedStepRunner:
                 f"{self.name}: streaming, but the loader assembled no "
                 f"superstep of {k} minibatches "
                 f"({'targets' if use_targets else 'labels'} included)")
-        t0 = time.perf_counter()
-        if self.device.platform == "cuda":
-            if self._stream_state is None:
-                self._stream_state = _StagedUpload(
-                    self.device.device, ld.superstep, xb, tb)
-            xb, tb = self._stream_state.upload(xb, tb)
-        self.stream_transfer_bytes += xb.numel() * xb.element_size() + \
+        n_wire = xb.numel() * xb.element_size() + \
             tb.numel() * tb.element_size()
-        self.stream_transfer_seconds += time.perf_counter() - t0
+        self.stream_transfer_bytes += n_wire
+        telemetry.counter(events.CTR_FUSED_STREAM_TRANSFER_BYTES).inc(n_wire)
+        t0 = time.perf_counter()
+        for attempt in (1, 2):
+            try:
+                if faults.fire("device.oom_on_put", site="stream"):
+                    raise torch.cuda.OutOfMemoryError(
+                        "fault-injected OOM on the streaming upload")
+                if self.device.platform == "cuda":
+                    if self._stream_state is None:
+                        self._stream_state = _StagedUpload(
+                            self.device.device, ld.superstep, xb, tb)
+                    xb, tb = self._stream_state.upload(xb, tb)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                # the firings in flight still hold their uploads: wait
+                # for them and retry once, then give up
+                if attempt == 2:
+                    raise
+                log.warning("%s: the streaming upload hit device OOM (%s);"
+                            " draining the firings in flight and retrying "
+                            "once", self.name, e)
+                self.stream_oom_retries += 1
+                telemetry.counter(events.CTR_FUSED_STREAM_OOM_RETRIES).inc()
+                telemetry.event(events.EV_DEVICE_OOM_RETRY, site="stream")
+                if self.device.platform == "cuda":
+                    torch.cuda.synchronize(self.device.device)
+        dt = time.perf_counter() - t0
+        self.stream_transfer_seconds += dt
+        telemetry.counter(events.CTR_FUSED_STREAM_TRANSFER_SECONDS).inc(dt)
         return xb, tb
 
     def last_copy_ms(self) -> Optional[float]:
@@ -487,6 +597,12 @@ class EnsembleEvalEngine:
         self._count_lock = threading.Lock()
         #: serving dispatches answered (micro-batches, not requests)
         self.dispatches = 0
+        #: warm-up dispatches (:meth:`warm_up`) and their seconds, apart
+        self.warmup_dispatches = 0
+        self.warmup_seconds = 0.0
+        #: True once a dispatch (a warm-up's included) set the
+        #: first-dispatch gauge
+        self._first_seen = False
         #: the one-shot hook of :meth:`notify_next_dispatch`
         self._on_next_dispatch = None
 
@@ -518,8 +634,28 @@ class EnsembleEvalEngine:
 
     def predict_proba(self, x: np.ndarray) -> np.ndarray:
         """Mean member probabilities for a host batch."""
+        t0 = time.perf_counter()
+        out = self._predict_host(x)
+        self._record_chunks(events.HIST_ENSEMBLE_DISPATCH_SECONDS,
+                            time.perf_counter() - t0, 1, len(out))
+        return out
+
+    def _predict_host(self, x: np.ndarray) -> np.ndarray:
         xb = self.device.put(np.asarray(x, np.float32))
         return self.device.get(self.predict(xb))
+
+    def _record_chunks(self, hist: str, dt: float, chunks: int,
+                       images: int) -> None:
+        """A fetched prediction or scoring pass: its wall seconds (the
+        fetch at its end is the sync) and its chunks and images."""
+        if not telemetry.enabled():
+            return
+        telemetry.histogram(hist).record(dt)
+        telemetry.counter(events.CTR_ENSEMBLE_CHUNKS).inc(chunks)
+        telemetry.counter(events.CTR_ENSEMBLE_SECONDS).inc(dt)
+        telemetry.counter(events.CTR_ENSEMBLE_IMAGES).inc(images)
+        telemetry.counter(events.CTR_ENSEMBLE_MEMBER_IMAGES).inc(
+            images * self.n_members)
 
     def _score(self, acc: torch.Tensor, x: torch.Tensor,
                labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -537,12 +673,16 @@ class EnsembleEvalEngine:
         labels = np.asarray(labels, np.int64)
         chunk = max(1, min(chunk, len(x)))
         dev = self.device
+        t0 = time.perf_counter()
         acc = dev.zeros(2)
         for i in range(0, len(x), chunk):
             xb, lb, mask = batching.pad_chunk(x[i:i + chunk],
                                               labels[i:i + chunk], chunk)
             acc = self._score(acc, dev.put(xb), dev.put(lb), dev.put(mask))
         acc = dev.get(acc)
+        self._record_chunks(events.HIST_ENSEMBLE_SCORE_SECONDS,
+                            time.perf_counter() - t0,
+                            -(-len(x) // chunk), len(x))
         return 100.0 * float(acc[0]) / max(float(acc[1]), 1.0)
 
     # -- resident path -------------------------------------------------
@@ -559,9 +699,13 @@ class EnsembleEvalEngine:
         """Mean member probabilities of the attached rows ``indices``."""
         if self._dataset is None:
             raise RuntimeError("attach_dataset() first")
+        t0 = time.perf_counter()
         idx = self.device.put(np.asarray(indices, np.int64))
-        return self.device.get(self.predict(
+        out = self.device.get(self.predict(
             self._dataset.index_select(0, idx)))
+        self._record_chunks(events.HIST_ENSEMBLE_DISPATCH_SECONDS,
+                            time.perf_counter() - t0, 1, len(out))
+        return out
 
     def error_pct_resident(self, n: Optional[int] = None,
                            chunk: int = 256) -> float:
@@ -572,6 +716,7 @@ class EnsembleEvalEngine:
         total = len(self._dataset) if n is None else int(n)
         chunk = max(1, min(chunk, total))
         dev = self.device
+        t0 = time.perf_counter()
         acc = dev.zeros(2)
         for i in range(0, total, chunk):
             idx, mask = batching.padded_index_chunk(
@@ -581,6 +726,9 @@ class EnsembleEvalEngine:
                               self._labels.index_select(0, idx),
                               dev.put(mask))
         acc = dev.get(acc)
+        self._record_chunks(events.HIST_ENSEMBLE_SCORE_SECONDS,
+                            time.perf_counter() - t0, -(-total // chunk),
+                            total)
         return 100.0 * float(acc[0]) / max(float(acc[1]), 1.0)
 
     # -- request-level serving -----------------------------------------
@@ -613,25 +761,52 @@ class EnsembleEvalEngine:
         """Block until every submitted request has resolved."""
         return self._batcher is None or self._batcher.drain(timeout)
 
-    def _serve_dispatch(self, xb: np.ndarray) -> np.ndarray:
-        """One fixed-shape dispatch (the batcher's flush callback).  The
-        first one (cuDNN's first use and the kernels' first launch land
-        in it) goes to the ``serve.first_dispatch_seconds`` gauge, every
-        later one to the ``serve.dispatch_seconds`` histogram the fleet
-        reads, as in the reference."""
+    def _first_dispatch(self, dt: float, rows: int) -> bool:
+        """Under the count lock: True (and the gauge, counter and event
+        recorded) for the first dispatch this engine ran, cuDNN's first
+        use and the kernels' first launch."""
+        if self._first_seen:
+            return False
+        self._first_seen = True
+        telemetry.counter(events.CTR_SERVE_COMPILES).inc()
+        telemetry.gauge(events.GAUGE_SERVE_FIRST_DISPATCH_SECONDS).set(
+            round(dt, 4))
+        telemetry.event(events.EV_SERVE_FIRST_DISPATCH, rows=rows,
+                        seconds=round(dt, 4))
+        return True
+
+    def warm_up(self, rows: int, sample_shape=None) -> float:
+        """One dispatch of ``rows`` rows of zeros (the serving shape:
+        ``sample_shape``, else the first forward's), answers discarded:
+        what a hive runs for each resident model before its hello.  It
+        counts only in ``warmup_dispatches`` and ``warmup_seconds`` (and,
+        being the first, sets the first-dispatch gauge).  Returns its
+        seconds."""
+        shape = sample_shape or self.forwards[0].input_shape[1:]
         t0 = time.perf_counter()
-        out = self.predict_proba(xb)
+        self._predict_host(np.zeros((rows,) + tuple(shape), np.float32))
         dt = time.perf_counter() - t0
         with self._count_lock:
-            first = self.dispatches == 0
+            self.warmup_dispatches += 1
+            self.warmup_seconds += dt
+            self._first_dispatch(dt, rows)
+        return dt
+
+    def _serve_dispatch(self, xb: np.ndarray) -> np.ndarray:
+        """One fixed-shape dispatch (the batcher's flush callback).  The
+        engine's first (cuDNN's first use and the kernels' first launch
+        land in it; a hive's warm-up takes it) goes to the
+        ``serve.first_dispatch_seconds`` gauge, every later one to the
+        ``serve.dispatch_seconds`` histogram the fleet reads, as in the
+        reference."""
+        t0 = time.perf_counter()
+        out = self._predict_host(xb)
+        dt = time.perf_counter() - t0
+        with self._count_lock:
+            first = self._first_dispatch(dt, int(xb.shape[0]))
             self.dispatches += 1
             cb, self._on_next_dispatch = self._on_next_dispatch, None
-        if first:
-            telemetry.gauge(events.GAUGE_SERVE_FIRST_DISPATCH_SECONDS).set(
-                round(dt, 4))
-            telemetry.event(events.EV_SERVE_FIRST_DISPATCH,
-                            rows=int(xb.shape[0]), seconds=round(dt, 4))
-        else:
+        if not first:
             telemetry.histogram(events.HIST_SERVE_DISPATCH_SECONDS).record(
                 dt)
         telemetry.counter(events.CTR_SERVE_MEMBER_ROWS).inc(

@@ -36,9 +36,11 @@ as the reference does.
   sigma rows on the member axis and the data broadcast, so the device
   holds prototypes x P, never data x P.
 
-Not ported: the eager per-minibatch dispatch and its knob, the
-row-sharded gather and member sharding over a mesh, and the telemetry
-counters.
+Telemetry: each trainer firing counts into ``som.fused_dispatches`` /
+``som.fused_images``; a cohort's run is the ``som.cohort_train`` span
+and counts into ``som.cohorts`` / ``som.cohort_members``.
+
+Not ported: the row-sharded gather and member sharding over a mesh.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from veles_tpu_torch import prng
+from veles_tpu_torch import events, prng, telemetry
 from veles_tpu_torch.engine import core as engine_core
 from veles_tpu_torch.loader.base import TRAIN, VALID
 
@@ -221,6 +223,8 @@ class KohonenTrainer:
             stats = self._eval_epoch(self.weights, *rows, mask)
             self.processed_eval_images += n
         self._acc = stats if self._acc is None else self._acc + stats
+        telemetry.counter(events.CTR_SOM_FUSED_DISPATCHES).inc()
+        telemetry.counter(events.CTR_SOM_FUSED_IMAGES).inc(int(n))
 
     def take_class_metrics(self) -> Tuple[float, float, float, None]:
         """(n_err = 0, qe_sum, count, no confusion) since the last call:
@@ -279,6 +283,9 @@ class SOMPopulationEngine:
         self._eval = torch.func.vmap(
             engine_core.build_som_eval(resident),
             in_dims=(0,) + data_dims + (None,))
+        from veles_tpu_torch.serve import residency
+        residency.charge(self.device, "som_population",
+                         residency.tree_nbytes(self.weights), "cohort")
 
     def _schedule_at(self, epoch: int):
         decay = self.trainer.decay_epochs
@@ -302,8 +309,16 @@ class SOMPopulationEngine:
             alphas[:, k - 1], sigmas[:, k - 1] = self._schedule_at(e)
         return np.ascontiguousarray(alphas), np.ascontiguousarray(sigmas)
 
-    @torch.no_grad()
     def run(self) -> np.ndarray:
+        with telemetry.span(events.SPAN_SOM_COHORT_TRAIN, journal=True,
+                            members=self.n_members):
+            telemetry.counter(events.CTR_SOM_COHORTS).inc()
+            telemetry.counter(events.CTR_SOM_COHORT_MEMBERS).inc(
+                self.n_members)
+            return self._run()
+
+    @torch.no_grad()
+    def _run(self) -> np.ndarray:
         ld = self.loader
         dev = self.device
         P = self.n_members

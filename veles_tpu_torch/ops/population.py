@@ -49,7 +49,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from veles_tpu_torch import prng
+from veles_tpu_torch import events, faults, prng, telemetry
 from veles_tpu_torch.engine import core as engine_core
 from veles_tpu_torch.loader.base import TRAIN, VALID
 from veles_tpu_torch.ops import batching
@@ -117,6 +117,12 @@ class PopulationTrainEngine:
         self.seconds = 0.0
         self.minibatches = 0
         self._build()
+        # the stacked params, velocities and decays: the cohort's device
+        # footprint, in the arbiter's cohort pool
+        from veles_tpu_torch.serve import residency
+        residency.charge(dev, "population", residency.tree_nbytes(
+            self._params) + residency.tree_nbytes(self._opt) +
+            residency.tree_nbytes(self._wd), "cohort")
 
     def _build(self) -> None:
         from veles_tpu_torch.ops.fused import RNG_STREAM
@@ -215,7 +221,24 @@ class PopulationTrainEngine:
 
     @torch.no_grad()
     def run(self) -> np.ndarray:
-        """Train the whole cohort; returns the (P,) fitness vector."""
+        """Train the whole cohort; returns the (P,) fitness vector.  The
+        run is the ``ga.cohort_train`` span (host seconds, journalled)
+        and counts into ``ga.cohorts`` / ``ga.cohort_members``; fault
+        point ``device.oom_on_put`` (``site=cohort``) raises the card's
+        OOM before anything runs, which the GA evaluator answers by
+        splitting the cohort."""
+        with telemetry.span(events.SPAN_GA_COHORT_TRAIN, journal=True,
+                            members=self.n_members):
+            telemetry.counter(events.CTR_GA_COHORTS).inc()
+            telemetry.counter(events.CTR_GA_COHORT_MEMBERS).inc(
+                self.n_members)
+            if faults.fire("device.oom_on_put", site="cohort",
+                           members=self.n_members):
+                raise torch.cuda.OutOfMemoryError(
+                    "fault-injected OOM on the cohort dispatch")
+            return self._run()
+
+    def _run(self) -> np.ndarray:
         ld = self.loader
         dev = self.device
         dec = self.decision

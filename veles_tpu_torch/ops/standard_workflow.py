@@ -157,6 +157,7 @@ class StandardWorkflow:
                     self.snapshotter.run()
         finally:
             self.loader.stop()
+            self.fused.stop()
         self.wall_time = time.perf_counter() - t0
         log.info("wall-clock: %.0f train + %.0f eval images in %.1fs",
                  self.fused.processed_images,

@@ -55,7 +55,8 @@ def hive_command(models: Dict[str, str], backend: str = "auto",
                  hbm_budget: Optional[int] = None,
                  heartbeat_every: Optional[float] = None,
                  install_dir: Optional[str] = None,
-                 online: bool = False) -> List[str]:
+                 online: bool = False,
+                 metrics_dir: Optional[str] = None) -> List[str]:
     """The command line :class:`HiveClient` starts a hive with."""
     cmd = [sys.executable, "-m", "veles_tpu_torch", "--serve-models"]
     cmd += [f"{name}={path}" for name, path in models.items()]
@@ -66,7 +67,8 @@ def hive_command(models: Dict[str, str], backend: str = "auto",
                         ("--max-wait-ms", max_wait_ms),
                         ("--hbm-budget", hbm_budget),
                         ("--heartbeat-every", heartbeat_every),
-                        ("--install-dir", install_dir)):
+                        ("--install-dir", install_dir),
+                        ("--metrics-dir", metrics_dir)):
         if value is not None:
             cmd += [flag, str(value)]
     return cmd
@@ -84,11 +86,13 @@ class HiveClient:
                  env: Optional[Dict[str, str]] = None,
                  cwd: Optional[str] = None, online: bool = False,
                  stderr: Any = None,
-                 start_timeout: float = 120.0) -> None:
+                 start_timeout: float = 120.0,
+                 metrics_dir: Optional[str] = None) -> None:
         cmd = hive_command(models, backend=backend, max_batch=max_batch,
                            max_wait_ms=max_wait_ms, hbm_budget=hbm_budget,
                            heartbeat_every=heartbeat_every,
-                           install_dir=install_dir, online=online)
+                           install_dir=install_dir, online=online,
+                           metrics_dir=metrics_dir)
         run_env = dict(os.environ)
         run_env["PYTHONPATH"] = os.pathsep.join(
             p for p in (_ROOT, run_env.get("PYTHONPATH")) if p)

@@ -26,14 +26,16 @@ affinity: the declaration-order prefix that fits every replica's budget
 (or an explicit hot set) is replicated, the long tail goes greedily to
 the replica with the most free bytes.
 
+With a fleet ``metrics_dir``, each replica's hive persists its
+telemetry in ``<metrics_dir>/replica-<i>``, on every spawn and respawn.
 The process runs on the card unless the caller asks for the CPU.  Left
-out: per-replica metrics dirs (the ops plane) and ``--mesh`` replicas
-(multi-card serving): ``devices`` is always 1.
+out: ``--mesh`` replicas (multi-card serving): ``devices`` is always 1.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import tempfile
 import threading
 import time
@@ -112,7 +114,8 @@ class Replica:
                  env: Optional[Dict[str, str]] = None,
                  start_timeout: float = 180.0,
                  install_dir: Optional[str] = None,
-                 stderr: Any = None) -> None:
+                 stderr: Any = None,
+                 metrics_dir: Optional[str] = None) -> None:
         self.idx = idx
         self.models = dict(models)
         self.backend = backend
@@ -128,6 +131,9 @@ class Replica:
             else float(knobs.get(knobs.SERVE_MAX_WAIT_MS))
         self.hbm_budget = hbm_budget
         self.heartbeat_every = heartbeat_every
+        #: this replica's own dir under the fleet's
+        self.metrics_dir = os.path.join(metrics_dir, f"replica-{idx}") \
+            if metrics_dir else None
         self.cwd = cwd
         self.env = env
         self.stderr = stderr
@@ -173,7 +179,8 @@ class Replica:
             hbm_budget=self.hbm_budget,
             heartbeat_every=self.heartbeat_every,
             install_dir=self.install_dir, env=self.env, cwd=self.cwd,
-            stderr=self.stderr, start_timeout=self.start_timeout)
+            stderr=self.stderr, start_timeout=self.start_timeout,
+            metrics_dir=self.metrics_dir)
         hello = self.client.hello or {}
         with self._lock:
             self.spawn_seconds = time.monotonic() - t0

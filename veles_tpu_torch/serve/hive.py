@@ -31,10 +31,20 @@ Protocol lines (stdout; writes serialized under one lock)::
     {"id", "stats": {...}}                            -- op=stats
 
 ``crc`` is the crc32 of the clean float32 probability payload.
+Before its hello the hive warms every resident model up: one dispatch
+of ``max_batch`` rows of zeros (the batcher's padded shape), answers
+discarded (``EnsembleEvalEngine.warm_up``), so cuDNN's first use and
+the kernels' first launches land there and not in a client's first
+request.  The warm-up feeds no tap, buffer or learner and counts in no
+request or dispatch counter; it sets the first-dispatch gauge and the
+``serve.first_dispatch`` event.
+
 ``stats`` carries the port's own counters: ``requests``,
 ``request_errors``, ``dispatches``, ``rows``, ``max_batch_rows``,
 ``spills``, ``kernel_launches`` (``{"lrn_fwd": n}``, and ``"lrn_bwd"``
-when a learner is armed), the residency ``ledger`` and per-model rows;
+when a learner is armed; the warm-up's launches not included),
+``warmup`` (``{"dispatches", "seconds", "kernel_launches"}``), the
+residency ``ledger`` and per-model rows;
 and beside them the process's telemetry snapshot (``counters``,
 ``gauges``, ``histograms``: ``veles_tpu_torch/telemetry.py``), which is
 what the reference's hive answers and what the fleet router reads
@@ -59,7 +69,13 @@ counts).  A learning model's loader loads its data set on the host once,
 for the codec's dequantization (``loader.dequant``) that the replay
 buffer stores rows by, as the reference's hive has it
 (:func:`attach_dequant`).  The learner stops before the SIGTERM drain.
-Not in this slice (argparse rejects them): ``--mesh``, ``--metrics-dir``.
+
+``--metrics-dir DIR`` (or ``$VELES_METRICS_DIR``) persists the
+process's telemetry there in the reference's formats: the snapshot is
+flushed after the hello, every heartbeat at most every
+``telemetry.FLUSH_EVERY`` seconds, and at shutdown, after the
+``serve.drain`` and ``serve.shutdown`` events.  Not in this slice
+(argparse rejects it): ``--mesh``.
 """
 
 from __future__ import annotations
@@ -197,6 +213,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--install-dir", default=None,
                    help="package install directory (default: a temp "
                         "dir)")
+    p.add_argument("--metrics-dir", default=None,
+                   help="persist telemetry snapshots and the journal "
+                        "into this directory (also $VELES_METRICS_DIR)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -211,6 +230,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose
                         else logging.INFO, stream=sys.stderr)
+    if args.metrics_dir:
+        telemetry.configure(args.metrics_dir)
     specs: List[tuple] = []
     for spec in args.models:
         name, _, path = spec.partition("=")
@@ -249,6 +270,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         with emit_lock:
             print(line, flush=True)
 
+    # the warm-up: one padded dispatch a resident model, before the hello
+    # and before the learner (its launches count apart)
+    launches0 = lrn_cuda.lrn_fwd.launches
+    warmup = {"dispatches": 0, "seconds": 0.0}
+    for m in residency.models.values():
+        if m.resident:
+            warmup["seconds"] += m.engine.warm_up(residency.max_batch,
+                                                  m.sample_shape)
+            warmup["dispatches"] += 1
+    warmup["kernel_launches"] = {
+        "lrn_fwd": lrn_cuda.lrn_fwd.launches - launches0}
+
     learner = None
     if args.online:
         from veles_tpu_torch.online import OnlineLearner
@@ -278,6 +311,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                     platform=device.platform,
                     models=sorted(residency.models),
                     max_batch=residency.max_batch)
+    telemetry.flush()
 
     flap = faults.fire("fleet.replica_flap")
     if flap:
@@ -310,7 +344,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "max_batch_rows": b.max_rows if b is not None else 0}
         with counts_lock:
             out = dict(counts)
-        launches = {"lrn_fwd": lrn_cuda.lrn_fwd.launches}
+        launches = {"lrn_fwd": lrn_cuda.lrn_fwd.launches -
+                    warmup["kernel_launches"]["lrn_fwd"]}
         if learner is not None:
             launches["lrn_bwd"] = lrn_cuda.lrn_bwd.launches
             out["online"] = learner.counters()
@@ -320,6 +355,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             max_batch_rows=max([r["max_batch_rows"]
                                 for r in models.values()] or [0]),
             spills=residency.spills,
+            warmup=warmup,
             h2d_bytes=device.h2d_bytes,
             kernel_launches=launches, ledger=residency.ledger(),
             models=models)
@@ -349,6 +385,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         n = 0
         while not hb_stop.wait(args.heartbeat_every):
             emit({"hb": n, "pid": os.getpid()})
+            telemetry.maybe_flush()
             n += 1
 
     if args.heartbeat_every > 0:
@@ -464,22 +501,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     # model's batcher finish its queue
     if stop_event.is_set():
         time.sleep(0.3)
+    n_late = 0
     while True:
         try:
             line = jobs.get_nowait()
         except queue.Empty:
             break
         if line is not None:
+            n_late += 1
             handle(line)
     if learner is not None:
         # the scavenger stops before the drain: no fine-tune step races
         # the batchers' last dispatches
         learner.stop()
-    residency.drain_all()
-    hb_stop.set()
+    drained = residency.drain_all()
+    telemetry.event(events.EV_SERVE_DRAIN, late_requests=n_late,
+                    complete=bool(drained))
+    reason, rc = None, 0
     if stop["signal"] is not None:
+        reason, rc = signal.Signals(stop["signal"]).name, EXIT_PREEMPTED
+    telemetry.event(events.EV_SERVE_SHUTDOWN, reason=reason, code=rc)
+    hb_stop.set()
+    telemetry.flush()
+    if rc:
         sys.stdout.flush()
         sys.stderr.flush()
-        os._exit(EXIT_PREEMPTED)
+        os._exit(rc)
     residency.close()
     return 0

@@ -3,8 +3,9 @@
 Counterpart of ``veles_tpu/serve/residency.py`` (``HostedModel`` and
 the admission half of ``ResidencyManager``).  Each model's device cost
 is known before upload (``batching.stacked_param_bytes``).  The budget
-is half the card's memory (the other half is left to activations and
-micro-batches), 8 GiB on the CPU, or an explicit ``budget_bytes``.
+is ``budget_bytes``, else ``$VELES_HBM_BUDGET``, else half the card's
+memory (the other half is left to activations and micro-batches), 8 GiB
+on the CPU.
 When admitting a model would overflow it, the least-recently-used
 resident model that is not busy spills: its engine drops the stacked
 params and the manager keeps the immutable host copies, so a later
@@ -20,7 +21,13 @@ The online promotion swaps a model's served params on the device
 (:meth:`ResidencyManager.swap_params`) under the same lock the spill
 decision takes, so a swap and a spill never interleave.
 
-Left out here: mesh placement and telemetry.
+Telemetry, as the reference's: the ledger is published as the
+``arbiter.*`` gauges (budget, resident bytes, one per pool: what
+``veles_tpu/obs.py`` ``arbiter_ledger`` reads) and, for a manager that
+hosts models, the ``serve.models_resident`` / ``serve.resident_bytes*``
+gauges; loads, restores and spills journal, and spills count.
+
+Left out here: mesh placement (``serve.mesh_devices`` is always 1).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from veles_tpu_torch import events, knobs, telemetry
 from veles_tpu_torch.ops import batching
 
 #: residency budget where the device reports no memory size (the CPU)
@@ -73,6 +81,7 @@ class ResidencyManager:
                  max_batch: int = 64, max_wait_s: float = 0.005) -> None:
         self.device = device
         self.budget_bytes = int(budget_bytes) if budget_bytes else (
+            int(knobs.get(knobs.HBM_BUDGET)) or
             ((device is not None and device.total_memory())
              or 2 * DEFAULT_BUDGET) // 2)
         self.max_batch = max_batch
@@ -100,11 +109,13 @@ class ResidencyManager:
                              f"(declared: {POOLS})")
         with self._lock:
             self.reserved[name] = (int(nbytes), pool)
+        self._update_gauges()
 
     def release(self, name: str) -> None:
         """Drop a named charge; an unknown name is a no-op."""
         with self._lock:
             self.reserved.pop(name, None)
+        self._update_gauges()
 
     def ledger(self) -> Dict[str, int]:
         """Bytes per pool: ``serve`` holds the resident stacked models
@@ -124,6 +135,30 @@ class ResidencyManager:
         return sum(m.param_bytes for m in list(self.models.values())
                    if m.resident) + sum(
             v[0] for v in tuple(self.reserved.values()))
+
+    def resident_count(self) -> int:
+        return sum(1 for m in list(self.models.values()) if m.resident)
+
+    def _update_gauges(self) -> None:
+        led = self.ledger()
+        telemetry.gauge(events.GAUGE_ARBITER_BUDGET_BYTES).set(
+            self.budget_bytes)
+        telemetry.gauge(events.GAUGE_ARBITER_RESIDENT_BYTES).set(
+            sum(led.values()))
+        for pool, nbytes in led.items():
+            telemetry.gauge(f"arbiter.pool.{pool}.resident_bytes").set(
+                nbytes)
+        if not self.models:
+            # a model-less arbiter: serve.* gauges from it would read as
+            # a replica serving nothing
+            return
+        resident = self.resident_bytes()
+        telemetry.gauge(events.GAUGE_SERVE_MODELS_RESIDENT).set(
+            self.resident_count())
+        telemetry.gauge(events.GAUGE_SERVE_RESIDENT_BYTES).set(resident)
+        telemetry.gauge(events.GAUGE_SERVE_RESIDENT_BYTES_PER_DEVICE).set(
+            resident)
+        telemetry.gauge(events.GAUGE_SERVE_MESH_DEVICES).set(1)
 
     def ensure(self, name: str):
         """Return ``name``'s ready engine, admitting (or restoring) it
@@ -149,6 +184,7 @@ class ResidencyManager:
             if now >= wait_deadline:
                 break
             time.sleep(0.002)
+        t0 = time.perf_counter()
         if m.engine is None:
             from veles_tpu_torch.ops.fused import EnsembleEvalEngine
             engine = EnsembleEvalEngine(m.forwards, m.member_params,
@@ -159,12 +195,20 @@ class ResidencyManager:
             with self._lock:
                 if m.engine is None:
                     m.engine = engine
+            telemetry.event(events.EV_SERVE_MODEL_LOADED, model=name,
+                            members=m.engine.n_members,
+                            param_bytes=m.param_bytes,
+                            seconds=round(time.perf_counter() - t0, 4))
             log.info("model %r loaded: %d members, %.2f MiB stacked",
                      name, engine.n_members, m.param_bytes / (1 << 20))
         elif not m.resident:
             m.engine.restore_params(m.member_params)
+            telemetry.event(events.EV_SERVE_MODEL_RESTORED, model=name,
+                            param_bytes=m.param_bytes,
+                            seconds=round(time.perf_counter() - t0, 4))
             log.info("model %r restored from host spill (%.2f MiB)",
                      name, m.param_bytes / (1 << 20))
+        self._update_gauges()
         return m.engine
 
     def _pick_victim(self, incoming: HostedModel) -> tuple:
@@ -216,6 +260,10 @@ class ResidencyManager:
         m.engine.drain()
         m.engine.spill_params()
         self.spills += 1
+        telemetry.counter(events.CTR_SERVE_SPILLS).inc()
+        telemetry.event(events.EV_SERVE_MODEL_SPILLED, model=m.name,
+                        param_bytes=m.param_bytes)
+        self._update_gauges()
         log.info("model %r spilled to host (LRU, freeing %.2f MiB)",
                  m.name, m.param_bytes / (1 << 20))
 
@@ -241,6 +289,20 @@ class ResidencyManager:
 
 _process_arbiter: Optional[ResidencyManager] = None
 _arbiter_lock = threading.Lock()
+
+
+def tree_nbytes(tree: Any) -> int:
+    """Bytes of the tensors in a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    return int(tree.numel() * tree.element_size())
+
+
+def charge(device: Any, key: str, nbytes: int, pool: str) -> None:
+    """Charge ``nbytes`` under ``key`` to the process arbiter's ``pool``
+    (a training runner's params and velocities, a GA cohort's stack), as
+    the reference's engine cores do."""
+    process_arbiter(device).reserve(f"{pool}:{key}", nbytes, pool=pool)
 
 
 def install_process_arbiter(manager: ResidencyManager

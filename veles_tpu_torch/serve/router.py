@@ -34,8 +34,11 @@ heartbeats, ``{"id", "model", "rows"}`` in, ``{"id", "pred", "probs"}``
 out, ``op=fleet``, ``op=stats``, ``shutdown``); SIGTERM drains and exits
 14.  A shed answer is ``{"id", "error": "overloaded", "overloaded":
 true}``.  The replicas run on the card unless ``-b cpu`` asks for the
-CPU.  Refused: ``--mesh`` (multi-card serving, the port's multi-GPU
-item) and ``--metrics-dir`` (the ops plane).
+CPU.  ``--metrics-dir DIR`` (``FleetRouter(metrics_dir=)``) persists the
+router's telemetry in DIR and each replica's in ``DIR/replica-<i>``
+(a respawn writes its new pid's files beside the dead one's), the
+layout ``veles_tpu/obs.py`` ``fleet_rows`` reads.  Refused: ``--mesh``
+(multi-card serving, the port's multi-GPU item).
 """
 
 from __future__ import annotations
@@ -92,7 +95,8 @@ class FleetRouter:
                  probe_interval: Optional[float] = None,
                  probe_backoff_cap: Optional[float] = None,
                  env_overrides: Optional[Dict[int, Dict[str, str]]] = None,
-                 stderr: Any = None) -> None:
+                 stderr: Any = None,
+                 metrics_dir: Optional[str] = None) -> None:
         if n_replicas < 1:
             raise ValueError(f"a fleet needs >= 1 replica, got "
                              f"{n_replicas}")
@@ -131,6 +135,9 @@ class FleetRouter:
         self.deadline_ms = float(deadline_ms) \
             if deadline_ms is not None \
             else float(knobs.get(knobs.FLEET_DEADLINE_MS))
+        if metrics_dir:
+            telemetry.configure(metrics_dir)
+        self.metrics_dir = metrics_dir
 
         def _replica_env(i: int) -> Optional[Dict[str, str]]:
             # per-replica overrides: a drill arms ONE replica's
@@ -150,7 +157,8 @@ class FleetRouter:
                            heartbeat_every=heartbeat_every, cwd=cwd,
                            env=_replica_env(i),
                            start_timeout=start_timeout,
-                           install_dir=install_dir, stderr=stderr)
+                           install_dir=install_dir, stderr=stderr,
+                           metrics_dir=metrics_dir)
 
         #: the scale-up path reuses the founding replicas' recipe
         self._make_replica = _make_replica
@@ -770,6 +778,7 @@ class FleetRouter:
         telemetry.event(events.EV_FLEET_SHUTDOWN,
                         routed=self.routed_counts(), reason=reason,
                         code=code)
+        telemetry.flush()
 
 
 # -- the CLI front end -----------------------------------------------------
@@ -829,14 +838,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "deadline_ms overrides it")
     p.add_argument("--heartbeat-every", type=float,
                    default=float(knobs.get(knobs.HEARTBEAT_EVERY)))
+    p.add_argument("--metrics-dir", default=None,
+                   help="persist the router's telemetry here and each "
+                        "replica's in <dir>/replica-<i> (also "
+                        "$VELES_METRICS_DIR)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
 #: flags of the reference's fleet that this port refuses, and the item of
 #: the port that brings each
-_REFUSED = {"--mesh": "multi-GPU serving (ROADMAP item 10)",
-            "--metrics-dir": "the ops plane (ROADMAP item 9)"}
+_REFUSED = {"--mesh": "multi-GPU serving (ROADMAP item 10)"}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -881,7 +893,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 budget_bytes=args.hbm_budget or None,
                 hot=set(args.hot) if args.hot else None),
             slo_p99_ms=args.slo_p99_ms, max_inflight=args.max_inflight,
-            deadline_ms=args.deadline_ms)
+            deadline_ms=args.deadline_ms,
+            metrics_dir=args.metrics_dir)
     except (ValueError, RuntimeError) as e:
         print(f"--serve-fleet: {e}", file=sys.stderr)
         return 2
@@ -900,6 +913,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                        for c, (p, f) in router.canaries.items()},
           "slo_p99_ms": router.slo_p99_ms,
           "max_inflight": router.max_inflight})
+    telemetry.flush()
 
     stop = {"signal": None}
     stop_event = threading.Event()
@@ -920,6 +934,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         n = 0
         while not hb_stop.wait(args.heartbeat_every):
             emit({"hb": n, "pid": os.getpid()})
+            telemetry.maybe_flush()
             n += 1
 
     if args.heartbeat_every > 0:

@@ -27,9 +27,13 @@ classes, so a port snapshot resumes only in the port, and
 - :class:`Snapshotter` runs after the decision on a validation
   improvement and writes ``<prefix>_epoch<N>_<err>pt.pickle.gz``,
   keeping the newest ``keep``.
+- Telemetry: saves and loads are timed into
+  ``snapshot.save_seconds`` / ``snapshot.load_seconds``, saves and
+  lineage fallbacks counted and journalled; the resume manifest records
+  the run's metrics dir.  Fault point ``snapshot.torn_write`` truncates
+  the temp file before its rename, as a torn write would.
 
-Left out: the reference's telemetry, journal events and fault
-injection, and the GA state pointer of the manifest.  The default
+The default
 directory is the port's own (``~/.veles_tpu_torch/snapshots``), so a
 fallback walk never tries to unpickle a reference snapshot.
 """
@@ -50,6 +54,8 @@ import time
 import zlib
 from typing import Any, List, Optional
 
+from veles_tpu_torch import events, faults, knobs, telemetry
+
 log = logging.getLogger("veles.snapshotter")
 
 _OPENERS = {".gz": gzip.open, ".bz2": bz2.open, ".xz": lzma.open}
@@ -60,7 +66,7 @@ _HEADER = struct.Struct("<QI")   # payload length, crc32
 
 #: where the supervisor tells a child to keep the resume manifest (in
 #: addition to the copy next to the snapshot)
-MANIFEST_ENV = "VELES_RESUME_MANIFEST"
+MANIFEST_ENV = knobs.RESUME_MANIFEST
 MANIFEST_NAME = "resume_manifest.json"
 DEFAULT_DIRECTORY = os.path.join("~", ".veles_tpu_torch", "snapshots")
 
@@ -78,10 +84,12 @@ def _opener(path: str):
 
 
 @contextlib.contextmanager
-def atomic_write(path: str, mode: str = "wb", opener=open):
+def atomic_write(path: str, mode: str = "wb", opener=open,
+                 before_replace=None):
     """Open a pid-unique temp file next to ``path`` (through
-    ``opener``) and ``os.replace`` it over ``path`` on a clean exit;
-    on an error the temp file is removed."""
+    ``opener``) and ``os.replace`` it over ``path`` on a clean exit
+    (after ``before_replace(temp path)``, when given); on an error the
+    temp file is removed."""
     directory = os.path.dirname(os.path.abspath(path))
     os.makedirs(directory, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=directory,
@@ -91,6 +99,8 @@ def atomic_write(path: str, mode: str = "wb", opener=open):
     try:
         with opener(tmp, mode) as f:
             yield f
+        if before_replace is not None:
+            before_replace(tmp)
         os.replace(tmp, path)
     except BaseException:
         with contextlib.suppress(OSError):
@@ -102,13 +112,21 @@ def save_workflow(workflow: Any, path: str) -> str:
     """Pickle (workflow, stream state) to ``path`` inside the CRC
     envelope, compressed as its suffix says, atomically."""
     from veles_tpu_torch import prng
+    t0 = time.perf_counter()
     payload = {"format": 2, "workflow": workflow,
                "prng": prng.snapshot_state(), "timestamp": time.time()}
     blob = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
-    with atomic_write(path, "wb", _opener(path)) as f:
+    torn = faults.fire("snapshot.torn_write", path=path)
+    with atomic_write(path, "wb", _opener(path),
+                      faults.truncate_file if torn else None) as f:
         f.write(MAGIC)
         f.write(_HEADER.pack(len(blob), zlib.crc32(blob) & 0xFFFFFFFF))
         f.write(blob)
+    dt = time.perf_counter() - t0
+    telemetry.histogram(events.HIST_SNAPSHOT_SAVE_SECONDS).record(dt)
+    telemetry.counter(events.CTR_SNAPSHOT_SAVES).inc()
+    telemetry.event(events.EV_SNAPSHOT_SAVE, path=os.path.basename(path),
+                    bytes=len(blob), seconds=round(dt, 3))
     return path
 
 
@@ -208,7 +226,7 @@ def write_resume_manifest(snapshot: Optional[str] = None,
     manifest that cannot be written is skipped: it must never take the
     run down."""
     targets = []
-    env_path = os.environ.get(MANIFEST_ENV)
+    env_path = knobs.get(MANIFEST_ENV)
     if env_path:
         targets.append(env_path)
     if snapshot:
@@ -225,6 +243,7 @@ def write_resume_manifest(snapshot: Optional[str] = None,
             payload["ga_state"] = os.path.abspath(ga_state)
         if reason:
             payload["reason"] = reason
+        payload["metrics_dir"] = telemetry.metrics_dir()
         payload["pid"] = os.getpid()
         payload["ts"] = round(time.time(), 3)
         try:
@@ -243,6 +262,7 @@ def load_workflow(path: str, fallback: bool = False):
     newest intact sibling instead; the original error is raised when
     none is intact."""
     from veles_tpu_torch import prng
+    t0 = time.perf_counter()
     try:
         payload = _read_payload(path)
     except SnapshotCorruptError as e:
@@ -257,11 +277,17 @@ def load_workflow(path: str, fallback: bool = False):
             except SnapshotCorruptError as e2:
                 log.warning("predecessor %s is corrupt too (%s)", cand, e2)
                 continue
+            telemetry.counter(events.CTR_SNAPSHOT_FALLBACKS).inc()
+            telemetry.event(events.EV_SNAPSHOT_FALLBACK, corrupt=path,
+                            used=cand)
             log.warning("resuming from intact predecessor %s instead of "
                         "corrupt %s", cand, path)
             break
         if payload is None:
+            telemetry.event(events.EV_SNAPSHOT_UNRECOVERABLE, path=path)
             raise
+    telemetry.histogram(events.HIST_SNAPSHOT_LOAD_SECONDS).record(
+        time.perf_counter() - t0)
     prng.restore_state(payload["prng"])
     return payload["workflow"]
 

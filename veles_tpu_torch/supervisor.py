@@ -34,8 +34,12 @@ file instead: its restarts keep the arguments, and take the manifest's
 SIGINT stops breeding at the next generation boundary, whose checkpoint
 is already on disk, and the run exits 14.
 
-It imports neither torch nor the model code, so it stays small beside
-its child.  Not ported: the journal events.
+The supervisor journals ``supervisor.restart`` / ``resumed`` /
+``done`` / ``giveup`` / ``shutdown``, counts restarts and records each
+downtime, into the metrics dir the child's ``--metrics-dir`` names (it
+configures it, so the child inherits it as ``$VELES_METRICS_DIR``).  It
+imports neither torch nor the model code, so it stays small beside its
+child.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from veles_tpu_torch import events, knobs, telemetry
 from veles_tpu_torch.snapshotter import (MANIFEST_ENV, MANIFEST_NAME,
                                          read_resume_manifest,
                                          snapshot_candidates,
@@ -68,10 +73,8 @@ EXIT_USAGE = 2
 #: codes that always resume and never charge the crash budget
 RESUME_CODES = frozenset((EXIT_MULTIHOST_ABORT, EXIT_PREEMPTED))
 
-MAX_CRASHES_ENV = "VELES_SUPERVISE_MAX_CRASHES"
-CRASH_WINDOW_ENV = "VELES_SUPERVISE_CRASH_WINDOW"
 #: exported to each child: 0 for the first, then one more per restart
-ATTEMPT_ENV = "VELES_SUPERVISE_ATTEMPT"
+ATTEMPT_ENV = knobs.SUPERVISE_ATTEMPT
 
 
 def _normalize_rc(rc: int) -> int:
@@ -100,16 +103,22 @@ class Supervisor:
         self.argv = list(argv)
         self.command = list(command) if command else \
             [sys.executable, "-m", "veles_tpu_torch"]
-        self.max_crashes = int(os.environ.get(MAX_CRASHES_ENV, "5")
+        self.max_crashes = int(knobs.get(knobs.SUPERVISE_MAX_CRASHES)
                                if max_crashes is None else max_crashes)
-        self.crash_window = float(os.environ.get(CRASH_WINDOW_ENV, "300")
+        self.crash_window = float(knobs.get(knobs.SUPERVISE_CRASH_WINDOW)
                                   if crash_window is None else crash_window)
         self.restart_backoff = restart_backoff
         self.restart_backoff_cap = restart_backoff_cap
         self._backoff_rng = np.random.default_rng(seed ^ 0x5EED)
         #: where the children keep the resume manifest; None: a directory
         #: of run()'s own, removed when it returns
-        self.manifest_path = manifest_path or os.environ.get(MANIFEST_ENV)
+        self.manifest_path = manifest_path or \
+            knobs.get(knobs.RESUME_MANIFEST) or None
+        # the supervisor's own journal lands in the run's metrics dir
+        # even when the child was given it as a flag
+        mdir = self._argv_value("--metrics-dir")
+        if mdir and not telemetry.metrics_dir():
+            telemetry.configure(mdir)
         self._child: Optional[subprocess.Popen] = None
         self._shutdown_sig: Optional[int] = None
         #: restarts performed so far
@@ -141,7 +150,8 @@ class Supervisor:
                         "the lineage", cand)
         return None
 
-    def argv_for_attempt(self, attempt: int) -> List[str]:
+    def argv_for_attempt(self, attempt: int,
+                         downtime: Optional[float] = None) -> List[str]:
         """The child's arguments; from the second attempt on, with
         ``--snapshot`` pointing at the newest intact snapshot."""
         argv = list(self.argv)
@@ -152,14 +162,14 @@ class Supervisor:
                         read_resume_manifest(self.manifest_path)) or {}
             state = self._argv_value("--ga-state") or \
                 manifest.get("ga_state")
-            log.info("attempt %d resumes the GA from %s", attempt,
-                     state or "a fresh start")
+            self._resumed(attempt, "ga_state" if state else "fresh",
+                          state, downtime, "the GA ")
             if state and self._argv_value("--ga-state") is None:
                 argv += ["--ga-state", state]
             return argv
         snap = self.newest_intact_snapshot()
-        log.info("attempt %d resumes from %s", attempt,
-                 snap or "a fresh start")
+        self._resumed(attempt, "snapshot" if snap else "fresh", snap,
+                      downtime)
         if not snap:
             return argv
         done = False
@@ -171,6 +181,16 @@ class Supervisor:
                 argv[i] = f"--snapshot={snap}"
                 done = True
         return argv if done else argv + ["--snapshot", snap]
+
+    @staticmethod
+    def _resumed(attempt: int, source: str, state: Optional[str],
+                 downtime: Optional[float], what: str = "") -> None:
+        telemetry.event(events.EV_SUPERVISOR_RESUMED, attempt=attempt,
+                        source=source, state=state,
+                        downtime=None if downtime is None
+                        else round(downtime, 3))
+        log.info("attempt %d resumes %sfrom %s", attempt, what,
+                 state or "a fresh start")
 
     # -- the loop --------------------------------------------------------
 
@@ -203,23 +223,34 @@ class Supervisor:
         attempt = 0
         crash_times: deque = deque()
         consecutive_crashes = 0
+        last_death: Optional[float] = None
         log.info("supervising: %s (manifest %s, crash budget %d in "
                  "%.0fs)", " ".join(self.command + self.argv),
                  self.manifest_path, self.max_crashes, self.crash_window)
         try:
             while True:
+                downtime = None if last_death is None \
+                    else time.monotonic() - last_death
+                if downtime is not None:
+                    telemetry.histogram(
+                        events.HIST_SUPERVISOR_DOWNTIME_SECONDS).record(
+                        downtime)
+                argv = self.argv_for_attempt(attempt, downtime)
                 env = dict(os.environ)
                 env[MANIFEST_ENV] = self.manifest_path
                 env[ATTEMPT_ENV] = str(attempt)
-                self._child = subprocess.Popen(
-                    self.command + self.argv_for_attempt(attempt), env=env)
+                self._child = subprocess.Popen(self.command + argv,
+                                               env=env)
                 code = _normalize_rc(self._child.wait())
-                died = time.monotonic()
+                died = last_death = time.monotonic()
                 if self._shutdown_sig is not None:
                     log.warning("supervisor was signalled: not resuming; "
                                 "the child exited %d", code)
+                    telemetry.event(events.EV_SUPERVISOR_SHUTDOWN, rc=code)
                     return code
                 if code == EXIT_DONE:
+                    telemetry.event(events.EV_SUPERVISOR_DONE,
+                                    attempts=attempt + 1)
                     log.info("run complete after %d attempt(s), %d "
                              "restart(s)", attempt + 1, self.restarts)
                     return EXIT_DONE
@@ -231,6 +262,8 @@ class Supervisor:
                     attempt += 1
                     continue
                 if code == EXIT_USAGE:
+                    telemetry.event(events.EV_SUPERVISOR_GIVEUP, rc=code,
+                                    reason="usage_error")
                     log.error("child failed with a usage error (2); "
                               "giving up")
                     return code
@@ -238,6 +271,10 @@ class Supervisor:
                 while died - crash_times[0] > self.crash_window:
                     crash_times.popleft()
                 if len(crash_times) >= self.max_crashes:
+                    telemetry.event(events.EV_SUPERVISOR_GIVEUP, rc=code,
+                                    crashes=len(crash_times),
+                                    window=self.crash_window)
+                    telemetry.flush()
                     log.error("crash loop: %d failures inside %.0fs "
                               "(budget %d); giving up, last exit %d",
                               len(crash_times), self.crash_window,
@@ -270,6 +307,11 @@ class Supervisor:
     def _note_restart(self, code: int, attempt: int, kind: str,
                       delay: float) -> None:
         self.restarts += 1
+        telemetry.counter(events.CTR_SUPERVISOR_RESTARTS).inc()
+        telemetry.event(events.EV_SUPERVISOR_RESTART, rc=code,
+                        attempt=attempt, kind=kind,
+                        budget_charged=(kind == "crash"),
+                        delay=round(delay, 3))
         log.warning("child exited %d (%s): restarting (attempt %d%s)",
                     code, kind, attempt + 1,
                     f", backoff {delay:.2f}s" if delay else "")
@@ -298,17 +340,22 @@ def install_ga_stop(grace: Optional[float] = None
     if threading.current_thread() is not threading.main_thread():
         return (lambda: False), (lambda: None)
     if grace is None:
-        grace = float(os.environ.get("VELES_PREEMPT_GRACE", "25"))
+        grace = float(knobs.get(knobs.PREEMPT_GRACE))
     state = {"sig": None}
     done = threading.Event()
 
     def watchdog(name: str) -> None:
+        telemetry.event(events.EV_PREEMPT_REQUESTED, signal=name,
+                        grace=grace, mode="ga")
         log.warning("preemption requested (%s): stopping at the next GA "
                     "generation boundary; hard exit in %.0fs", name, grace)
         if done.wait(grace):
             return
+        telemetry.event(events.EV_PREEMPT_DEADLINE_EXCEEDED, grace=grace,
+                        mode="ga")
         log.error("GA graceful stop missed the %.0fs grace; exiting %d on "
                   "the last checkpoint", grace, EXIT_PREEMPTED)
+        telemetry.flush()
         logging.shutdown()
         os._exit(EXIT_PREEMPTED)
 
@@ -334,6 +381,8 @@ def install_ga_stop(grace: Optional[float] = None
             signal.signal(sig, h)
         if state["sig"] is None:
             return None
+        telemetry.event(events.EV_PREEMPT_GA_EXIT, code=EXIT_PREEMPTED)
+        telemetry.flush()
         log.warning("GA preempted: exiting %d (resume with the same "
                     "--ga-state, or under --supervise)", EXIT_PREEMPTED)
         return EXIT_PREEMPTED

@@ -1,7 +1,7 @@
-"""The in-memory telemetry core: counters, gauges, histograms and the
-event ring (the port's copy).
+"""The telemetry core: counters, gauges, histograms, spans, the event
+ring and the run journal (the port's copy).
 
-Counterpart of ``veles_tpu/telemetry.py``, its in-memory half only:
+Counterpart of ``veles_tpu/telemetry.py``:
 
 - **Counter**: a monotonic number (``counter("fleet.requests").inc()``);
   float increments accumulate seconds or bytes.
@@ -15,26 +15,55 @@ Counterpart of ``veles_tpu/telemetry.py``, its in-memory half only:
   snapshot_buckets` / :meth:`Histogram.delta_quantile` give the
   windowed quantile the fleet's hedge threshold and the batcher's
   adaptive wait read.
+- **Spans** (``with span("ga.cohort_train"):``) nest through a
+  thread-local stack (:func:`span_stack`) and feed the histogram of the
+  same name; ``journal=True`` also appends an event.  A span reads the
+  host's clock only: it never waits for the device.
 - :func:`event` appends a state transition to an in-memory ring that
-  :func:`recent_events` reads.
+  :func:`recent_events` reads, and to the journal.
 
 One process-wide :class:`Registry`; :func:`snapshot` is what a hive
 answers ``op=stats`` with (``counters``, ``gauges``, ``histograms``),
 and :func:`merge_snapshot` folds another process's in.
 
-Left out here: the journal file and ``$VELES_METRICS_DIR`` persistence
-(``configure``, ``flush``), ``span``, trace lineage and
-``adopt_child_snapshot``.  A lock is a plain ``threading.Lock``.
+**Persistence**, in the reference's formats, so its reader
+(``veles_tpu/obs.py``, ``scripts/obs_report.py``) reads a port's dir:
+when ``$VELES_METRICS_DIR`` is set, or :func:`configure` ran (which
+exports the variable, so every child process inherits it), each process
+appends its events to ``journal-<pid>.jsonl`` (flushed per line, except
+the per-request ``trace.*`` family, which rides the file buffer) and
+writes its cumulative snapshot to ``metrics-<pid>.json`` with a
+tempfile and ``os.replace``, so a reader never sees a torn file.  A
+snapshot is written by :func:`flush` (explicit, and at exit), and by the
+throttled :func:`maybe_flush` (at most every :data:`FLUSH_EVERY`
+seconds, on a thread of its own, never on the emitting one).
+:func:`adopt_child_snapshot` folds a dead child's snapshot into this
+registry and renames its file ``*.merged``.  :func:`set_enabled`
+(False) reduces every call to one module-attribute load and a falsy
+check.  Telemetry never takes down a run: a file error drops the sink
+and the counting goes on in memory.
+
+Left for the tracing slice: the lock witness (a lock here is a plain
+``threading.Lock``) and trace lineage, which :func:`set_trace_provider`
+is the seam for.
 """
 
 from __future__ import annotations
 
+import atexit
+import contextlib
+import json
 import math
 import os
+import tempfile
 import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
+
+from veles_tpu_torch import knobs
+
+ENV_DIR = knobs.METRICS_DIR
 
 #: histogram bucket layout: log-spaced, 32 per decade over
 #: [10^LOG_LO, 10^LOG_HI); bucket 0 is the underflow bin (x < lo,
@@ -44,6 +73,20 @@ LOG_HI = 7
 PER_DECADE = 32
 NBUCKETS = (LOG_HI - LOG_LO) * PER_DECADE
 _STEP = 10.0 ** (1.0 / PER_DECADE)
+
+#: the kill switch: when False every record, inc and event is one
+#: attribute load and a falsy check
+_enabled = True
+
+
+def set_enabled(on: bool) -> None:
+    global _enabled
+    _enabled = bool(on)
+
+
+def enabled() -> bool:
+    return _enabled
+
 
 class Counter:
     """Monotonic counter (int or float increments)."""
@@ -56,6 +99,8 @@ class Counter:
         self._lock = threading.Lock()
 
     def inc(self, n: float = 1) -> None:
+        if not _enabled:
+            return
         with self._lock:
             self.value += n
 
@@ -74,6 +119,8 @@ class Gauge:
         self.value: Optional[float] = None
 
     def set(self, v: float) -> None:
+        if not _enabled:
+            return
         self.value = v
 
     def _reset(self) -> None:
@@ -113,6 +160,8 @@ class Histogram:
         return 1 + min(NBUCKETS - 1, max(0, i))
 
     def record(self, x: float, exemplar: Optional[str] = None) -> None:
+        if not _enabled:
+            return
         x = float(x)
         with self._lock:
             self.count += 1
@@ -293,8 +342,17 @@ class Registry:
 #: the process registry
 _registry = Registry()
 
-#: in-memory ring of recent events
+#: in-memory ring of recent events (read even with no metrics dir)
 _recent: "deque[Dict[str, Any]]" = deque(maxlen=4096)
+
+_dir: Optional[str] = knobs.get(ENV_DIR) or None
+_journal_file = None
+_journal_lock = threading.Lock()
+_last_flush = 0.0
+#: seconds between the throttled snapshot writes
+FLUSH_EVERY = 5.0
+
+_tls = threading.local()
 
 
 def counter(name: str) -> Counter:
@@ -309,14 +367,96 @@ def histogram(name: str) -> Histogram:
     return _registry.histogram(name)
 
 
+def metrics_dir() -> Optional[str]:
+    return _dir
+
+
+def _close_journal() -> None:
+    global _journal_file
+    with _journal_lock:
+        if _journal_file is not None:
+            try:
+                _journal_file.close()
+            except OSError:
+                pass
+            _journal_file = None
+
+
+def configure(metrics_dir: Optional[str]) -> None:
+    """Point persistence at ``metrics_dir`` (None tears it down), and
+    export ``$VELES_METRICS_DIR`` so child processes inherit it."""
+    global _dir
+    _close_journal()
+    _dir = metrics_dir or None
+    if _dir:
+        os.makedirs(_dir, exist_ok=True)
+        os.environ[ENV_DIR] = _dir
+    else:
+        os.environ.pop(ENV_DIR, None)
+
+
+def _journal(rec: Dict[str, Any]) -> None:
+    global _journal_file
+    if not _dir:
+        return
+    with _journal_lock:
+        if _journal_file is None:
+            try:
+                os.makedirs(_dir, exist_ok=True)
+                _journal_file = open(
+                    os.path.join(_dir, f"journal-{os.getpid()}.jsonl"),
+                    "a", buffering=1 << 16)
+            except OSError:
+                return
+        try:
+            _journal_file.write(json.dumps(rec) + "\n")
+            # a notable event reaches the disk at once (a drill polls
+            # live journals); the per-request trace.* family rides the
+            # buffer until the next notable event or flush
+            if not str(rec.get("event", "")).startswith("trace."):
+                _journal_file.flush()
+        except (OSError, ValueError):
+            # a full or vanished disk: drop the sink, keep the ring
+            try:
+                _journal_file.close()
+            except OSError:
+                pass
+            _journal_file = None
+
+
+#: a zero-argument callable returning (trace_id, span_id) while a
+#: sampled trace context is parked on this thread, else None
+_trace_provider: Optional[Any] = None
+
+
+def set_trace_provider(fn: Optional[Any]) -> None:
+    global _trace_provider
+    _trace_provider = fn
+
+
 def event(name: str, **fields: Any) -> None:
-    """Keep one state-transition event in the in-memory ring, stamped
-    with the wall clock (``ts``) and the monotonic one (``mono``)."""
+    """Record one state-transition event in the ring and the journal,
+    stamped with the wall clock (``ts``) and the monotonic one
+    (``mono``: ``veles_tpu/obs.py`` interleaves processes by it), and
+    with ``trace``/``span`` where a trace provider names them (the
+    caller's own fields win)."""
+    if not _enabled:
+        return
     rec: Dict[str, Any] = {"ts": round(time.time(), 3),
                            "mono": round(time.monotonic(), 6),
                            "event": name}
     rec.update(fields)
+    if _trace_provider is not None:
+        try:
+            t = _trace_provider()
+        except Exception:  # noqa: BLE001 — tracing never breaks the
+            t = None       # journal
+        if t is not None:
+            rec.setdefault("trace", t[0])
+            rec.setdefault("span", t[1])
     _recent.append(rec)
+    _journal(rec)
+    _maybe_flush()
 
 
 def recent_events(name: Optional[str] = None) -> List[Dict[str, Any]]:
@@ -324,6 +464,38 @@ def recent_events(name: Optional[str] = None) -> List[Dict[str, Any]]:
     if name is not None:
         evs = [e for e in evs if e.get("event") == name]
     return evs
+
+
+@contextlib.contextmanager
+def span(name: str, journal: bool = False, **fields: Any):
+    """Time a block (host clock) into ``histogram(name)``.  Spans nest
+    through a thread-local stack; ``journal=True`` also emits an event
+    at exit with the seconds, the parent span and the caller's
+    fields."""
+    if not _enabled:
+        yield name
+        return
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    parent = stack[-1] if stack else None
+    stack.append(name)
+    t0 = time.perf_counter()
+    try:
+        yield name
+    finally:
+        dt = time.perf_counter() - t0
+        if stack and stack[-1] == name:
+            stack.pop()
+        histogram(name).record(dt)
+        if journal:
+            event(name, seconds=round(dt, 6), parent=parent,
+                  depth=len(stack), **fields)
+
+
+def span_stack() -> List[str]:
+    """The current thread's open spans, outermost first."""
+    return list(getattr(_tls, "stack", []) or [])
 
 
 def snapshot() -> Dict[str, Any]:
@@ -337,7 +509,99 @@ def merge_snapshot(snap: Dict[str, Any]) -> None:
     _registry.merge_snapshot(snap)
 
 
+def flush() -> Optional[str]:
+    """Write this process's cumulative snapshot to ``metrics-<pid>.json``
+    (a tempfile, then ``os.replace``) and push the journal's buffer to
+    the disk.  None, and nothing written, without a metrics dir; never
+    raises on a file error."""
+    global _last_flush
+    d = _dir
+    if not d:
+        return None
+    try:
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"metrics-{os.getpid()}.json")
+        fd, tmp = tempfile.mkstemp(
+            dir=d, prefix=os.path.basename(path) + ".", suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(snapshot(), f)
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            raise
+        with _journal_lock:
+            if _journal_file is not None:
+                _journal_file.flush()
+        _last_flush = time.monotonic()
+        return path
+    except OSError:
+        return None
+
+
+def _maybe_flush() -> None:
+    # the snapshot write (1-3 ms) runs on a thread of its own: paid on
+    # the emitting thread it would land in a serving request's latency
+    global _last_flush
+    if _dir and time.monotonic() - _last_flush > FLUSH_EVERY:
+        _last_flush = time.monotonic()   # even on failure: no storms
+
+        def _bg() -> None:
+            try:
+                flush()
+            except Exception:  # noqa: BLE001 — interpreter teardown
+                pass
+
+        threading.Thread(target=_bg, daemon=True,
+                         name="telemetry-flush").start()
+
+
+def maybe_flush() -> None:
+    """The throttled flush (at most once per :data:`FLUSH_EVERY`
+    seconds) a long-lived process calls from its heartbeat loop: a
+    SIGKILLed one leaves a snapshot at most a heartbeat and
+    :data:`FLUSH_EVERY` old."""
+    _maybe_flush()
+
+
+def adopt_child_snapshot(pid: int) -> bool:
+    """Merge a child process's ``metrics-<pid>.json`` into this registry
+    and rename it ``*.merged``, so a reader of the dir does not count it
+    twice.  True when a file was merged."""
+    d = _dir
+    if not d:
+        return False
+    path = os.path.join(d, f"metrics-{pid}.json")
+    if not os.path.isfile(path):
+        return False
+    try:
+        with open(path) as f:
+            snap = json.load(f)
+    except (OSError, ValueError):
+        return False
+    merge_snapshot(snap)
+    try:
+        os.replace(path, path + ".merged")
+    except OSError:
+        pass
+    return True
+
+
 def reset() -> None:
-    """Zero every metric in place and clear the event ring."""
+    """Zero every metric in place, clear the event ring, drop the
+    journal handle and re-read ``$VELES_METRICS_DIR`` (the tests' clean
+    slate); references held elsewhere stay wired."""
+    global _dir, _last_flush
     _registry.reset()
     _recent.clear()
+    _close_journal()
+    _dir = knobs.get(ENV_DIR) or None
+    _last_flush = 0.0
+    if getattr(_tls, "stack", None):
+        _tls.stack = []
+
+
+atexit.register(flush)
