@@ -205,9 +205,13 @@ beside it.  It imports nothing of JAX and nothing of the JAX package.
    labeled stream one request at a time with the learner suspended, then
    resumed, p50 and p99 of each, learner-on p99 within max(8 x off,
    off + 250 ms); the hive's launches over its life.  Last, drift through
-   the CLI on the tier-1 hive test's small model: promoted with the
-   shadow ahead by the margin, the answers after it better than the
-   frozen ensemble's on the drifted truth.
+   the CLI on the tier-1 hive test's small model, with a metrics dir and
+   each request carrying a context from ``trace.mint()``: promoted with
+   the shadow ahead by the margin, the answers after it better than the
+   frozen ensemble's on the drifted truth, and the promotion's
+   ``flightrec-<pid>-<n>-promote.json`` holding ``gate.promote`` with
+   ``lineage_n`` > 0, every trace id of the promotion's lineage one the
+   client minted.
 24. Fleet: phase 3's package from an in-process ``FleetRouter`` of 2
    replicas on the card (``VELES_ONLINE=1``, ``--max-batch 64``, a
    16 GiB residency budget each), the learner rung engaged before any
@@ -229,18 +233,36 @@ beside it.  It imports nothing of JAX and nothing of the JAX package.
    kill), each pid's ``serve.requests`` what the phase sent it, each
    cleanly shut-down pid's journal ``serve.ready`` and, last,
    ``serve.shutdown``, and the router's snapshot its ``fleet.*``
-   counters at shutdown.  Then the tier-1 fleet model (6x6x1 -> 12 -> 3): a healthy
+   counters at shutdown.  Traces, at ``$VELES_TRACE_SAMPLE`` 1 and read
+   with ``veles_tpu_torch/obs.py`` only: every request of the burst one
+   whole trace (``trace.request``, a ``trace.leg``, ``trace.serve``, a
+   ``trace.batch`` that links it, events of two pids, all four
+   critical-path components: their medians and maxima in ms), checked
+   before the kill (the victim's trace lines reach its file with its
+   periodic flush) and after shutdown; each retried request of the
+   failover window one trace with legs on two replicas; the router's
+   ``fleet.request_seconds`` exemplars naming traces that assemble; a
+   ``sigterm`` dump for each replica pid that ended on a SIGTERM.  Then
+   the tier-1 fleet model (6x6x1 -> 12 -> 3): a healthy
    fleet and one whose replica 0 is armed with ``hive.slow_dispatch``
    (6 dispatches of 1.5 s), driven side by side by the same closed-loop
    stream (4 clients each, 12 s after a 2 s ramp): on the slow one a
    hedge, an ejection and a reinstatement, and its p99 within 1.5x the
-   healthy one's; then a 20 s open-loop day (``traffic.generate``) on
+   healthy one's, and the ejection's ``flightrec-<pid>-<n>-ejection.json``
+   in the router's dir with a ``sentinel.eject`` entry for replica 0;
+   with the healthy fleet alone on the card, the reference's tracing
+   overhead pair (one request at a time, a burn-in at trace rate 0, 9
+   pairs of 4 s windows at 1 and 0, the median per-pair p99 ratio within
+   1.05); then a 20 s open-loop day (``traffic.generate``) on
    the healthy one under ``FleetAutoscaler`` over 1-3 replicas with the
    reference's default thresholds, one outcome per arrival and no error,
-   the replica count over time and every action with its pressure; and
-   a fleet whose replica 0 is armed with ``hive.garbage_response``:
+   the replica count over time and every action with its pressure, and a
+   ``sigterm`` dump for each retired replica; and
+   a fleet whose replica 0 is armed with ``hive.garbage_response``, its
+   replicas under the lock witness (``$VELES_LOCK_WITNESS``):
    integrity strikes, an ejection, every answer the in-process
-   engine's.
+   engine's, a ``lockwitness-<pid>.json`` from each replica whose edges
+   hold no cycle and name only locks the port declares.
 25. Summary: each phase's wall seconds on a ``phases`` line (each also
    printed as it ends), then ``serve``, ``train``, ``stream``, ``preempt``, ``data``,
    ``mnist7``, ``cifar10``, ``quantized``, ``mnist_ae``, ``kohonen``,
@@ -250,9 +272,9 @@ beside it.  It imports nothing of JAX and nothing of the JAX package.
    minutes, the card line, the
    ``kernels`` line, then the device line last.
 
-``python3 chip_smoke.py --only fleet`` runs phase 1's build, phase 3's
-package and phase 24 alone, and prints the ``fleet`` line and no result
-lines.
+``python3 chip_smoke.py --only fleet`` (or ``online``, or
+``online,fleet``) runs phase 1's build, phase 3's package and phase 24
+(23, both) alone, and prints their JSON lines and no result lines.
 """
 
 from __future__ import annotations
@@ -4005,12 +4027,42 @@ def _drift_package(workdir: str):
         w.loader.original_labels.numpy()
 
 
+def _promote_lineage(metrics_dir: str, pid: int, minted: set) -> dict:
+    """The drift hive's promotion dump: ``flightrec-<pid>-<n>-promote.json``
+    in its metrics dir, whose ring holds ``gate.promote`` with
+    ``lineage_n`` > 0, and the journal's promotion events, whose lineage
+    holds only trace ids the client minted."""
+    import glob
+
+    from veles_tpu_torch import obs
+    dumps = sorted(glob.glob(os.path.join(
+        metrics_dir, f"flightrec-{pid}-*-promote.json")))
+    check(dumps, f"drift: no promote dump in {os.listdir(metrics_dir)}")
+    with open(dumps[0]) as f:
+        ring = json.load(f)["ring"]
+    gate = [e for e in ring if e.get("ev") == "gate.promote"]
+    check(gate and gate[0]["lineage_n"] > 0,
+          f"drift: the promote dump's gate entries {gate}")
+    _reg, _snaps, _journals, evs = obs.load_dir(metrics_dir)
+    promoted = [e for e in evs if e["event"] == "online.promoted"]
+    lineage = [t for e in promoted for t in e.get("lineage") or ()]
+    check(promoted and len(promoted[0]["lineage"] or ()) ==
+          gate[0]["lineage_n"] and lineage and set(lineage) <= minted,
+          f"drift: promotion lineage {lineage[:4]}... ({len(lineage)}), "
+          f"{len(set(lineage) - minted)} not minted by the client")
+    return {"dumps": len(dumps), "lineage_n": gate[0]["lineage_n"],
+            "promotions_journaled": len(promoted),
+            "lineage_ids": len(set(lineage))}
+
+
 def _online_drift(card: str, workdir: str) -> dict:
     """The tier-1 hive test's drift on the card through the CLI: labels
     rotated one class, so the frozen ensemble is consistently wrong; the
     learner must promote with the shadow ahead by the margin, and the
     answers after it must beat the frozen ensemble on the drifted
-    truth."""
+    truth.  Each request carries a context from ``trace.mint()``, and
+    the promotion's dump carries the lineage of those trace ids."""
+    from veles_tpu_torch import trace
     from veles_tpu_torch.backends import make_device
     from veles_tpu_torch.convert import params_from_jax
     from veles_tpu_torch.ops.fused import EnsembleEvalEngine
@@ -4021,11 +4073,14 @@ def _online_drift(card: str, workdir: str) -> dict:
         w.forwards, [params_from_jax(m["params"]) for m in members],
         make_device("cpu")).predict_proba(xs).argmax(-1)
     drifted = (ys + 1) % 3
+    metrics_dir = os.path.join(workdir, "drift_metrics")
+    minted = set()
     t0 = time.perf_counter()
     with open(os.path.join(workdir, "drift_hive.stderr"), "w") as err:
         client = HiveClient({"alpha": pkg}, backend="cuda", max_batch=8,
                             max_wait_ms=2, heartbeat_every=0, online=True,
-                            env=DRIFT_ENV, stderr=err, start_timeout=300)
+                            env=DRIFT_ENV, stderr=err, start_timeout=300,
+                            metrics_dir=metrics_dir)
         try:
             t_ready = time.perf_counter()
             i, row, first = 0, None, None
@@ -4033,8 +4088,10 @@ def _online_drift(card: str, workdir: str) -> dict:
                 for _ in range(8):
                     j = i % len(xs)
                     i += 1
+                    ctx = trace.mint()
+                    minted.add(ctx.trace_id)
                     a = client.request("alpha", xs[j][None],
-                                       label=[int(drifted[j])])
+                                       label=[int(drifted[j])], ctx=ctx)
                     check("probs" in a, f"drift: {a}")
                 row = client.learn()["alpha"]
                 if row["promotions"] >= 1 and first is None:
@@ -4052,6 +4109,7 @@ def _online_drift(card: str, workdir: str) -> dict:
                     == drifted[j]) for j in range(24))
         finally:
             client.close()
+    lineage = _promote_lineage(metrics_dir, client.pid, minted)
     wrong_frozen = int(np.sum(frozen[:24] != drifted[:24]))
     check(promo["shadow_error_pct"] <= promo["incumbent_error_pct"]
           - float(DRIFT_ENV["VELES_ONLINE_PROMOTE_MARGIN"]),
@@ -4064,6 +4122,7 @@ def _online_drift(card: str, workdir: str) -> dict:
             "requests": i, "ready_s": t_ready - t0, "learn": row,
             "last_promotion": promo, "served_right_of_24": right,
             "frozen_right_of_24": 24 - wrong_frozen,
+            "minted": len(minted), "lineage": lineage,
             "launches": stats["kernel_launches"]}
 
 
@@ -4116,7 +4175,9 @@ def online_phase(card: str, workdir: str) -> dict:
           f"{drift['last_promotion']['shadow_error_pct']}% vs incumbent "
           f"{drift['last_promotion']['incumbent_error_pct']}%; served "
           f"{drift['served_right_of_24']} of 24 right, the frozen "
-          f"ensemble {drift['frozen_right_of_24']}  [{card}]", flush=True)
+          f"ensemble {drift['frozen_right_of_24']}; promote dump lineage_n "
+          f"{drift['lineage']['lineage_n']}, every id one of the "
+          f"{drift['minted']} the client minted  [{card}]", flush=True)
     print(f"online: phase {out['minutes']:.2f} minutes", flush=True)
     return out
 
@@ -4138,6 +4199,15 @@ GRAY_P99_FACTOR = 1.5
 GRAY_CLIENTS, GRAY_WINDOW_S, GRAY_RAMP_S = 4, 12.0, 2.0
 GRAY_KW = dict(deadline_ms=8000, hedge_min_ms=60, hedge_budget=1.0,
                probe_interval=0.2, probe_ok=2, probe_backoff_cap=0.4)
+#: the tracing overhead pair on the healthy small fleet (the reference's
+#: method and bar, ``bench.py`` trace phase): one request at a time,
+#: windows of TRACE_WINDOW_S at trace rate 1 and 0, TRACE_PAIRS pairs, the
+#: median of the per-pair p99 ratios at most TRACE_OVERHEAD_BAR.  The
+#: reference's 5 pairs of 2 s put the p99 at about the third-slowest of a
+#: window's ~260 requests on the card, where the fleet's own periodic
+#: work (stats polls, heartbeats, flushes) sets it: longer windows and
+#: more pairs, as the method allows, steady the median
+TRACE_WINDOW_S, TRACE_PAIRS, TRACE_OVERHEAD_BAR = 4.0, 9, 1.05
 #: the open-loop day on the small model
 OPEN_LOOP = dict(duration_s=20.0, peak_rps=150.0, swing=10.0,
                  burst_every_s=6.0, burst_len_s=2.0, burst_mult=2.0,
@@ -4278,6 +4348,134 @@ def _fleet_metrics(metrics_dir: str, pids: list, expect: dict,
             "router_fleet_counters": len(on_disk)}
 
 
+#: the four components a whole request's critical path splits into
+TRACE_PARTS = ("pre_route_s", "wire_s", "batch_wait_s", "dispatch_s")
+
+
+def _trace_ids(t0: float, t1: float) -> list:
+    """Trace ids of the requests this process's router answered between
+    the monotonic times ``t0`` and ``t1`` (its ``trace.request`` events
+    in the in-memory ring)."""
+    from veles_tpu_torch import events, telemetry
+    return [e["trace"] for e in telemetry.recent_events(
+        events.EV_TRACE_REQUEST) if t0 <= e["mono"] <= t1]
+
+
+def _trace_gaps(tevs: list, tid: str) -> list:
+    """What a request's assembled trace lacks: its ``trace.request``, a
+    ``trace.leg``, a ``trace.serve``, a ``trace.batch`` that links it,
+    events from two processes, a critical-path component.  Empty when
+    the trace is whole."""
+    from veles_tpu_torch import obs
+    names = {e.get("event") for e in tevs}
+    gaps = [n for n in ("trace.request", "trace.leg", "trace.serve")
+            if n not in names]
+    if not any(e.get("event") == "trace.batch" and tid in
+               [lk.get("trace") for lk in e.get("links") or ()]
+               for e in tevs):
+        gaps.append("trace.batch")
+    if len({e.get("_pid") for e in tevs}) < 2:
+        gaps.append("two pids")
+    cp = obs.critical_path(tevs) if tevs else {}
+    return gaps + [k for k in TRACE_PARTS if cp.get(k) is None]
+
+
+def _wait_traced(metrics_dir: str, tids: list,
+                 timeout: float = 30.0) -> None:
+    """Poll the fleet's merged journals until every trace of ``tids`` is
+    whole: a replica's ``trace.*`` lines reach its file with its periodic
+    flush (at most a heartbeat and ``telemetry.FLUSH_EVERY`` after)."""
+    from veles_tpu_torch import obs, telemetry
+    deadline = time.monotonic() + timeout
+    while True:
+        telemetry.flush()
+        traces = obs.assemble_traces(obs.load_tree(metrics_dir)[1])
+        gaps = {t: _trace_gaps(traces.get(t, []), t) for t in tids}
+        missing = {t: g for t, g in gaps.items() if g}
+        if not missing:
+            return
+        check(time.monotonic() < deadline,
+              f"fleet: {len(missing)} of {len(tids)} traces incomplete "
+              f"after {timeout} s, e.g. {list(missing.items())[:2]}")
+        time.sleep(0.5)
+
+
+def _sigterm_dumps(metrics_dir: str) -> dict:
+    """Each replica pid whose journal ends its serving on a SIGTERM (a
+    retired replica) left ``flightrec-<pid>-<n>-sigterm.json`` beside
+    it."""
+    import glob
+
+    from veles_tpu_torch import obs
+    pids = []
+    for _idx, d in obs.fleet_replica_dirs(metrics_dir):
+        _reg, _snaps, _journals, evs = obs.load_dir(d)
+        for pid in sorted({e["_pid"] for e in evs}):
+            downs = [e for e in evs if e["_pid"] == pid
+                     and e["event"] == "serve.shutdown"]
+            if downs and downs[-1].get("reason") == "SIGTERM":
+                pids.append(pid)
+                check(glob.glob(os.path.join(
+                    d, f"flightrec-{pid}-*-sigterm.json")),
+                      f"fleet: pid {pid} ended on a SIGTERM and left no "
+                      f"sigterm dump in {d}")
+    return {"sigterm_pids": len(pids)}
+
+
+def _fleet_traces(metrics_dir: str, healthy: list, failover: list,
+                  retried: int) -> dict:
+    """After shutdown, the fleet's journals merged with the port's reader
+    (``veles_tpu_torch/obs.py``): every request of the healthy burst a
+    whole trace (:func:`_trace_gaps`) and its critical path's medians
+    and maxima in ms; in the failover window, each retried request's
+    trace holds its died leg and its winning leg on two replicas under
+    one trace id; the router's ``fleet.request_seconds`` exemplars name
+    traces that assemble; the SIGTERM dumps."""
+    from veles_tpu_torch import obs
+    reg, merged = obs.load_tree(metrics_dir)
+    traces = obs.assemble_traces(merged)
+    gaps = {t: _trace_gaps(traces.get(t, []), t) for t in healthy}
+    bad = {t: g for t, g in gaps.items() if g}
+    check(len(healthy) == FLEET_REQUESTS and not bad,
+          f"fleet: {len(bad)} of {len(healthy)} healthy traces incomplete "
+          f"after shutdown, e.g. {list(bad.items())[:2]}")
+    cps = [obs.critical_path(traces[t]) for t in healthy]
+    split = {}
+    for k in TRACE_PARTS + ("total_s",):
+        ms = [1e3 * cp[k] for cp in cps]
+        split[k[:-2] + "_ms"] = {"median": float(np.median(ms)),
+                                 "max": float(np.max(ms))}
+    # a retried request: two routed attempts (legs that are not hedge
+    # copies), the first died
+    again = []
+    for t in failover:
+        legs = [e for e in traces.get(t, [])
+                if e.get("event") == "trace.leg"]
+        if sum(not e["hedge"] for e in legs) >= 2:
+            again.append(legs)
+    check(len(failover) == FLEET_KILL_INFLIGHT and len(again) == retried
+          and all(len({e["replica"] for e in legs}) == 2
+                  and any(e["verdict"] == "died" for e in legs)
+                  and sum(bool(e["winner"]) for e in legs) == 1
+                  for legs in again),
+          f"fleet: {len(again)} failover traces with two attempts, "
+          f"{retried} retried: "
+          f"{[[(e['replica'], e['verdict']) for e in lg] for lg in again]}")
+    ex = obs.tail_exemplars(reg, "fleet.request_seconds")
+    named = [t for _e, t in ex if not _trace_gaps(traces.get(t, []), t)
+             or t in failover]
+    check(ex and named, f"fleet: tail exemplars {ex} name no trace that "
+          f"assembles")
+    return {"healthy_whole": len(healthy) - len(bad),
+            "healthy": len(healthy),
+            "pids": len({e.get("_pid") for e in merged}),
+            "critical_path": split, "failover_retried": len(again),
+            "tail_exemplars": len(ex), "tail_assembled": len(named),
+            "sigterm": _sigterm_dumps(metrics_dir),
+            "assembled": len(traces)}
+
+
+
 def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
     """Steps 1-3: full-width AlexNet from 2 replicas on the card, with a
     metrics dir: spawn (each replica warms up before its hello), the
@@ -4349,8 +4547,10 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
         hedges0 = telemetry.counter("fleet.hedge.issued").value
         rows = _alexnet_rows(FLEET_REQUESTS, SEED + 301)
         t_burst = time.perf_counter()
+        m_burst = time.monotonic()
         answers, lat = _burst(router, "alexnet", rows, FLEET_THREADS)
         burst_s = time.perf_counter() - t_burst
+        healthy_tids = _trace_ids(m_burst, time.monotonic())
         st1 = [r.client.stats() for r in router.replicas]
         routed = [b - a for a, b in zip(routed0, router.routed_counts())]
         hedges = telemetry.counter("fleet.hedge.issued").value - hedges0
@@ -4405,6 +4605,8 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
         pre_kill = router.routed_counts()[1] + direct[1]
         _wait_flushed(os.path.join(metrics_dir, "replica-1"),
                       router.replicas[1].pid, pre_kill)
+        # and its trace lines of the burst: a SIGKILL loses a buffer
+        _wait_traced(metrics_dir, healthy_tids)
 
         # step 2: SIGKILL replica 1 with FLEET_KILL_INFLIGHT in flight
         retries0 = telemetry.counter("fleet.retries").value
@@ -4422,6 +4624,7 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
 
         ts = [threading.Thread(target=one, args=(i,))
               for i in range(FLEET_KILL_INFLIGHT)]
+        m_failover = time.monotonic()
         for t in ts:
             t.start()
         deadline = time.monotonic() + 60
@@ -4436,6 +4639,7 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
             t.join(600)
         check(not errs and len(got) == FLEET_KILL_INFLIGHT,
               f"fleet: failover requests raised {errs[:3]}")
+        failover_tids = _trace_ids(m_failover, time.monotonic())
         for i in range(FLEET_KILL_INFLIGHT):
             _check_crc(got[i], 1, f"fleet: failover request {i}")
         retried = telemetry.counter("fleet.retries").value - retries0
@@ -4513,6 +4717,10 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
                   "fleet: no shadow step after the rung was released")
             time.sleep(0.5)
         time.sleep(1.0)
+        # the counts are read with the learners at rest: a step under way
+        # has launched its kernels before it counts itself
+        router.apply_degradation("learner", True, cause="step 3 count")
+        time.sleep(1.0)
         st_r = [r.client.stats() for r in router.replicas]
         steps = [s["online"]["steps"] for s in st_r]
         grown = [s["kernel_launches"]["lrn_bwd"] - b
@@ -4522,8 +4730,10 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
         check(grown == [n_norm * k for k in steps] and
               (n_norm == 0 or sum(grown) > 0),
               f"fleet: lrn_bwd grew {grown} in {steps} steps")
-        check(not any(s["online"]["suspended"] for s in st_r),
-              f"fleet: still suspended {[s['online'] for s in st_r]}")
+        router.apply_degradation("learner", False, cause="step 3 count")
+        st_l = [r.client.stats() for r in router.replicas]
+        check(not any(s["online"]["suspended"] for s in st_l),
+              f"fleet: still suspended {[s['online'] for s in st_l]}")
         routed_final = router.routed_counts()
         # a probe of an ejected replica reaches it outside the routing
         probes = telemetry.counter("fleet.probe.sent").value
@@ -4538,6 +4748,8 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
     expect = {pids[0][0]: (sent0, sent0 + probes),
               pid1: (pre_kill, pre_kill + FLEET_KILL_INFLIGHT),
               pids[1][1]: (sent_respawn, sent_respawn + probes)}
+    traces = _fleet_traces(metrics_dir, healthy_tids, failover_tids,
+                           retried)
     metrics = _fleet_metrics(metrics_dir, pids, expect, (pid1, kill_wall),
                              routed_fleet)
     lat_ms = sorted(lat.values())
@@ -4545,7 +4757,7 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
         "up_s": up_s, "spawn_to_hello_s": spawn_s,
         "first_answer_s": first_s,
         "first_dispatch_gauge_s": gauges, "warmup": warmups,
-        "metrics": metrics,
+        "metrics": metrics, "traces": traces,
         "requests": FLEET_REQUESTS, "threads": FLEET_THREADS,
         "burst_s": burst_s, "routed": routed, "dispatches": dispatches,
         "lrn_fwd_launches": launches,
@@ -4687,6 +4899,101 @@ def _open_loop_day(router) -> dict:
                 "up_sustain_s", "down_sustain_s", "cooldown_s")}}
 
 
+def _trace_overhead(router) -> dict:
+    """The reference's overhead pair on ``router`` alone on the card: one
+    request at a time, a burn-in window at ``$VELES_TRACE_SAMPLE`` 0, then
+    TRACE_PAIRS pairs of windows at 1 and 0; the median of the per-pair
+    p99 ratios within TRACE_OVERHEAD_BAR."""
+    from veles_tpu_torch import knobs
+    row = np.random.default_rng(SEED + 600).standard_normal(
+        (1, 6, 6, 1)).astype(np.float32)
+    prev = os.environ.get(knobs.TRACE_SAMPLE)
+
+    def window(rate) -> list:
+        os.environ[knobs.TRACE_SAMPLE] = str(rate)
+        lats = []
+        t_end = time.perf_counter() + TRACE_WINDOW_S
+        while time.perf_counter() < t_end:
+            t0 = time.perf_counter()
+            a = router.request("alpha", row, timeout=30)
+            lats.append(time.perf_counter() - t0)
+            check("probs" in a, f"trace overhead: {a}")
+        return lats
+
+    try:
+        for _ in range(16):
+            check("probs" in router.request("alpha", row, timeout=30),
+                  "trace overhead: a warm request failed")
+        window(0)
+        pairs = []
+        for _ in range(TRACE_PAIRS):
+            on, off = window(1), window(0)
+            pairs.append((1e3 * float(np.percentile(on, 99)),
+                          1e3 * float(np.percentile(off, 99)),
+                          len(on), len(off)))
+    finally:
+        if prev is None:
+            os.environ.pop(knobs.TRACE_SAMPLE, None)
+        else:
+            os.environ[knobs.TRACE_SAMPLE] = prev
+    ratio = float(np.median([p1 / p0 for p1, p0, _, _ in pairs]))
+    check(ratio <= TRACE_OVERHEAD_BAR,
+          f"trace overhead: p99 ratio on/off {ratio:.3f} over "
+          f"{TRACE_OVERHEAD_BAR}: {pairs}")
+    return {"p99_ratio": ratio, "pairs": pairs,
+            "window_s": TRACE_WINDOW_S}
+
+
+def _ejection_dump(metrics_dir: str, replica: int) -> dict:
+    """This process's router left ``flightrec-<pid>-<n>-ejection.json``
+    whose ring holds a ``sentinel.eject`` entry for ``replica``."""
+    import glob
+    dumps = sorted(glob.glob(os.path.join(
+        metrics_dir, f"flightrec-{os.getpid()}-*-ejection.json")))
+    hits = []
+    for path in dumps:
+        with open(path) as f:
+            ring = json.load(f)["ring"]
+        hits += [e for e in ring if e.get("ev") == "sentinel.eject"
+                 and e.get("replica") == replica]
+    check(hits, f"gray: no ejection dump with replica {replica}'s "
+          f"sentinel.eject among {[os.path.basename(p) for p in dumps]}")
+    return {"dumps": len(dumps), "entries": len(hits)}
+
+
+def _witnessed(metrics_dir: str, pids: list) -> dict:
+    """Each witnessed replica pid left ``lockwitness-<pid>.json``; the
+    union of their edges has no cycle, and every lock name in it is one
+    the port declares (``witness.LOCK_NAMES``)."""
+    from veles_tpu_torch import obs
+    from veles_tpu_torch.analysis import witness
+    have = {f for _i, d in obs.fleet_replica_dirs(metrics_dir)
+            for f in os.listdir(d) if f.startswith("lockwitness-")}
+    check({f"lockwitness-{p}.json" for p in pids} <= have,
+          f"witness: snapshots {sorted(have)}, replica pids {pids}")
+    edges = witness.read_snapshots(metrics_dir)
+    graph = {}
+    for a, b in edges:
+        graph.setdefault(a, set()).add(b)
+    state = {}
+
+    def cyclic(n) -> bool:
+        state[n] = 1
+        for m in graph.get(n, ()):
+            if state.get(m) == 1 or (m not in state and cyclic(m)):
+                return True
+        state[n] = 2
+        return False
+
+    names = {n for e in edges for n in e}
+    check(edges and not any(n not in state and cyclic(n)
+                            for n in list(graph)),
+          f"witness: the edges {edges} hold a cycle (or none was seen)")
+    check(names <= witness.LOCK_NAMES,
+          f"witness: undeclared lock names {names - witness.LOCK_NAMES}")
+    return {"snapshots": len(have), "edges": edges}
+
+
 def _fleet_small(card: str, workdir: str) -> dict:
     """Steps 4 and 5 on the tier-1 fleet model: a healthy fleet and one
     whose replica 0 dispatches slowly, driven side by side by the same
@@ -4703,6 +5010,8 @@ def _fleet_small(card: str, workdir: str) -> dict:
 
     sub = os.path.join(workdir, "fleet_small")
     os.makedirs(sub, exist_ok=True)
+    #: the healthy and the gray fleet's (one router process: one dir)
+    small_dir = os.path.join(sub, "metrics")
     pkg = _drift_package(sub)[0]
     device = make_device("cuda")
     model = load_model_package("alpha", pkg, device,
@@ -4717,10 +5026,12 @@ def _fleet_small(card: str, workdir: str) -> dict:
     fleets = []
     try:
         with ThreadPoolExecutor(2) as tp:
-            futs = [tp.submit(_small_fleet, pkg, sub, "healthy"),
+            futs = [tp.submit(_small_fleet, pkg, sub, "healthy",
+                              metrics_dir=small_dir),
                     tp.submit(_small_fleet, pkg, sub, "gray",
                               env_overrides={0: {"VELES_FAULTS":
-                                                 GRAY_FAULT}}, **GRAY_KW)]
+                                                 GRAY_FAULT}},
+                              metrics_dir=small_dir, **GRAY_KW)]
             for f in futs:
                 try:
                     fleets.append(f.result())
@@ -4751,18 +5062,26 @@ def _fleet_small(card: str, workdir: str) -> dict:
               f"gray: p99 {g['p99_ms']:.2f} ms over {GRAY_P99_FACTOR}x "
               f"the healthy fleet's {out['healthy']['p99_ms']:.2f} ms")
         out["gray"] = dict(g, counters=d, sentinel=st,
-                           p99_ratio=g["p99_ms"] / out["healthy"]["p99_ms"])
+                           p99_ratio=g["p99_ms"] / out["healthy"]["p99_ms"],
+                           ejection_dump=_ejection_dump(small_dir, 0))
         gray.close()
+        # the healthy fleet alone on the card: tracing's cost
+        out["trace_overhead"] = _trace_overhead(healthy)
         out["open_loop"] = _open_loop_day(healthy)
         healthy.close()
+        out["sigterm"] = _sigterm_dumps(small_dir)
         # the corrupt replica
         s0 = ctr("fleet.integrity_strikes").value
+        # its replicas run under the lock witness (no latency is judged)
+        witness_dir = os.path.join(sub, "witness")
         fleets.append(_small_fleet(
             pkg, sub, "garbage", env_overrides={
                 0: {"VELES_FAULTS": "hive.garbage_response@times=*"}},
+            env={"VELES_LOCK_WITNESS": "1"}, metrics_dir=witness_dir,
             deadline_ms=8000, hedge_budget=0.0, probe_interval=0.25,
             probe_ok=2))
         router = fleets[-1][0]
+        witness_pids = [r.pid for r in router.replicas]
         gen = np.random.default_rng(SEED + 500)
         for i in range(20):
             x = gen.standard_normal((2, 6, 6, 1)).astype(np.float32)
@@ -4779,12 +5098,15 @@ def _fleet_small(card: str, workdir: str) -> dict:
               f"garbage: {strikes} integrity strikes, sentinel {st}")
         out["garbage"] = {"requests": 20, "integrity_strikes": strikes,
                           "sentinel": st}
+        router.close()
+        out["witness"] = _witnessed(witness_dir, witness_pids)
     finally:
         for f in fleets:
             if not isinstance(f, Exception):
                 f[0].close()
                 f[1].close()
         engine.release()
+        telemetry.configure(None)
     out["card"] = card
     return out
 
@@ -4848,6 +5170,26 @@ def fleet_phase(card: str, workdir: str) -> dict:
           f"{[(t, n) for t, n, _ in ol['replicas_over_time']]}; actions "
           f"{[(a['action'], a.get('replica', a.get('rung')), a['pressure_ms']) for a in ol['actions']]}"
           f"  [{card}]", flush=True)
+    tr, ov = alex["traces"], small["trace_overhead"]
+    cp = tr["critical_path"]
+    print(f"fleet: traces, healthy window {tr['healthy_whole']} of "
+          f"{tr['healthy']} whole across {tr['pids']} pids; critical path "
+          f"median / max ms: "
+          + ", ".join(f"{k[:-3]} {v['median']:.2f} / {v['max']:.2f}"
+                      for k, v in cp.items())
+          + f"; failover {tr['failover_retried']} retried traces with legs "
+          f"on 2 replicas; {tr['tail_exemplars']} tail exemplars, "
+          f"{tr['tail_assembled']} assembled; SIGTERM dumps "
+          f"{tr['sigterm']['sigterm_pids']} (AlexNet), "
+          f"{small['sigterm']['sigterm_pids']} (small)  [{card}]",
+          flush=True)
+    pairs = [(round(a, 3), round(b, 3), c, d) for a, b, c, d in ov["pairs"]]
+    print(f"fleet: trace overhead p99 ratio on/off {ov['p99_ratio']:.4f} "
+          f"(bar {TRACE_OVERHEAD_BAR}), pairs (p99 ms on, off, n on, n "
+          f"off) {pairs}"
+          f"; ejection dumps {small['gray']['ejection_dump']}; witness "
+          f"{small['witness']['snapshots']} snapshots, edges "
+          f"{small['witness']['edges']}, no cycle  [{card}]", flush=True)
     print(f"fleet: phase {out['minutes']:.2f} minutes", flush=True)
     return out
 
@@ -4957,16 +5299,19 @@ def main() -> int:
         print(f"phase {name}: {phases[name]:.1f} s", flush=True)
         return out
 
-    if sys.argv[1:] == ["--only", "fleet"]:
-        # development: phase 1's build, the served package and phase 24
-        # alone; no result lines
+    only = {"online": online_phase, "fleet": fleet_phase}
+    if len(sys.argv) == 3 and sys.argv[1] == "--only" \
+            and set(sys.argv[2].split(",")) <= set(only):
+        # development: phase 1's build, the served package and phases 23
+        # and / or 24 alone; no result lines
         try:
             timed("build", lrn_cuda.build)
             timed("package", build_package, workdir)
-            fleet = timed("fleet", fleet_phase, card_line(), workdir)
-            fleet["seconds"] = phases["fleet"]
+            for name in sys.argv[2].split(","):
+                res = timed(name, only[name], card_line(), workdir)
+                res["seconds"] = phases[name]
+                print(f"{name} " + json.dumps(res))
             print("phases " + json.dumps(phases))
-            print("fleet " + json.dumps(fleet))
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1

@@ -79,7 +79,9 @@ def test_every_port_module_imports_with_jax_blocked():
             "veles_tpu_torch.serve.sentinel",
             "veles_tpu_torch.serve.router",
             "veles_tpu_torch.serve.autoscale",
-            "veles_tpu_torch.serve.traffic"} <= set(names)
+            "veles_tpu_torch.serve.traffic", "veles_tpu_torch.trace",
+            "veles_tpu_torch.obs",
+            "veles_tpu_torch.analysis.witness"} <= set(names)
 
 
 @pytest.mark.parametrize("path", _port_sources(),

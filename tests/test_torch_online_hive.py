@@ -316,3 +316,55 @@ def test_poison_batch_fault_never_promotes(online_pkg, tmp_path):
     assert all(e["verdict"] != "promote" for e in evs
                if e["event"] == "online.gate")
     assert names[-1] == "serve.shutdown"
+
+
+def test_a_promotion_dumps_the_lineage_of_its_traffic(online_pkg,
+                                                      tmp_path):
+    """Drift sent with a sampled trace context a request: the promotion
+    journals the tap's lineage (trace ids the client minted), records
+    ``gate.promote`` with ``lineage_n`` in the flight recorder's ring
+    and dumps it (``flightrec-<pid>-<n>-promote.json``), as the
+    reference's gate does."""
+    import glob
+    import json
+
+    from veles_tpu_torch import obs, trace
+    xs, ys = online_pkg["xs"], online_pkg["ys"]
+    mdir = str(tmp_path / "m")
+    c = _client(online_pkg, metrics_dir=mdir)
+    minted = set()
+    try:
+        deadline = time.monotonic() + 40
+        i, row = 0, None
+        while time.monotonic() < deadline:
+            for _ in range(8):
+                ctx = trace.mint({"VELES_TRACE_SAMPLE": "1"})
+                minted.add(ctx.trace_id)
+                j = i % len(xs)
+                i += 1
+                r = c.request("alpha", xs[j][None],
+                              label=[_drifted(ys[j])], ctx=ctx)
+                assert "error" not in r, r
+            row = c.learn().get("alpha")
+            if row and row["promotions"] >= 1:
+                break
+            time.sleep(0.05)
+        assert row and row["promotions"] >= 1, row
+    finally:
+        c.close()
+    dumps = glob.glob(os.path.join(mdir, f"flightrec-{c.pid}-*-"
+                                         f"promote.json"))
+    assert dumps, os.listdir(mdir)
+    ring = json.load(open(sorted(dumps)[0]))["ring"]
+    gate = [e for e in ring if e["ev"] == "gate.promote"]
+    assert gate and 0 < gate[0]["lineage_n"] <= 32
+    # the hive admitted each request under a child of the client's span
+    hops = [e for e in ring if e["ev"] == "hive.request"]
+    assert hops and {e["trace"] for e in hops} <= minted
+    _reg, _snaps, _journals, evs = obs.load_dir(mdir)
+    promoted = [e for e in evs if e["event"] == "online.promoted"]
+    assert promoted and promoted[0]["lineage"]
+    assert len(promoted[0]["lineage"]) == gate[0]["lineage_n"]
+    assert set(promoted[0]["lineage"]) <= minted
+    serves = [e for e in evs if e["event"] == "trace.serve"]
+    assert serves and {e["trace"] for e in serves} <= minted

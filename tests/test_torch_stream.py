@@ -123,6 +123,8 @@ def test_prefetched_groups_are_the_right_rows_across_epochs():
         _check_rows(ld)
         assert ld._prefetch_future is not None   # the next one is coming
     assert ld.epoch_number == 3
+    # the last group is assembled on the prefetch thread: wait for it
+    ld._prefetch_future[1].result()
     # each group assembled once: the first in the firing, the rest ahead
     assert len(calls) == 3 * 3 + 2
     ld.stop()

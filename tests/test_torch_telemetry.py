@@ -233,6 +233,9 @@ def test_flush_writes_what_the_reference_reader_reads(tmp_path):
 def test_trace_family_rides_the_buffer_until_a_notable_event(tmp_path):
     d = str(tmp_path)
     telemetry.configure(d)
+    # the throttle window starts now: no background flush can push the
+    # buffer out between the two events below
+    telemetry.flush()
     jf = os.path.join(d, f"journal-{os.getpid()}.jsonl")
     telemetry.event("trace.hop", n=1)
     assert not os.path.exists(jf) or open(jf).read() == ""

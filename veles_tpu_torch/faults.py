@@ -260,10 +260,19 @@ def maybe_inject_child_crash(**ctx: Any) -> None:
     """``supervisor.child_crash``: SIGKILL this process (no handler, no
     snapshot, no atexit flush); the supervisor must resume the run from
     the newest intact snapshot or GA state.  Call sites pass
-    ``attempt`` / ``gen`` so a drill targets exactly one crash."""
+    ``attempt`` / ``gen`` so a drill targets exactly one crash.  The
+    flight recorder's ring is dumped first (``sigkill``): SIGKILL skips
+    atexit and the telemetry flush, so it is written now or never."""
     if fire("supervisor.child_crash", **ctx):
         import signal
         import sys
+        try:
+            # imported here: faults loads before almost everything, and
+            # a failed dump must not soften the crash being rehearsed
+            from veles_tpu_torch import trace
+            trace.dump("sigkill")
+        except Exception:  # noqa: BLE001
+            pass
         sys.stderr.flush()
         os.kill(os.getpid(), signal.SIGKILL)
 

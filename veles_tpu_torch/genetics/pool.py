@@ -35,7 +35,10 @@ telemetry snapshot after every job; when it dies or closes, the pool
 folds that snapshot into its own registry
 (``telemetry.adopt_child_snapshot``), so a GA run leaves one aggregate
 view.  Each job carries the generation (``gen``, from
-``$VELES_GA_GENERATION``) for fault qualifiers.
+``$VELES_GA_GENERATION``) for fault qualifiers, and a trace root minted
+for it (``veles_tpu_torch/trace.py``) on its wire message: the
+evaluator runs the job under a child span, so its journaled events carry
+the job's trace.  A cohort job carries its first member's.
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from veles_tpu_torch import events, knobs, telemetry
+from veles_tpu_torch import events, knobs, telemetry, trace
+from veles_tpu_torch.analysis import witness
 
 log = logging.getLogger("veles.genetics.pool")
 
@@ -324,7 +328,7 @@ class ChipEvaluatorPool:
             -> List[Dict[str, Any]]:
         """Fan the host-side staging hook out over the prep threads and
         draw wire ids — the CPU-parallel share of a generation."""
-        lock = threading.Lock()
+        lock = witness.lock("pool.prep")
         # the generation the optimizer exported: fault qualifiers and
         # the evaluator's log can target one
         gen = int(knobs.get(knobs.GA_GENERATION))
@@ -335,8 +339,13 @@ class ChipEvaluatorPool:
             with lock:   # id draw is the only shared state
                 self._next_id += 1
                 jid = self._next_id
-            return {"id": jid, "values": values, "seed": self.seed,
-                    "gen": gen}
+            job = {"id": jid, "values": values, "seed": self.seed,
+                   "gen": gen}
+            # each genome job is a trace root: the evaluator's spans
+            # journal under it, so a slow generation decomposes per
+            # genome across the process gap
+            trace.to_wire(job, trace.mint())
+            return job
 
         with ThreadPoolExecutor(self.workers) as pool:
             return list(pool.map(prep_one, values_list))
@@ -445,6 +454,9 @@ class ChipEvaluatorPool:
         job = {"id": jobs[0]["id"],
                "members": [j["values"] for j in jobs],
                "seed": self.seed, "gen": jobs[0]["gen"]}
+        # the cohort rides under its first member's trace root (one
+        # dispatch, one trace)
+        trace.to_wire(job, trace.from_wire(jobs[0]))
         timeout = self.timeout * max(1, len(values_list))
         for attempt in (1, 2):
             try:

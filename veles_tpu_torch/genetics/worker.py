@@ -285,7 +285,8 @@ def _evaluate_cohort(workflow_file, config_files, overrides, pristine, args,
 
 def serve(args) -> int:
     """The evaluator loop: one device for the whole GA run."""
-    from veles_tpu_torch import events, faults, telemetry
+    from veles_tpu_torch import events, faults, telemetry, trace
+    from veles_tpu_torch.analysis import witness
     from veles_tpu_torch.backends import make_device
     from veles_tpu_torch.config import root
 
@@ -302,7 +303,7 @@ def serve(args) -> int:
              "device": _device_name(device)}
     # one lock for every protocol line: the heartbeat thread must never
     # interleave bytes into a result
-    emit_lock = threading.Lock()
+    emit_lock = witness.lock("worker.emit")
 
     def emit(obj) -> None:
         with emit_lock:
@@ -340,10 +341,16 @@ def serve(args) -> int:
         seq += 1
         seed = int(job.get("seed", args.seed))
         telemetry.counter(events.CTR_EVALUATOR_JOBS).inc()
+        # the pool's per-job trace root off the wire: under a child span
+        # of it every journaled event of the job (its span included)
+        # carries the trace
+        wctx = trace.from_wire(job)
         try:
-            with telemetry.span(events.SPAN_EVALUATOR_JOB_SECONDS,
-                                journal=True, job=job["id"],
-                                cohort=len(job.get("members", [])) or None):
+            with trace.use(wctx.child() if wctx is not None else None), \
+                    telemetry.span(events.SPAN_EVALUATOR_JOB_SECONDS,
+                                   journal=True, job=job["id"],
+                                   cohort=len(job.get("members", []))
+                                   or None):
                 hang = faults.fire("evaluator.hang", **fault_ctx)
                 if hang:
                     # a stall mid-genome: heartbeats go on unless the

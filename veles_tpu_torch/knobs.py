@@ -10,7 +10,8 @@ down a run.
 This copy holds the knobs the port reads, with the reference's names,
 defaults and types: fault injection and supervision (``FAULTS*``,
 ``PREEMPT_*``, ``SUPERVISE_*``, ``RESUME_MANIFEST``), the GA's
-``GA_GENERATION``, the observability core's ``METRICS_DIR``, the
+``GA_GENERATION``, the observability core's ``METRICS_DIR``, tracing's
+``TRACE_SAMPLE``, ``FLIGHTREC_CAP`` and ``LOCK_WITNESS``, the
 device budgets (``HBM_BUDGET``, ``MAX_RESIDENT_BYTES``), the SOM's
 ``SOM_FUSED`` / ``SOM_SUPERSTEP``, the online-learning tier's, and the
 serving fleet's (the hive's ``SERVE_*``, ``FLEET_*`` and
@@ -121,6 +122,31 @@ METRICS_DIR = _knob(
     "Arm telemetry persistence: journal-<pid>.jsonl and atomic "
     "metrics-<pid>.json snapshots under this directory; inherited by "
     "children.")
+LOCK_WITNESS = _knob(
+    "VELES_LOCK_WITNESS", False, flag,
+    "Arm the lock-order witness: locks created through "
+    "analysis/witness.py record (holder -> acquired) pairs, flushed "
+    "as lockwitness-<pid>.json next to the telemetry snapshot; a "
+    "tier-1 test asserts every observed edge is declared in the "
+    "reference's analysis/lock_order.json or the port's own list.  "
+    "Off (the default) the factories return bare threading "
+    "primitives: zero overhead.")
+TRACE_SAMPLE = _knob(
+    "VELES_TRACE_SAMPLE", 1.0, float,
+    "Head-based trace sampling rate in [0, 1]: the fraction of fleet "
+    "requests minted with the sampled bit set (error diffusion, so "
+    "the rate is exact, not a coin flip).  A sampled request carries "
+    "trace/span/parent wire keys on every hop and journals trace.* "
+    "events for cross-process assembly; 0 disables causal tracing "
+    "(the overhead baseline).")
+FLIGHTREC_CAP = _knob(
+    "VELES_FLIGHTREC_CAP", 512, int,
+    "Entries the per-process flight-recorder ring retains (recent "
+    "spans and events, in memory, always armed).  The ring dumps to "
+    "flightrec-<pid>-<n>-<reason>.json in the metrics dir on "
+    "SIGTERM, injected SIGKILL, sentinel ejection, and promotion-"
+    "gate verdicts, so every ejection and rollback ships with the "
+    "trace tail that explains it.")
 
 # -- device budgets and the SOM ---------------------------------------------
 

@@ -8,7 +8,8 @@ Counterpart of ``veles_tpu/logger.py``: ``Logger`` gives a class
 record through :data:`event_hooks`; :func:`add_jsonl_sink` appends each
 record to a file as one JSON line (``ts``, ``level``, ``unit``,
 ``message``), the reference's run-event sink; and WARNING and above also
-land in the telemetry journal as ``log.record`` events.  The port's
+land in the telemetry journal as ``log.record`` events and in the
+flight recorder's ring as ``log.<level>`` entries.  The port's
 modules that log under ``veles_tpu_torch.*`` get the same hook and a
 WARNING console handler.
 """
@@ -81,15 +82,19 @@ def add_jsonl_sink(path: str) -> Callable[[], None]:
 
 
 def _journal_hook(record: logging.LogRecord) -> None:
-    """WARNING and above into the telemetry journal, so the run's
-    timeline holds its warnings beside its events."""
+    """WARNING and above into the telemetry journal and the flight
+    recorder's ring, so the run's timeline holds its warnings beside its
+    events."""
     if record.levelno < logging.WARNING:
         return
     try:
         from veles_tpu_torch import events as _ev
         from veles_tpu_torch import telemetry as _tm
+        from veles_tpu_torch import trace as _tr
         _tm.event(_ev.EV_LOG_RECORD, level=record.levelname,
                   unit=record.name, message=record.getMessage())
+        _tr.record("log." + record.levelname.lower(),
+                   unit=record.name, message=record.getMessage())
     except Exception:  # noqa: BLE001 — observability never takes down
         pass           # the unit that logged
 

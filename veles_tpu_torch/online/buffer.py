@@ -25,10 +25,11 @@ replacement.
 
 from __future__ import annotations
 
-import threading
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
+
+from veles_tpu_torch.analysis import witness
 
 
 class ReplayBuffer:
@@ -45,7 +46,7 @@ class ReplayBuffer:
         self.holdout_cap = max(1, self.capacity // 4)
         #: the model's AffineDequant (None = float-only storage)
         self.dequant = dequant
-        self._lock = threading.Lock()
+        self._lock = witness.lock("online.buffer")
         self._rng = np.random.default_rng(seed)
         self._rows: List[np.ndarray] = []
         self._labels: List[int] = []

@@ -22,7 +22,10 @@ step to the first request served on the promoted params, is armed at
 swap time through the engine's next-dispatch hook.
 
 Telemetry: each round journals ``online.gate``; a promotion and a
-rollback count and journal (``online.promoted`` with the swap's ms);
+rollback count and journal (``online.promoted`` with the swap's ms, both
+with the tap's lineage of trace ids), record ``gate.promote`` /
+``gate.rollback`` with ``lineage_n`` in the flight recorder's ring and
+dump it (``promote`` / ``rollback``);
 the first request served on promoted params sets
 ``online.time_to_serve``.  Fault point ``online.swap_mid_request``
 (``model``) stalls the promotion ``seconds`` (0.25) before its swap,
@@ -32,9 +35,9 @@ so a drill lands the swap among requests in flight.
 from __future__ import annotations
 
 import time
-from typing import Any
+from typing import Any, List, Optional
 
-from veles_tpu_torch import events, faults, telemetry
+from veles_tpu_torch import events, faults, telemetry, trace
 
 #: gate lifecycle states
 GATE_STATES = ("filling", "training", "promoted", "rolled_back")
@@ -92,8 +95,11 @@ class PromotionGate:
         """The state's index in :data:`GATE_STATES` (a gauge's value)."""
         return GATE_STATES.index(self.state)
 
-    def promote(self, stacked_params: Any, steps: int) -> None:
-        """Hand the shadow's device tree to the serving engine."""
+    def promote(self, stacked_params: Any, steps: int,
+                lineage: Optional[List[str]] = None) -> None:
+        """Hand the shadow's device tree to the serving engine.
+        ``lineage`` (the tap's recent trace ids) journals with the
+        promotion, so it traces back to the traffic that trained it."""
         f = faults.fire("online.swap_mid_request", model=self.model)
         if f:
             time.sleep(float(f.get("seconds", 0.25)))
@@ -121,9 +127,13 @@ class PromotionGate:
                         steps=steps, shadow_error_pct=self.shadow_error_pct,
                         incumbent_error_pct=self.incumbent_error_pct,
                         swap_ms=round(self.last_promotion["swap_ms"], 3),
-                        lineage=None)
+                        lineage=list(lineage) if lineage else None)
+        trace.record("gate.promote", model=self.model, steps=steps,
+                     lineage_n=len(lineage) if lineage else 0)
+        trace.dump("promote")
 
-    def rollback(self, steps: int) -> None:
+    def rollback(self, steps: int,
+                 lineage: Optional[List[str]] = None) -> None:
         self.rollbacks += 1
         self.state = "rolled_back"
         self.cooldown_until_step = steps + 4 * self.min_steps
@@ -131,4 +141,7 @@ class PromotionGate:
         telemetry.event(events.EV_ONLINE_ROLLBACK, model=self.model,
                         steps=steps, shadow_error_pct=self.shadow_error_pct,
                         incumbent_error_pct=self.incumbent_error_pct,
-                        lineage=None)
+                        lineage=list(lineage) if lineage else None)
+        trace.record("gate.rollback", model=self.model, steps=steps,
+                     lineage_n=len(lineage) if lineage else 0)
+        trace.dump("rollback")

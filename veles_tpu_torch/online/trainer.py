@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from veles_tpu_torch import events, knobs, telemetry
+from veles_tpu_torch.analysis import witness
 from veles_tpu_torch.engine import core as engine_core
 from veles_tpu_torch.online.buffer import ReplayBuffer
 from veles_tpu_torch.online.promote import PromotionGate
@@ -259,7 +260,7 @@ class OnlineLearner:
             knobs.get(knobs.ONLINE_DUTY, environ))))
         #: monotonic time before which the duty throttle vetoes a step
         self._rest_until = 0.0
-        self._lock = threading.Lock()
+        self._lock = witness.lock("online.learner")
         self._trainers: Dict[str, ShadowTrainer] = {}
         self._gates: Dict[str, PromotionGate] = {}
         #: EMA of the fetched step's wall ms: the SLO headroom input
@@ -470,14 +471,18 @@ class OnlineLearner:
         log.info("online: gate round for %r at step %d: shadow %.2f%% "
                  "incumbent %.2f%% -> %s", name, trainer.steps,
                  shadow_err, incumbent_err, verdict)
+        # the tap's trace-id tail: the verdict journals with the lineage
+        # of the traffic that produced these params
+        lineage = self.tap.lineage_sample(name)
         if verdict == "promote":
-            gate.promote(trainer.take_params(), trainer.steps)
+            gate.promote(trainer.take_params(), trainer.steps,
+                         lineage=lineage)
             # the host copies a spill restores from, off the swap path
             self.residency.refresh_host_params(name,
                                                trainer.host_members())
         elif verdict == "rollback":
             trainer.reset_from(engine.stacked_params)
-            gate.rollback(trainer.steps)
+            gate.rollback(trainer.steps, lineage=lineage)
         # the whole round is scavenged work: it pays duty rest
         self._rest_until = time.monotonic() + \
             self._rest_for(time.perf_counter() - t0)

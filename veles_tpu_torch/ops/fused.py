@@ -89,7 +89,6 @@ Counterpart of ``veles_tpu/ops/fused.py``:
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -97,6 +96,7 @@ import numpy as np
 import torch
 
 from veles_tpu_torch import events, faults, prng, profiling, telemetry
+from veles_tpu_torch.analysis import witness
 from veles_tpu_torch.engine import core as engine_core
 from veles_tpu_torch.loader.base import TRAIN
 from veles_tpu_torch.ops import batching
@@ -594,7 +594,9 @@ class EnsembleEvalEngine:
         #: the attached evaluation split (attach_dataset)
         self._dataset: Optional[torch.Tensor] = None
         self._labels: Optional[torch.Tensor] = None
-        self._count_lock = threading.Lock()
+        # a lock of the port only: the reference counts dispatches in
+        # its jitted path's Python wrapper without one
+        self._count_lock = witness.lock("fused.count")
         #: serving dispatches answered (micro-batches, not requests)
         self.dispatches = 0
         #: warm-up dispatches (:meth:`warm_up`) and their seconds, apart
@@ -750,30 +752,38 @@ class EnsembleEvalEngine:
     def batcher(self):
         return self._batcher
 
-    def submit(self, rows: np.ndarray, deadline_ms=None):
+    def submit(self, rows: np.ndarray, deadline_ms=None, ctx=None):
         """Enqueue one request; returns a Future of the mean member
-        probabilities for exactly its rows."""
+        probabilities for exactly its rows.  ``ctx`` (a
+        :class:`veles_tpu_torch.trace.TraceContext`) rides through, so
+        the batcher attributes queue wait and dispatch to the request's
+        trace."""
         if self._batcher is None:
             raise RuntimeError("attach_batcher() first")
-        return self._batcher.submit(rows, deadline_ms=deadline_ms)
+        return self._batcher.submit(rows, deadline_ms=deadline_ms,
+                                    ctx=ctx)
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Block until every submitted request has resolved."""
         return self._batcher is None or self._batcher.drain(timeout)
 
-    def _first_dispatch(self, dt: float, rows: int) -> bool:
-        """Under the count lock: True (and the gauge, counter and event
-        recorded) for the first dispatch this engine ran, cuDNN's first
-        use and the kernels' first launch."""
+    def _claim_first(self) -> bool:
+        """Under the count lock: True for the first dispatch this engine
+        ran, cuDNN's first use and the kernels' first launch."""
         if self._first_seen:
             return False
         self._first_seen = True
+        return True
+
+    @staticmethod
+    def _record_first(dt: float, rows: int) -> None:
+        """The first dispatch's gauge, counter and event (outside the
+        count lock: telemetry takes its own locks)."""
         telemetry.counter(events.CTR_SERVE_COMPILES).inc()
         telemetry.gauge(events.GAUGE_SERVE_FIRST_DISPATCH_SECONDS).set(
             round(dt, 4))
         telemetry.event(events.EV_SERVE_FIRST_DISPATCH, rows=rows,
                         seconds=round(dt, 4))
-        return True
 
     def warm_up(self, rows: int, sample_shape=None) -> float:
         """One dispatch of ``rows`` rows of zeros (the serving shape:
@@ -789,7 +799,9 @@ class EnsembleEvalEngine:
         with self._count_lock:
             self.warmup_dispatches += 1
             self.warmup_seconds += dt
-            self._first_dispatch(dt, rows)
+            first = self._claim_first()
+        if first:
+            self._record_first(dt, rows)
         return dt
 
     def _serve_dispatch(self, xb: np.ndarray) -> np.ndarray:
@@ -803,10 +815,12 @@ class EnsembleEvalEngine:
         out = self._predict_host(xb)
         dt = time.perf_counter() - t0
         with self._count_lock:
-            first = self._first_dispatch(dt, int(xb.shape[0]))
+            first = self._claim_first()
             self.dispatches += 1
             cb, self._on_next_dispatch = self._on_next_dispatch, None
-        if not first:
+        if first:
+            self._record_first(dt, int(xb.shape[0]))
+        else:
             telemetry.histogram(events.HIST_SERVE_DISPATCH_SECONDS).record(
                 dt)
         telemetry.counter(events.CTR_SERVE_MEMBER_ROWS).inc(

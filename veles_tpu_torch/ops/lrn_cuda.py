@@ -66,12 +66,13 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from typing import Dict
 
 import numpy as np
 import torch
+
+from veles_tpu_torch.analysis import witness
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -100,7 +101,9 @@ MAX_CHANNELS = 232448 // 12
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lock = threading.Lock()
+#: a lock of the port only (the reference has no build step): it
+#: guards the build and the launch counts, and nothing is taken under it
+_lock = witness.lock("lrn_cuda.build")
 _libs: Dict[str, ctypes.CDLL] = {}
 #: per kernel: the library's path, the seconds its build took (0 when an
 #: earlier process built it) and what the build printed (ptxas register

@@ -31,6 +31,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 from veles_tpu_torch import events, knobs, telemetry
+from veles_tpu_torch.analysis import witness
 
 log = logging.getLogger("veles.serve.autoscale")
 
@@ -171,7 +172,7 @@ class FleetAutoscaler:
         self.ladder = DegradationLadder()
         self.interval_s = (knobs.get(knobs.FLEET_SCALE_INTERVAL)
                            if interval_s is None else interval_s)
-        self._lock = threading.Lock()
+        self._lock = witness.lock("autoscale.state")
         #: every action taken, for the accountability check:
         #: {"t", "action", "rung"|"replica", "pressure_ms", "n"}
         self.journal: List[Dict[str, Any]] = []

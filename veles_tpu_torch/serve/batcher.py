@@ -34,7 +34,17 @@ Telemetry, under the reference's names (``veles_tpu_torch/events.py``):
 the engine records ``serve.dispatch_seconds``.  The fault point
 ``hive.slow_dispatch`` (``label`` = the model) stalls a dispatch.  The
 loop also keeps plain counters (:attr:`dispatches`, :attr:`rows`,
-:attr:`max_rows`).  Left out: trace lineage and the lock witness.
+:attr:`max_rows`).
+
+Tracing (``veles_tpu_torch/trace.py``): a request submitted with a
+sampled ``ctx`` journals ``trace.serve`` when it resolves, its queue wait
+(``wait_s``), its dispatch (``dispatch_s``, read around the dispatch
+call, which returns host arrays) and its total (``total_s``), and its
+trace id rides the wait and request histograms as their exemplar.  Each
+dispatch that carried a traced request journals ``trace.batch`` with one
+link per request it carried, once its answers are out, and records
+``serve.batch`` in the flight recorder's ring.  The queue's condition is
+the witness's ``batcher.queue``.
 """
 
 from __future__ import annotations
@@ -47,7 +57,8 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 
-from veles_tpu_torch import events, faults, knobs, telemetry
+from veles_tpu_torch import events, faults, knobs, telemetry, trace
+from veles_tpu_torch.analysis import witness
 from veles_tpu_torch.ops import batching
 
 
@@ -59,14 +70,19 @@ class _Pending:
     """One submitted request: its rows, result slices, and Future."""
 
     __slots__ = ("rows", "future", "t0", "results", "taken", "popped",
-                 "deadline_ms")
+                 "deadline_ms", "ctx", "wait_s")
 
     def __init__(self, rows: np.ndarray,
-                 deadline_ms: Optional[float] = None) -> None:
+                 deadline_ms: Optional[float] = None,
+                 ctx: Optional[trace.TraceContext] = None) -> None:
         self.rows = rows
         self.future: Future = Future()
         self.t0 = time.perf_counter()
         self.deadline_ms = deadline_ms
+        #: the request's sampled span (None when untraced)
+        self.ctx = ctx
+        #: seconds queued before its first dispatch (trace.serve)
+        self.wait_s: Optional[float] = None
         self.results: List[np.ndarray] = []
         #: rows already handed to a dispatch
         self.taken = 0
@@ -91,7 +107,7 @@ class MicroBatcher:
         self.max_batch = int(max_batch)
         self.max_wait_s = max(0.0, float(max_wait_s))
         self.label = label
-        self._cond = threading.Condition()
+        self._cond = witness.condition("batcher.queue")
         self._queue: "deque[_Pending]" = deque()
         #: per-sample shape; pinned by the first request when unset
         self._sample_shape = tuple(sample_shape) if sample_shape \
@@ -122,15 +138,19 @@ class MicroBatcher:
 
     # -- producer side -------------------------------------------------
 
-    def submit(self, rows: Any, deadline_ms: Optional[float] = None
-               ) -> Future:
+    def submit(self, rows: Any, deadline_ms: Optional[float] = None,
+               ctx: Optional[trace.TraceContext] = None) -> Future:
         """Enqueue one request; returns a Future of its per-row outputs
-        in request order.  Thread-safe; never blocks on the device."""
+        in request order.  Thread-safe; never blocks on the device.
+        ``ctx`` (a sampled span) makes the request's coalescing visible:
+        its ``trace.serve`` event splits wait and dispatch, and the
+        dispatch that carried it links its span (``trace.batch``)."""
         rows = np.asarray(rows, np.float32)
         if rows.ndim == 0 or len(rows) == 0:
             raise ValueError("a request needs at least one sample row")
         p = _Pending(rows, float(deadline_ms)
-                     if deadline_ms is not None else None)
+                     if deadline_ms is not None else None,
+                     ctx=ctx if ctx is not None and ctx.sampled else None)
         with self._cond:
             if self._closed:
                 raise RuntimeError(f"batcher {self.label!r} is closed")
@@ -322,8 +342,11 @@ class MicroBatcher:
             t_wait = time.perf_counter()
             for p, s, n in take:
                 if s == 0:
+                    p.wait_s = t_wait - p.t0
                     telemetry.histogram(
-                        events.HIST_SERVE_WAIT_SECONDS).record(t_wait - p.t0)
+                        events.HIST_SERVE_WAIT_SECONDS).record(
+                        p.wait_s,
+                        exemplar=p.ctx.trace_id if p.ctx else None)
             f = faults.fire("hive.slow_dispatch", label=self.label)
             if f:
                 # the gray-failure drill: the dispatch stalls while the
@@ -337,6 +360,7 @@ class MicroBatcher:
                     events.CTR_SERVE_REQUEST_ERRORS).inc(len(take))
                 self._resolve(take, None, err=e)
                 continue
+            dispatch_s = time.perf_counter() - t_wait
             self.dispatches += 1
             self.rows += len(rows)
             self.max_rows = max(self.max_rows, len(rows))
@@ -346,9 +370,27 @@ class MicroBatcher:
                 self.max_batch)
             telemetry.histogram(events.HIST_SERVE_BATCH_ROWS).record(
                 len(rows))
-            self._resolve(take, np.asarray(out))
+            self._resolve(take, np.asarray(out), dispatch_s=dispatch_s)
+            links = [{"trace": p.ctx.trace_id, "span": p.ctx.span_id}
+                     for p, s, n in take if p.ctx is not None and s == 0]
+            if links:
+                # one dispatch span links the request spans it carried:
+                # coalescing is a fan-in, not a parent and child.  The
+                # reference journals it before the answers and skips a
+                # dispatch that coalesced one request; here every traced
+                # request is linked to its dispatch, after the answers
+                # went out, so the line costs no request its latency
+                telemetry.event(events.EV_TRACE_BATCH,
+                                span=trace.new_span_id(),
+                                label=self.label, rows=len(rows),
+                                dispatch_s=round(dispatch_s, 6),
+                                links=links)
+                trace.record("serve.batch", label=self.label,
+                             rows=len(rows),
+                             dispatch_s=round(dispatch_s, 6))
 
-    def _resolve(self, take, out, err=None) -> None:
+    def _resolve(self, take, out, err=None,
+                 dispatch_s: Optional[float] = None) -> None:
         off = 0
         done: List[_Pending] = []
         for p, s, n in take:
@@ -367,10 +409,28 @@ class MicroBatcher:
                 done.append(p)
         now = time.perf_counter()
         self.last_activity = time.monotonic()
+        for p in done:
+            if p.ctx is not None:
+                # the request's serve-side span: queue wait against
+                # dispatch, the two halves the critical path attributes
+                telemetry.event(
+                    events.EV_TRACE_SERVE,
+                    trace=p.ctx.trace_id, span=p.ctx.span_id,
+                    parent=p.ctx.parent_id, label=self.label,
+                    rows=int(len(p.rows)),
+                    wait_s=round(p.wait_s, 6)
+                    if p.wait_s is not None else None,
+                    dispatch_s=round(dispatch_s, 6)
+                    if dispatch_s is not None else None,
+                    total_s=round(now - p.t0, 6),
+                    error=type(err).__name__ if err is not None
+                    else None)
         with self._cond:
             for p in done:
                 telemetry.histogram(
-                    events.HIST_SERVE_REQUEST_SECONDS).record(now - p.t0)
+                    events.HIST_SERVE_REQUEST_SECONDS).record(
+                    now - p.t0,
+                    exemplar=p.ctx.trace_id if p.ctx else None)
                 if p.popped:
                     self._inflight -= 1
                 elif self._queue and self._queue[0] is p:

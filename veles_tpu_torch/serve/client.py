@@ -15,9 +15,13 @@ router catches exactly that to retry a request on a peer.  A waiter that
 gives up (:meth:`HiveClient.cancel`: a timeout, a hedge's loser) has its
 late answer dropped and counted ``fleet.stale_response``.
 
-The process runs on the card unless the caller asks for the CPU
-(``backend="cpu"``).  Left out: trace-context propagation and
-``--metrics-dir`` (the ops plane) and ``--mesh`` (multi-card serving).
+A request may carry a trace context (``submit(..., ctx=)``): a sampled
+one rides the wire in the ``trace``/``span``/``parent``/``sampled``
+fields (``veles_tpu_torch/trace.py``), so the hive's spans join the
+caller's trace.  The two locks come from the lock-order witness's
+factories as ``client.wire`` and ``client.results``.  The process runs
+on the card unless the caller asks for the CPU (``backend="cpu"``).
+Left out: ``--mesh`` (multi-card serving).
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from veles_tpu_torch import events, telemetry
+from veles_tpu_torch import events, telemetry, trace
+from veles_tpu_torch.analysis import witness
 
 #: the directory that holds the ``veles_tpu_torch`` package
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -101,8 +106,8 @@ class HiveClient:
         self.proc = subprocess.Popen(
             cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             stderr=stderr, text=True, bufsize=1, env=run_env, cwd=cwd)
-        self._wlock = threading.Lock()
-        self._cond = threading.Condition()
+        self._wlock = witness.lock("client.wire")
+        self._cond = witness.condition("client.results")
         self._results: Dict[int, Dict[str, Any]] = {}
         #: asynchronous collectors (wire id -> callback(msg, err))
         self._callbacks: Dict[int, Callable[[Optional[Dict[str, Any]],
@@ -240,13 +245,16 @@ class HiveClient:
 
     def submit(self, model: str, rows: Any,
                deadline_ms: Optional[float] = None,
-               label: Optional[Any] = None) -> int:
+               label: Optional[Any] = None,
+               ctx: Optional[trace.TraceContext] = None) -> int:
         """Send one request without waiting; returns its wire id (collect
         it with :meth:`wait_for` or :meth:`collect_async`).
         ``deadline_ms`` (absolute unix-epoch ms) rides the wire: the
         hive's batcher drops the request unanswered once it expires.
         ``label`` (per-row ground truth) feeds an ``--online`` hive's
-        tap."""
+        tap.  ``ctx`` (a sampled span, usually the router's leg) stamps
+        the trace fields, so the hive's spans join the caller's
+        trace."""
         jid = self._draw_id()
         msg = {"id": jid, "model": model,
                "rows": np.asarray(rows, np.float32).tolist()}
@@ -254,6 +262,7 @@ class HiveClient:
             msg["deadline_ms"] = float(deadline_ms)
         if label is not None:
             msg["label"] = np.asarray(label).tolist()
+        trace.to_wire(msg, ctx)
         self._send(msg)
         return jid
 
@@ -320,11 +329,13 @@ class HiveClient:
         return self._wait(jid, timeout)
 
     def request(self, model: str, rows: Any, timeout: float = 60.0,
-                label: Optional[Any] = None) -> Dict[str, Any]:
+                label: Optional[Any] = None,
+                ctx: Optional[trace.TraceContext] = None
+                ) -> Dict[str, Any]:
         """One round trip: the answer ({"pred", "probs", ...} or
         {"error"})."""
-        return self.wait_for(self.submit(model, rows, label=label),
-                             timeout)
+        return self.wait_for(self.submit(model, rows, label=label,
+                                         ctx=ctx), timeout)
 
     # -- process control -----------------------------------------------
 

@@ -42,6 +42,7 @@ import time
 from typing import Any, Dict, List, Optional, Set
 
 from veles_tpu_torch import events, knobs, telemetry
+from veles_tpu_torch.analysis import witness
 from veles_tpu_torch.serve.client import HiveClient
 
 log = logging.getLogger("veles.serve.fleet")
@@ -155,7 +156,7 @@ class Replica:
         self.next_respawn_at = 0.0
         #: seconds from spawn to hello, of the last spawn
         self.spawn_seconds: Optional[float] = None
-        self._lock = threading.Lock()
+        self._lock = witness.lock("fleet.replica")
         #: router-side in-flight requests
         self.inflight = 0
         #: EMAs polled from the replica's stats by the monitor

@@ -74,8 +74,17 @@ buffer stores rows by, as the reference's hive has it
 process's telemetry there in the reference's formats: the snapshot is
 flushed after the hello, every heartbeat at most every
 ``telemetry.FLUSH_EVERY`` seconds, and at shutdown, after the
-``serve.drain`` and ``serve.shutdown`` events.  Not in this slice
-(argparse rejects it): ``--mesh``.
+``serve.drain`` and ``serve.shutdown`` events.
+
+Tracing (``veles_tpu_torch/trace.py``): a request carrying the router's
+trace fields is admitted under a child span of the sending leg
+(``from_wire`` -> ``child`` -> ``use``), handed to the engine and the tap
+with it, and recorded as ``hive.request`` in the flight recorder's ring;
+the ring is dumped on a SIGTERM drain (``sigterm``) and before the
+flapping replica's SIGKILL (``flap``).  The locks come from the lock-order
+witness's factories: ``hive.emit`` (the reference's) and ``hive.stats``
+(the port's own request counts).  Not in this slice (argparse rejects
+it): ``--mesh``.
 """
 
 from __future__ import annotations
@@ -96,7 +105,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from veles_tpu_torch import events, faults, knobs, telemetry
+from veles_tpu_torch import events, faults, knobs, telemetry, trace
+from veles_tpu_torch.analysis import witness
 from veles_tpu_torch.serve.batcher import DeadlineExpired
 
 #: the exit code the supervisor reads as "preempted, resume me"
@@ -263,7 +273,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         # ones right back
         residency.ensure(name)
 
-    emit_lock = threading.Lock()
+    emit_lock = witness.lock("hive.emit")
 
     def emit(obj: Dict[str, Any]) -> None:
         line = json.dumps(obj)
@@ -321,13 +331,19 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         def _flap() -> None:
             time.sleep(flap_after)
+            try:
+                trace.dump("flap")
+            except Exception:  # noqa: BLE001 — the kill is the point
+                pass
             os.kill(os.getpid(), signal.SIGKILL)
 
         threading.Thread(target=_flap, daemon=True,
                          name="fault-replica-flap").start()
 
     counts = {"requests": 0, "request_errors": 0}
-    counts_lock = threading.Lock()
+    # a lock of the port only (the reference counts through telemetry
+    # alone): nothing is taken under it
+    counts_lock = witness.lock("hive.stats")
 
     def bump(key: str) -> None:
         with counts_lock:
@@ -447,21 +463,32 @@ def main(argv: Optional[List[str]] = None) -> int:
             # the wedge drill: the request vanishes while heartbeats and
             # stats keep flowing; the caller's deadline must catch it
             return True
+        # the router's context off the wire: this process's admission
+        # span parents under the sending leg, and the batcher attributes
+        # queue wait and dispatch to it
+        wctx = trace.from_wire(job)
+        sctx = wctx.child() if wctx is not None else None
         try:
-            model = job["model"]
-            rows = np.asarray(job["rows"], np.float32)
-            engine = residency.ensure(model)
-            fut = engine.submit(rows, deadline_ms=job.get("deadline_ms"))
+            with trace.use(sctx):
+                model = job["model"]
+                rows = np.asarray(job["rows"], np.float32)
+                engine = residency.ensure(model)
+                fut = engine.submit(rows,
+                                    deadline_ms=job.get("deadline_ms"),
+                                    ctx=sctx)
         except Exception as e:  # noqa: BLE001 — a bad request answers
             # with an error; the process serves on
             bump("request_errors")
             telemetry.counter(events.CTR_SERVE_REQUEST_ERRORS).inc()
             emit({"id": jid, "error": f"{type(e).__name__}: {e}"})
             return True
+        if sctx is not None and sctx.sampled:
+            trace.record("hive.request", ctx=sctx, model=model,
+                         rows=int(len(rows)))
         if learner is not None:
             # tapped after admission: only rows the engine accepted may
             # enter the replay buffer
-            learner.tap.tap(model, jid, rows, job.get("label"))
+            learner.tap.tap(model, jid, rows, job.get("label"), ctx=sctx)
 
         def _deliver(f, jid=jid, model=model) -> None:
             try:
@@ -520,6 +547,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     reason, rc = None, 0
     if stop["signal"] is not None:
         reason, rc = signal.Signals(stop["signal"]).name, EXIT_PREEMPTED
+        # the flight recorder's SIGTERM hook: the ring and the journal's
+        # tail reach the disk even if the final flush below never ends
+        trace.dump("sigterm")
     telemetry.event(events.EV_SERVE_SHUTDOWN, reason=reason, code=rc)
     hb_stop.set()
     telemetry.flush()

@@ -33,11 +33,11 @@ Left out here: mesh placement (``serve.mesh_devices`` is always 1).
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from veles_tpu_torch import events, knobs, telemetry
+from veles_tpu_torch.analysis import witness
 from veles_tpu_torch.ops import batching
 
 #: residency budget where the device reports no memory size (the CPU)
@@ -89,7 +89,7 @@ class ResidencyManager:
         self.models: Dict[str, HostedModel] = {}
         #: guards the registry, victim selection and the promotion
         #: swap; blocking work (drain, upload) stays outside it
-        self._lock = threading.Lock()
+        self._lock = witness.lock("residency.state")
         #: side charges against the budget: name -> (bytes, pool)
         self.reserved: Dict[str, Tuple[int, str]] = {}
         self.spills = 0
@@ -288,7 +288,7 @@ class ResidencyManager:
 # a model-less one on first use.
 
 _process_arbiter: Optional[ResidencyManager] = None
-_arbiter_lock = threading.Lock()
+_arbiter_lock = witness.lock("residency.arbiter")
 
 
 def tree_nbytes(tree: Any) -> int:

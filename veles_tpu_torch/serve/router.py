@@ -39,6 +39,18 @@ router's telemetry in DIR and each replica's in ``DIR/replica-<i>``
 (a respawn writes its new pid's files beside the dead one's), the
 layout ``veles_tpu/obs.py`` ``fleet_rows`` reads.  Refused: ``--mesh``
 (multi-card serving, the port's multi-GPU item).
+
+Tracing (``veles_tpu_torch/trace.py``, ``$VELES_TRACE_SAMPLE``): each
+request is minted a root context at :meth:`FleetRouter.request` and runs
+under it; a sampled one journals ``trace.request`` (outcome, seconds)
+and is the exemplar of ``fleet.request_seconds``.  Each leg of a routed
+round (the primary, a hedge copy, a failover retry's attempt, a canary
+mirror) sends a child span on its wire message, and the three routed
+ones journal ``trace.leg`` (replica, verdict, seconds, hedge, winner).
+``veles_tpu_torch/obs.py`` assembles the router's and the replicas'
+journals into one trace a request.  A hedge is recorded in the flight
+recorder's ring, which a SIGTERM drain dumps.  The locks come from the
+witness's factories as ``router.state`` and ``router.emit``.
 """
 
 from __future__ import annotations
@@ -57,7 +69,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from veles_tpu_torch import events, knobs, telemetry
+from veles_tpu_torch import events, knobs, telemetry, trace
+from veles_tpu_torch.analysis import witness
 from veles_tpu_torch.serve.client import ReplicaDied
 from veles_tpu_torch.serve.fleet import PlacementPolicy, Replica, ReplicaSet
 from veles_tpu_torch.serve.sentinel import Sentinel
@@ -176,7 +189,7 @@ class FleetRouter:
              for name in self.models},
             self.n_replicas,
             capacities=[r.capacity_bytes for r in self.replicas])
-        self._lock = threading.Lock()
+        self._lock = witness.lock("router.state")
         self._routed = [0] * self.n_replicas
         self._mirror_acc: Dict[str, float] = {}
         self._closed = False
@@ -259,21 +272,39 @@ class FleetRouter:
             if timeout:
                 budget = min(budget, 1000.0 * timeout)
             deadline_ms = time.time() * 1000.0 + budget
+        # the trace root is minted here, at the admission edge: every leg
+        # (hedge copies, failover retries, canary mirrors) derives a
+        # child span from it, so one request assembles into one tree
+        # across processes however it was routed
+        ctx = trace.mint()
         t0 = time.perf_counter()
-        resp = self._dispatch(model, rows, float(deadline_ms))
-        if resp.get("overloaded"):
-            telemetry.counter(events.CTR_FLEET_SHED).inc()
-            telemetry.counter(f"fleet.model.{model}.shed").inc()
-        elif "error" in resp:
-            telemetry.counter(events.CTR_FLEET_REQUEST_ERRORS).inc()
-            telemetry.counter(f"fleet.model.{model}.errors").inc()
-        else:
-            dt = time.perf_counter() - t0
-            telemetry.histogram(events.HIST_FLEET_REQUEST_SECONDS).record(
-                dt)
-            telemetry.histogram(
-                f"fleet.model.{model}.request_seconds").record(dt)
-            self._maybe_mirror(model, rows)
+        with trace.use(ctx):
+            resp = self._dispatch(model, rows, float(deadline_ms))
+            if resp.get("overloaded"):
+                telemetry.counter(events.CTR_FLEET_SHED).inc()
+                telemetry.counter(f"fleet.model.{model}.shed").inc()
+            elif "error" in resp:
+                telemetry.counter(events.CTR_FLEET_REQUEST_ERRORS).inc()
+                telemetry.counter(f"fleet.model.{model}.errors").inc()
+            else:
+                dt = time.perf_counter() - t0
+                telemetry.histogram(
+                    events.HIST_FLEET_REQUEST_SECONDS).record(
+                    dt, exemplar=ctx.trace_id if ctx.sampled else None)
+                telemetry.histogram(
+                    f"fleet.model.{model}.request_seconds").record(dt)
+                self._maybe_mirror(model, rows)
+            if ctx.sampled:
+                outcome = ("shed" if resp.get("overloaded")
+                           else "timeout" if resp.get("timeout")
+                           else "error" if "error" in resp else "ok")
+                telemetry.event(
+                    events.EV_TRACE_REQUEST, trace=ctx.trace_id,
+                    span=ctx.span_id, model=model, rows=int(len(rows)),
+                    outcome=outcome,
+                    seconds=round(time.perf_counter() - t0, 6))
+                trace.record("fleet.request", ctx=ctx, model=model,
+                             outcome=outcome)
         return resp
 
     def _dispatch(self, model: str, rows: Any,
@@ -325,9 +356,32 @@ class FleetRouter:
 
         Two phases, so the usual case (the answer beats the threshold)
         costs one submit and one blocking wait; the fan-in queue exists
-        only for a request that hedges."""
+        only for a request that hedges.
+
+        Each leg (the primary attempt, the hedge copy, a failover retry's
+        attempt) gets a child span of the request's context, carried on
+        its wire message and journaled as ``trace.leg``.  The context is
+        read once here, on the admitting thread: the hedge's answers
+        arrive on the clients' reader threads, which hold none."""
         n_rows = int(len(rows))
         t_start = time.perf_counter()
+        rctx = trace.current()
+
+        def leg_ctx() -> Optional[trace.TraceContext]:
+            return rctx.child() \
+                if rctx is not None and rctx.sampled else None
+
+        def leg_event(rep: Replica, lctx: Optional[trace.TraceContext],
+                      verdict: str, t0_leg: float, hedge: bool = False,
+                      winner: bool = False) -> None:
+            if lctx is None:
+                return
+            telemetry.event(
+                events.EV_TRACE_LEG, trace=lctx.trace_id,
+                span=lctx.span_id, parent=lctx.parent_id,
+                replica=rep.idx, verdict=verdict,
+                seconds=round(time.perf_counter() - t0_leg, 6),
+                hedge=bool(hedge), winner=bool(winner))
 
         def timeout_resp() -> Tuple[Dict[str, Any], str]:
             return ({"error": "deadline exceeded", "model": model,
@@ -364,11 +418,14 @@ class FleetRouter:
         primary.acquire()
         telemetry.gauge(events.GAUGE_FLEET_INFLIGHT).set(
             self.inflight_total())
+        pctx = leg_ctx()
+        t_leg0 = time.perf_counter()
         try:
             jid = primary.client.submit(model, rows,
-                                        deadline_ms=deadline_ms)
+                                        deadline_ms=deadline_ms, ctx=pctx)
         except ReplicaDied:
             primary.release()
+            leg_event(primary, pctx, "died", t_leg0)
             return died(primary)
         # -- phase 1: a plain wait until the hedge threshold
         hedge_thr_s = self.sentinel.hedge_threshold_ms(model) / 1000.0
@@ -376,7 +433,10 @@ class FleetRouter:
             msg = primary.client.wait_for(
                 jid, timeout=max(0.001, min(hedge_thr_s, remain_s)))
             primary.release()
-            return evaluate(primary, msg)
+            out = evaluate(primary, msg)
+            leg_event(primary, pctx, out[1], t_leg0,
+                      winner=out[1] == "ok")
+            return out
         except TimeoutError:
             pass   # outlived the hedge threshold
         except ReplicaDied:
@@ -384,12 +444,14 @@ class FleetRouter:
             # can never collide with it
             primary.client.cancel(jid)
             primary.release()
+            leg_event(primary, pctx, "died", t_leg0)
             return died(primary)
         remain_s = (deadline_ms - time.time() * 1000.0) / 1000.0
         if remain_s <= 0:
             primary.client.cancel(jid)
             primary.release()
             self.sentinel.record_timeout(primary)
+            leg_event(primary, pctx, "timeout", t_leg0)
             return timeout_resp()
         peer: Optional[Replica] = None
         if self.hedging_enabled and self.sentinel.hedge_budget > 0:
@@ -410,44 +472,65 @@ class FleetRouter:
                 primary.client.cancel(jid)
                 primary.release()
                 self.sentinel.record_timeout(primary)
+                leg_event(primary, pctx, "timeout", t_leg0)
                 return timeout_resp()
             except ReplicaDied:
                 primary.client.cancel(jid)
                 primary.release()
+                leg_event(primary, pctx, "died", t_leg0)
                 return died(primary)
             primary.release()
-            return evaluate(primary, msg)
+            out = evaluate(primary, msg)
+            leg_event(primary, pctx, out[1], t_leg0,
+                      winner=out[1] == "ok")
+            return out
         # -- phase 2: the hedged fan-in (the rare, already slow case)
         telemetry.counter(events.CTR_FLEET_HEDGES).inc()
+        trace.record("fleet.hedge", ctx=rctx, model=model,
+                     primary=primary.idx, peer=peer.idx)
         results: "queue.SimpleQueue[Tuple[Replica, int, Any, Any]]" = \
             queue.SimpleQueue()
         outstanding: Dict[Tuple[int, int], Replica] = {
             (primary.idx, jid): primary}
+        #: each leg's span, submit time and hedge flag, keyed like
+        #: ``outstanding``: both legs are journaled, the winner marked
+        legmeta: Dict[Tuple[int, int],
+                      Tuple[Optional[trace.TraceContext], float, bool]] = {
+            (primary.idx, jid): (pctx, t_leg0, False)}
         primary.client.collect_async(
             jid, lambda m, e, rep=primary, j=jid:
             results.put((rep, j, m, e)))
         with self._lock:
             self._routed[peer.idx] += 1
         peer.acquire()
+        hctx = leg_ctx()
+        t_hleg0 = time.perf_counter()
         try:
-            hjid = peer.client.submit(model, rows, deadline_ms=deadline_ms)
+            hjid = peer.client.submit(model, rows, deadline_ms=deadline_ms,
+                                      ctx=hctx)
         except ReplicaDied:
             peer.release()
             peer.mark_dead()
             self.sentinel.record_died(peer)
+            leg_event(peer, hctx, "died", t_hleg0, hedge=True)
         else:
             # registered only after the submit succeeded
             outstanding[(peer.idx, hjid)] = peer
+            legmeta[(peer.idx, hjid)] = (hctx, t_hleg0, True)
             peer.client.collect_async(
                 hjid, lambda m, e, rep=peer, j=hjid:
                 results.put((rep, j, m, e)))
 
         def drop_outstanding(score_timeout: bool) -> None:
-            for (_, ojid), rep in list(outstanding.items()):
-                rep.client.cancel(ojid)
+            for key, rep in list(outstanding.items()):
+                rep.client.cancel(key[1])
                 rep.release()
                 if score_timeout:
                     self.sentinel.record_timeout(rep)
+                lctx, t0l, hedged = legmeta.get(key, (None, t_start, False))
+                leg_event(rep, lctx,
+                          "timeout" if score_timeout else "cancelled",
+                          t0l, hedge=hedged)
             outstanding.clear()
 
         fail: Optional[Tuple[Dict[str, Any], str]] = None
@@ -465,10 +548,15 @@ class FleetRouter:
                 continue   # already cancelled
             outstanding.pop((rep.idx, rjid))
             rep.release()
+            lctx, t0l, hedged = legmeta.get((rep.idx, rjid),
+                                            (None, t_start, False))
             if err is not None:
+                leg_event(rep, lctx, "died", t0l, hedge=hedged)
                 fail = died(rep)
                 continue   # the other leg may still answer
             out = evaluate(rep, msg)
+            leg_event(rep, lctx, out[1], t0l, hedge=hedged,
+                      winner=out[1] == "ok")
             if out[1] == "ok":
                 if rep is peer and "probs" in out[0]:
                     self.sentinel.record_hedge_win(rep, primary)
@@ -550,12 +638,16 @@ class FleetRouter:
             telemetry.counter(f"fleet.model.{cname}.requests").inc()
             telemetry.counter(f"fleet.model.{cname}.mirrored").inc()
             t0 = time.perf_counter()
+            # the mirror joins the primary request's trace, so a canary
+            # regression ties back to the traffic that hit it
+            c = trace.current()
+            mctx = c.child() if c is not None and c.sampled else None
             r.acquire()
             try:
                 jid = r.client.submit(
                     cname, rows,
                     deadline_ms=time.time() * 1000.0 + self.deadline_ms
-                    if self.deadline_ms > 0 else None)
+                    if self.deadline_ms > 0 else None, ctx=mctx)
             except ReplicaDied:
                 r.release()
                 r.mark_dead()
@@ -899,7 +991,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"--serve-fleet: {e}", file=sys.stderr)
         return 2
 
-    emit_lock = threading.Lock()
+    emit_lock = witness.lock("router.emit")
 
     def emit(obj: Dict[str, Any]) -> None:
         line = json.dumps(obj)
@@ -1028,6 +1120,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     if stop["signal"] is not None:
         reason = signal.Signals(stop["signal"]).name
         rc = EXIT_PREEMPTED
+        # the flight recorder's SIGTERM hook: the router's recent legs
+        # and hedges reach the disk before the replicas go down
+        trace.dump("sigterm")
     router.close(reason=reason, code=rc)
     hb_stop.set()
     if rc:

@@ -26,8 +26,11 @@ router owns one :class:`Sentinel`, which composes three defenses:
 
 Every routing decision asks :meth:`Sentinel.eligible`, every outcome
 reports through the ``record_*`` methods, and the probe loop runs on the
-sentinel's own thread.  Left out: trace lineage and the flight
-recorder's dump at an ejection (the ops plane).
+sentinel's own thread.  An ejection records ``sentinel.eject`` in the
+flight recorder's ring and dumps it (``ejection``,
+``veles_tpu_torch/trace.py``), so it ships with the recent legs and
+hedges that led to it.  The health table's lock is the witness's
+``sentinel.health``.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from veles_tpu_torch import events, knobs, telemetry
+from veles_tpu_torch import events, knobs, telemetry, trace
+from veles_tpu_torch.analysis import witness
 
 log = logging.getLogger("veles.serve.sentinel")
 
@@ -155,7 +159,7 @@ class Sentinel:
             if probe_interval is not None \
             else float(knobs.get(knobs.FLEET_PROBE_INTERVAL))
         self.probe_backoff_cap = float(probe_backoff_cap)
-        self._lock = threading.Lock()
+        self._lock = witness.lock("sentinel.health")
         self.health: Dict[int, ReplicaHealth] = {
             r.idx: ReplicaHealth(r.idx) for r in replicas}
         self._requests_seen = 0
@@ -370,6 +374,11 @@ class Sentinel:
                 events.EV_FLEET_REPLICA_EJECTED, replica=replica.idx,
                 state=STATE_EJECTED, score=round(score, 3),
                 strikes=strikes)
+            # an ejection is when an operator asks what the fleet was
+            # doing: dump the ring (recent legs, hedges, strikes)
+            trace.record("sentinel.eject", replica=replica.idx,
+                         score=round(score, 3))
+            trace.dump("ejection")
             log.warning(
                 "replica %d EJECTED from routing (health score %.2f "
                 ">= %.2f; strikes %s) — probing on backoff",

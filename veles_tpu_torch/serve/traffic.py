@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from veles_tpu_torch import events, knobs, snapshotter, telemetry
+from veles_tpu_torch.analysis import witness
 
 TRACE_FORMAT = "veles-traffic-v1"
 
@@ -235,7 +236,7 @@ class OpenLoopDriver:
                  workers: int = 64) -> None:
         self.request_fn = request_fn
         self.workers = workers
-        self._lock = threading.Lock()
+        self._lock = witness.lock("traffic.results")
         self.results: List[Dict[str, Any]] = []
 
     def _classify(self, resp: Dict[str, Any]) -> str:

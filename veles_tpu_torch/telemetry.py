@@ -43,9 +43,13 @@ registry and renames its file ``*.merged``.  :func:`set_enabled`
 check.  Telemetry never takes down a run: a file error drops the sink
 and the counting goes on in memory.
 
-Left for the tracing slice: the lock witness (a lock here is a plain
-``threading.Lock``) and trace lineage, which :func:`set_trace_provider`
-is the seam for.
+Every lock here comes from the lock-order witness's factories
+(``veles_tpu_torch/analysis/witness.py``) under the reference's names
+(``telemetry.counter``, ``.histogram``, ``.registry``, ``.journal``),
+and :func:`flush` writes the witness's snapshot and its ``lockstep.*``
+gauges beside the metrics snapshot.  :func:`set_trace_provider` is the
+seam through which ``veles_tpu_torch/trace.py`` stamps the current trace
+onto every event.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from collections import deque
 from typing import Any, Dict, List, Optional
 
 from veles_tpu_torch import knobs
+from veles_tpu_torch.analysis import witness
 
 ENV_DIR = knobs.METRICS_DIR
 
@@ -96,7 +101,7 @@ class Counter:
     def __init__(self, name: str) -> None:
         self.name = name
         self.value = 0
-        self._lock = threading.Lock()
+        self._lock = witness.lock("telemetry.counter")
 
     def inc(self, n: float = 1) -> None:
         if not _enabled:
@@ -148,7 +153,7 @@ class Histogram:
         self.buckets: List[int] = [0] * (NBUCKETS + 2)
         #: bucket index -> the last exemplar id that landed there
         self.exemplars: Dict[int, str] = {}
-        self._lock = threading.Lock()
+        self._lock = witness.lock("telemetry.histogram")
 
     @staticmethod
     def _index(x: float) -> int:
@@ -181,24 +186,35 @@ class Histogram:
 
     def quantile(self, q: float) -> Optional[float]:
         """The q-quantile (q in [0, 1]) from the bucket counts."""
+        return self.quantiles((q,))[0]
+
+    def quantiles(self, qs, nonzero=None) -> List[Optional[float]]:
+        """The quantiles ``qs`` (ascending, each in [0, 1]) in one walk
+        of the buckets: what :meth:`quantile` gives for each.
+        ``nonzero``, the [(index, count)] of the non-empty buckets, spares
+        the scan for it."""
         if self.count == 0:
-            return None
-        target = max(1, math.ceil(q * self.count))
-        cum = 0
-        for i, c in enumerate(self.buckets):
-            if not c:
-                continue
-            if cum + c >= target:
+            return [None] * len(qs)
+        if nonzero is None:
+            nonzero = [(i, c) for i, c in enumerate(self.buckets) if c]
+        targets = [max(1, math.ceil(q * self.count)) for q in qs]
+        out: List[Optional[float]] = []
+        k, cum = 0, 0
+        for i, c in nonzero:
+            while cum + c >= targets[k]:
                 if i == 0:
-                    return self.min
-                if i == NBUCKETS + 1:
-                    return self.max
-                e0 = 10.0 ** (LOG_LO + (i - 1) / PER_DECADE)
-                frac = (target - cum) / c
-                v = e0 * (_STEP ** frac)
-                return min(max(v, self.min), self.max)
+                    out.append(self.min)
+                elif i == NBUCKETS + 1:
+                    out.append(self.max)
+                else:
+                    e0 = 10.0 ** (LOG_LO + (i - 1) / PER_DECADE)
+                    v = e0 * (_STEP ** ((targets[k] - cum) / c))
+                    out.append(min(max(v, self.min), self.max))
+                k += 1
+                if k == len(targets):
+                    return out
             cum += c
-        return self.max
+        return out + [self.max] * (len(targets) - k)
 
     def snapshot_buckets(self) -> Any:
         """An opaque (bucket counts, count) base for
@@ -235,19 +251,19 @@ class Histogram:
 
     def to_dict(self) -> Dict[str, Any]:
         with self._lock:
+            nonzero = [(i, c) for i, c in enumerate(self.buckets) if c]
             d: Dict[str, Any] = {
                 "count": self.count,
                 "sum": self.sum,
                 "min": self.min if self.count else None,
                 "max": self.max if self.count else None,
-                "buckets": {str(i): c
-                            for i, c in enumerate(self.buckets) if c},
+                "buckets": {str(i): c for i, c in nonzero},
             }
             if self.exemplars:
                 d["exemplars"] = {str(i): t
                                   for i, t in self.exemplars.items()}
-        for q, key in ((0.5, "p50"), (0.9, "p90"), (0.99, "p99")):
-            d[key] = self.quantile(q)
+        d["p50"], d["p90"], d["p99"] = self.quantiles((0.5, 0.9, 0.99),
+                                                      nonzero)
         return d
 
     def merge_dict(self, d: Dict[str, Any]) -> None:
@@ -279,7 +295,7 @@ class Registry:
     """A namespace of metrics; the module-level one is the process's."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = witness.lock("telemetry.registry")
         self.counters: Dict[str, Counter] = {}
         self.gauges: Dict[str, Gauge] = {}
         self.histograms: Dict[str, Histogram] = {}
@@ -347,7 +363,7 @@ _recent: "deque[Dict[str, Any]]" = deque(maxlen=4096)
 
 _dir: Optional[str] = knobs.get(ENV_DIR) or None
 _journal_file = None
-_journal_lock = threading.Lock()
+_journal_lock = witness.lock("telemetry.journal")
 _last_flush = 0.0
 #: seconds between the throttled snapshot writes
 FLUSH_EVERY = 5.0
@@ -511,9 +527,10 @@ def merge_snapshot(snap: Dict[str, Any]) -> None:
 
 def flush() -> Optional[str]:
     """Write this process's cumulative snapshot to ``metrics-<pid>.json``
-    (a tempfile, then ``os.replace``) and push the journal's buffer to
-    the disk.  None, and nothing written, without a metrics dir; never
-    raises on a file error."""
+    (a tempfile, then ``os.replace``), push the journal's buffer to the
+    disk and write the lock witness's snapshot beside them.  None, and
+    nothing written, without a metrics dir; never raises on a file
+    error."""
     global _last_flush
     d = _dir
     if not d:
@@ -524,8 +541,12 @@ def flush() -> Optional[str]:
         fd, tmp = tempfile.mkstemp(
             dir=d, prefix=os.path.basename(path) + ".", suffix=".tmp")
         try:
+            # one string, then one write: json.dump's chunked writes cost
+            # several times more, on a thread that shares the GIL with
+            # the serving path
+            text = json.dumps(snapshot())
             with os.fdopen(fd, "w") as f:
-                json.dump(snapshot(), f)
+                f.write(text)
             os.replace(tmp, path)
         except BaseException:
             try:
@@ -536,6 +557,7 @@ def flush() -> Optional[str]:
         with _journal_lock:
             if _journal_file is not None:
                 _journal_file.flush()
+        witness.write_snapshot(d)
         _last_flush = time.monotonic()
         return path
     except OSError:
