@@ -50,6 +50,10 @@ def _assembled(mdir):
 def test_hedged_request_assembles_into_one_trace(package, tmp_path):
     from veles_tpu_torch.serve.router import FleetRouter
     mdir = str(tmp_path / "m")
+    # the router's snapshot in mdir is this process's whole registry: a
+    # clean slate, so its exemplars and counters are this router's alone
+    # and not those of a test that ran before in the same worker
+    telemetry.reset()
     router = FleetRouter(
         {"alpha": package}, n_replicas=2, backend="cpu", max_batch=16,
         max_wait_ms=5, metrics_dir=mdir, cwd=REPO, deadline_ms=8000,
@@ -61,6 +65,8 @@ def test_hedged_request_assembles_into_one_trace(package, tmp_path):
     try:
         x = np.ones((1, 6, 6, 1), np.float32)
         hedges0 = _ctr("fleet.hedge.issued")
+        wins0 = _ctr("fleet.hedge.wins")
+        eject0 = _ctr("fleet.eject.total")
         for _ in range(24):
             assert "probs" in router.request("alpha", x, timeout=60)
             sent += 1
@@ -70,12 +76,15 @@ def test_hedged_request_assembles_into_one_trace(package, tmp_path):
         # strikes accrue to an ejection; the losers' answers drain
         deadline = time.monotonic() + 20
         while time.monotonic() < deadline \
-                and _ctr("fleet.eject.total") < 1:
+                and _ctr("fleet.eject.total") == eject0:
             assert "probs" in router.request("alpha", x, timeout=60)
             sent += 1
             time.sleep(0.05)
+        assert _ctr("fleet.eject.total") == eject0 + 1
     finally:
         router.close()
+    hedges = _ctr("fleet.hedge.issued") - hedges0
+    wins = _ctr("fleet.hedge.wins") - wins0
     reg, merged, traces = _assembled(mdir)
 
     roots = [e for e in merged if e.get("event") == "trace.request"]
@@ -102,17 +111,28 @@ def test_hedged_request_assembles_into_one_trace(package, tmp_path):
     text = obs.render_trace(evs)
     assert "trace.request" in text and "critical path" in text
 
-    # every request: its root, a leg, the winner's serve and a batch
-    # that links it, from at least two processes
+    # every request: its root, one winning leg (a busy box can hedge
+    # more than the first request: each hedge adds a leg, its loser
+    # cancelled), the winner's serve and a batch that links it, from at
+    # least two processes; one hedged trace a hedge the router issued,
+    # and one trace won by its hedge a win it counted
+    hedged_legs = won_by_hedge = 0
     for tid, tevs in traces.items():
         names = [e.get("event") for e in tevs]
         assert names.count("trace.request") == 1, tid
-        assert "trace.leg" in names and "trace.serve" in names, names
+        tlegs = [e for e in tevs if e.get("event") == "trace.leg"]
+        winners = [e for e in tlegs if e.get("winner")]
+        assert len(winners) == 1, tlegs
+        assert len(tlegs) == 1 + sum(bool(e.get("hedge")) for e in tlegs)
+        hedged_legs += sum(bool(e.get("hedge")) for e in tlegs)
+        won_by_hedge += bool(winners[0].get("hedge"))
+        assert "trace.serve" in names, names
         assert any(e.get("event") == "trace.batch" and tid in
                    [lk["trace"] for lk in e["links"]] for e in tevs)
         assert len({e["_pid"] for e in tevs}) >= 2
         assert all(obs.critical_path(tevs)[k] is not None
                    for k in COMPONENTS), tid
+    assert hedged_legs == hedges and won_by_hedge == wins
 
     # the exemplars name traces that assemble
     ex = obs.tail_exemplars(reg, "fleet.request_seconds")

@@ -77,7 +77,10 @@ def test_every_port_module_imports_with_jax_blocked():
             "veles_tpu_torch.logger",
             "veles_tpu_torch.faults", "veles_tpu_torch.serve.fleet",
             "veles_tpu_torch.serve.sentinel",
-            "veles_tpu_torch.serve.router",
+            "veles_tpu_torch.serve.router", "veles_tpu_torch.tools",
+            "veles_tpu_torch.tools.obs_report",
+            "veles_tpu_torch.tools.chaos_drill",
+            "veles_tpu_torch.tools.gauntlet",
             "veles_tpu_torch.serve.autoscale",
             "veles_tpu_torch.serve.traffic", "veles_tpu_torch.trace",
             "veles_tpu_torch.obs",
@@ -154,4 +157,25 @@ def test_chip_smoke_fails_without_a_card():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("args", [[], ["--only", "fleet"]])
+def test_chip_smoke_names_the_phase_that_failed(args):
+    """A phase's exception of any type (here the first phase's, with a
+    card claimed but none there) is named on stdout, ``phase NAME: FAIL:
+    <type>: <message>``, with its traceback on stderr; the exit code is 1
+    and no result line is printed."""
+    code = ("import runpy, sys, torch\n"
+            "torch.cuda.is_available = lambda: True\n"
+            "sys.argv = ['chip_smoke.py'] + sys.argv[1:]\n"
+            "runpy.run_path('chip_smoke.py', run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code] + args, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1
+    (line,) = proc.stdout.splitlines()
+    assert line.startswith("phase build: FAIL: ")
+    kind = line[len("phase build: FAIL: "):].split(":")[0]
+    assert kind in ("AssertionError", "RuntimeError")
+    assert "Traceback (most recent call last)" in proc.stderr
     assert '"ok"' not in proc.stdout

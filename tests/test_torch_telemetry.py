@@ -244,6 +244,35 @@ def test_trace_family_rides_the_buffer_until_a_notable_event(tmp_path):
         ["trace.hop", "t.notable"]
 
 
+def test_trace_lines_wait_off_the_emitting_thread_in_order(tmp_path,
+                                                           monkeypatch):
+    """A traced request's lines are not encoded by the thread that emits
+    them: they wait, in order, for a notable event, a flush, or the
+    emitter that finds more than ``TRACE_PENDING_MAX`` waiting."""
+    d = str(tmp_path)
+    telemetry.configure(d)
+    telemetry.flush()
+    jf = os.path.join(d, f"journal-{os.getpid()}.jsonl")
+
+    def lines():
+        return [json.loads(ln)["n"] for ln in open(jf)] \
+            if os.path.exists(jf) else []
+
+    monkeypatch.setattr(telemetry, "TRACE_PENDING_MAX", 3)
+    monkeypatch.setattr(telemetry, "TRACE_WRITE_CHUNK", 2)
+    for n in range(3):
+        telemetry.event("trace.hop", n=n)
+    assert len(telemetry._trace_pending) == 3 and lines() == []
+    telemetry.event("trace.hop", n=3)   # the fourth: written by its emitter
+    assert len(telemetry._trace_pending) == 0
+    telemetry.event("trace.hop", n=4)
+    telemetry.flush()
+    assert lines() == [0, 1, 2, 3, 4]
+    # every record is in the ring at once, whatever reached the journal
+    assert [e["n"] for e in telemetry.recent_events("trace.hop")] == \
+        [0, 1, 2, 3, 4]
+
+
 def test_concurrent_writer_torture(tmp_path):
     """Writers flush in a loop while readers parse: a reader never sees
     a torn snapshot, and no temp file survives."""

@@ -36,8 +36,8 @@ run's telemetry in DIR (``metrics-<pid>.json`` snapshots and
 ``journal-<pid>.jsonl``, the reference's formats; exported as
 ``$VELES_METRICS_DIR``, so GA evaluators and a supervised child write
 there too), and ``--log-events FILE`` appends every ``veles.*`` log
-record to FILE as one JSON line.  ``scripts/obs_report.py DIR`` renders
-such a dir.
+record to FILE as one JSON line.  ``python -m
+veles_tpu_torch.tools.obs_report DIR`` renders such a dir.
 
 ``--optimize POP:GEN`` tunes the config values wrapped in ``Tune(...)``
 (``veles_tpu_torch/genetics/``): a population of POP genomes for GEN

@@ -26,8 +26,9 @@ One process-wide :class:`Registry`; :func:`snapshot` is what a hive
 answers ``op=stats`` with (``counters``, ``gauges``, ``histograms``),
 and :func:`merge_snapshot` folds another process's in.
 
-**Persistence**, in the reference's formats, so its reader
-(``veles_tpu/obs.py``, ``scripts/obs_report.py``) reads a port's dir:
+**Persistence**, in the reference's formats, so the port's reader
+(:mod:`veles_tpu_torch.obs`, ``python -m veles_tpu_torch.tools.obs_report``)
+and the reference's read a port's dir:
 when ``$VELES_METRICS_DIR`` is set, or :func:`configure` ran (which
 exports the variable, so every child process inherits it), each process
 appends its events to ``journal-<pid>.jsonl`` (flushed per line, except
@@ -390,6 +391,7 @@ def metrics_dir() -> Optional[str]:
 def _close_journal() -> None:
     global _journal_file
     with _journal_lock:
+        _write_pending()
         if _journal_file is not None:
             try:
                 _journal_file.close()
@@ -411,33 +413,92 @@ def configure(metrics_dir: Optional[str]) -> None:
         os.environ.pop(ENV_DIR, None)
 
 
+#: per-request ``trace.*`` records not yet in the journal: appended by the
+#: emitting thread (a deque's append needs no lock), encoded and written
+#: by the next notable event, :func:`flush` (the throttled one runs on its
+#: own thread) or the first emitter past :data:`TRACE_PENDING_MAX`
+_trace_pending: deque = deque()
+TRACE_PENDING_MAX, TRACE_WRITE_CHUNK = 4096, 256
+
+
+def _open_journal():
+    """The journal file (opened on first use); None without one.  The
+    caller holds ``_journal_lock``."""
+    global _journal_file
+    if _journal_file is None:
+        try:
+            os.makedirs(_dir, exist_ok=True)
+            _journal_file = open(
+                os.path.join(_dir, f"journal-{os.getpid()}.jsonl"), "a",
+                buffering=1 << 16)
+        except OSError:
+            return None
+    return _journal_file
+
+
+def _write_lines(recs) -> None:
+    """Append ``recs`` to the journal.  The caller holds
+    ``_journal_lock``."""
+    global _journal_file
+    f = _open_journal()
+    if f is None:
+        return
+    try:
+        f.write("".join(json.dumps(r) + "\n" for r in recs))
+    except (OSError, ValueError):
+        # a full or vanished disk: drop the sink, keep the ring
+        try:
+            f.close()
+        except OSError:
+            pass
+        _journal_file = None
+
+
+def _write_pending() -> None:
+    """Write the waiting ``trace.*`` records, oldest first,
+    :data:`TRACE_WRITE_CHUNK` at a time with the GIL offered to the
+    serving threads between chunks.  The caller holds ``_journal_lock``."""
+    while True:
+        recs = []
+        while len(recs) < TRACE_WRITE_CHUNK:
+            try:
+                recs.append(_trace_pending.popleft())
+            except IndexError:
+                break
+        if recs and _dir:
+            _write_lines(recs)
+        if len(recs) < TRACE_WRITE_CHUNK:
+            return
+        time.sleep(0)
+
+
 def _journal(rec: Dict[str, Any]) -> None:
     global _journal_file
     if not _dir:
         return
+    if str(rec.get("event", "")).startswith("trace."):
+        # the per-request family is encoded and written off the request's
+        # path: a JSON line on the emitting thread is paid inside every
+        # traced request's latency
+        _trace_pending.append(rec)
+        if len(_trace_pending) <= TRACE_PENDING_MAX:
+            return
     with _journal_lock:
-        if _journal_file is None:
+        # a notable event reaches the disk at once (a drill polls live
+        # journals), every earlier line before it
+        _write_pending()
+        if str(rec.get("event", "")).startswith("trace."):
+            return
+        _write_lines([rec])
+        if _journal_file is not None:
             try:
-                os.makedirs(_dir, exist_ok=True)
-                _journal_file = open(
-                    os.path.join(_dir, f"journal-{os.getpid()}.jsonl"),
-                    "a", buffering=1 << 16)
-            except OSError:
-                return
-        try:
-            _journal_file.write(json.dumps(rec) + "\n")
-            # a notable event reaches the disk at once (a drill polls
-            # live journals); the per-request trace.* family rides the
-            # buffer until the next notable event or flush
-            if not str(rec.get("event", "")).startswith("trace."):
                 _journal_file.flush()
-        except (OSError, ValueError):
-            # a full or vanished disk: drop the sink, keep the ring
-            try:
-                _journal_file.close()
-            except OSError:
-                pass
-            _journal_file = None
+            except (OSError, ValueError):
+                try:
+                    _journal_file.close()
+                except OSError:
+                    pass
+                _journal_file = None
 
 
 #: a zero-argument callable returning (trace_id, span_id) while a
@@ -555,6 +616,7 @@ def flush() -> Optional[str]:
                 pass
             raise
         with _journal_lock:
+            _write_pending()
             if _journal_file is not None:
                 _journal_file.flush()
         witness.write_snapshot(d)

@@ -33,10 +33,10 @@ attribute check per hop, :func:`record` is a deque append, and
 
 from __future__ import annotations
 
-import binascii
 import contextlib
 import json
 import os
+import random
 import re
 import tempfile
 import threading
@@ -56,8 +56,19 @@ K_SAMPLED = "sampled"
 WIRE_FIELDS = ("trace", "span", "parent", "sampled")
 
 
+#: (pid, generator) of the ids: seeded once a process from the OS.  An
+#: ``os.urandom`` call an id is a system call, which lets another thread
+#: take the GIL in the middle of a traced request's hop
+_ids = (None, None)
+
+
 def _hex(nbytes: int) -> str:
-    return binascii.hexlify(os.urandom(nbytes)).decode()
+    global _ids
+    pid, gen = _ids
+    if pid != os.getpid():   # a forked child draws its own ids
+        gen = random.Random(int.from_bytes(os.urandom(16), "big"))
+        _ids = (os.getpid(), gen)
+    return f"{gen.getrandbits(8 * nbytes):0{2 * nbytes}x}"
 
 
 def new_span_id() -> str:
