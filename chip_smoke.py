@@ -209,7 +209,8 @@ imports nothing of JAX and nothing of the JAX package.
    of 256 + 128 images, its best member adopted into a pre-built serving
    engine, its answers bitwise a fresh engine's, no npz written.  Then
    ``--serve-models alexnet=PKG --online`` through ``HiveClient``: the
-   labeled stream one request at a time with the learner suspended, then
+   labeled stream's first 12 requests one at a time with the learner
+   suspended, then
    resumed, p50 and p99 of each, learner-on p99 within max(8 x off,
    off + 250 ms); the hive's launches over its life.  Last, drift through
    the CLI on the tier-1 hive test's small model, with a metrics dir and
@@ -258,22 +259,23 @@ imports nothing of JAX and nothing of the JAX package.
    the tier-1 fleet model (6x6x1 -> 12 -> 3): a healthy
    fleet and one whose replica 0 is armed with ``hive.slow_dispatch``
    (6 dispatches of 1.5 s), driven side by side by the same closed-loop
-   stream (4 clients each, 12 s after a 2 s ramp): on the slow one a
+   stream (4 clients each, 8 s after a 2 s ramp): on the slow one a
    hedge, an ejection and a reinstatement, and its p99 within 1.5x the
    healthy one's, and the ejection's ``flightrec-<pid>-<n>-ejection.json``
    in the router's dir with a ``sentinel.eject`` entry for replica 0;
-   with the healthy fleet alone on the card, the reference's tracing
+   with the healthy fleet alone on the card, a 20 s open-loop day
+   (``traffic.generate``) under ``FleetAutoscaler`` over 1-3 replicas
+   with the reference's default thresholds, one outcome per arrival and
+   no error, the replica count over time and every action with its
+   pressure, the day's books balanced by the port's
+   ``accountability_check`` (every arrival one outcome, no error, every
+   crc its echo, every scale, ejection, retirement and death in the
+   router's merged journals with its cause); then, retired to one
+   replica as the reference measures it, the reference's tracing
    overhead pair (one request at a time, a burn-in at trace rate 0, 13
    pairs of 8 s, their requests at rate 1 and 0 interleaved one by one in
-   a seeded random order, the median per-pair p99 ratio within 1.05);
-   then a 20 s open-loop day (``traffic.generate``) on
-   the healthy one under ``FleetAutoscaler`` over 1-3 replicas with the
-   reference's default thresholds, one outcome per arrival and no error,
-   the replica count over time and every action with its pressure, the
-   day's books balanced by the port's ``accountability_check`` (every
-   arrival one outcome, no error, every crc its echo, every scale,
-   ejection, retirement and death in the router's merged journals with
-   its cause), and a ``sigterm`` dump for each retired replica; and
+   a seeded random order, the median per-pair p99 ratio within 1.05),
+   and a ``sigterm`` dump for each retired replica; and
    a fleet whose replica 0 is armed with ``hive.garbage_response``, its
    replicas under the lock witness (``$VELES_LOCK_WITNESS``):
    integrity strikes, an ejection, every answer the in-process
@@ -281,8 +283,8 @@ imports nothing of JAX and nothing of the JAX package.
    hold no cycle and name only locks the port declares.
 25. Summary (a phase of its own): each phase's wall seconds on a
    ``phases`` line (each also printed as it ends), then ``serve``,
-   ``train``, ``stream``, ``preempt``, ``data``, ``mnist7``, ``cifar10``, ``quantized``, ``mnist_ae``, ``kohonen``,
-   ``layers``, ``wine``, ``mnist_rbm``, ``mnist_dbn``, ``profile``,
+   ``train``, ``stream``, ``preempt``, ``data``, ``mnist7``,
+   ``cifar10``, ``quantized``, ``mnist_ae``, ``kohonen``, ``layers``, ``wine``, ``mnist_rbm``, ``mnist_dbn``, ``profile``,
    ``cohort``, ``som_cohort``, ``ga``, ``ensemble``, ``online`` and
    ``fleet`` JSON lines, each with its phase's ``seconds``, the total
    minutes, the card line, the
@@ -3976,6 +3978,11 @@ def _timed_stream(client, stream) -> list:
     return lat
 
 
+#: the requests of each of the --online hive's two timed streams (cut from
+#: the stream's 24 to keep a whole run inside its time)
+ONLINE_SERVE_REQUESTS = 12
+
+
 def _online_serve(card: str, workdir: str, pkg: str) -> dict:
     """``--serve-models alexnet=PKG --online`` on the card: three
     warm-up requests, then one labeled stream with the learner
@@ -3983,7 +3990,7 @@ def _online_serve(card: str, workdir: str, pkg: str) -> dict:
     p99 of each; the hive's launches over its whole life."""
     from veles_tpu_torch.serve.client import HiveClient
 
-    stream = labeled_stream()
+    stream = labeled_stream()[:ONLINE_SERVE_REQUESTS]
     t0 = time.perf_counter()
     with open(os.path.join(workdir, "online_hive.stderr"), "w") as err:
         client = HiveClient(
@@ -4251,14 +4258,15 @@ FLEET_HBM_BUDGET = 16 << 30
 #: same closed-loop stream, the ramp discarded)
 GRAY_FAULT = "hive.slow_dispatch@label=alpha&times=6&seconds=1.5"
 GRAY_P99_FACTOR = 1.5
-GRAY_CLIENTS, GRAY_WINDOW_S, GRAY_RAMP_S = 4, 12.0, 2.0
+GRAY_CLIENTS, GRAY_WINDOW_S, GRAY_RAMP_S = 4, 8.0, 2.0
 GRAY_KW = dict(deadline_ms=8000, hedge_min_ms=60, hedge_budget=1.0,
                probe_interval=0.2, probe_ok=2, probe_backoff_cap=0.4)
 #: the tracing overhead pair on the healthy small fleet (the reference's
 #: method and bar, ``bench.py`` trace phase): one request at a time,
 #: TRACE_WINDOW_S of requests at trace rate 1 and as many at 0 a pair,
 #: TRACE_PAIRS pairs, the median of the per-pair p99 ratios at most
-#: TRACE_OVERHEAD_BAR.  A window's p99 (its fifth-slowest of ~530
+#: TRACE_OVERHEAD_BAR, on one replica (the reference's fleet has one: no
+#: routing between replicas, no hedge).  A window's p99 (its fifth-slowest of ~530
 #: requests on the card) is set by short stalls of the host and the
 #: fleet's own periodic work, each holding up a few consecutive requests:
 #: one window a side read per-pair ratios of 0.80-1.38 with no change to
@@ -4594,6 +4602,9 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
     from veles_tpu_torch.serve.hive import load_model_package
     from veles_tpu_torch.serve.router import FleetRouter
 
+    # this process is the fleet's router: its registry holds the router's
+    # metrics alone, as a deployed router's does (see _fleet_small)
+    telemetry.reset()
     used0 = _card_used()
     err = open(os.path.join(workdir, "fleet_alexnet.stderr"), "w")
     metrics_dir = os.path.join(workdir, "fleet_metrics")
@@ -5194,9 +5205,13 @@ def _fleet_small(card: str, workdir: str) -> dict:
                            p99_ratio=g["p99_ms"] / out["healthy"]["p99_ms"],
                            ejection_dump=_ejection_dump(small_dir, 0))
         gray.close()
-        # the healthy fleet alone on the card: tracing's cost
-        out["trace_overhead"] = _trace_overhead(healthy)
+        # the healthy fleet alone on the card: the open-loop day, then
+        # tracing's cost on one replica, as the reference measures it
         out["open_loop"] = _open_loop_day(healthy)
+        while sum(not r.retiring for r in healthy.replicas) > 1:
+            check(healthy.retire_replica(cause="trace overhead pair")
+                  is not None, "trace overhead: a retirement failed")
+        out["trace_overhead"] = _trace_overhead(healthy)
         healthy.close()
         out["sigterm"] = _sigterm_dumps(small_dir)
         # the corrupt replica

@@ -32,7 +32,9 @@ and the reference's read a port's dir:
 when ``$VELES_METRICS_DIR`` is set, or :func:`configure` ran (which
 exports the variable, so every child process inherits it), each process
 appends its events to ``journal-<pid>.jsonl`` (flushed per line, except
-the per-request ``trace.*`` family, which rides the file buffer) and
+the per-request ``trace.*`` family, whose records wait in memory and are
+encoded and written by the next notable event or flush, off the
+request's path) and
 writes its cumulative snapshot to ``metrics-<pid>.json`` with a
 tempfile and ``os.replace``, so a reader never sees a torn file.  A
 snapshot is written by :func:`flush` (explicit, and at exit), and by the
