@@ -263,19 +263,18 @@ imports nothing of JAX and nothing of the JAX package.
    hedge, an ejection and a reinstatement, and its p99 within 1.5x the
    healthy one's, and the ejection's ``flightrec-<pid>-<n>-ejection.json``
    in the router's dir with a ``sentinel.eject`` entry for replica 0;
-   with the healthy fleet alone on the card, a 20 s open-loop day
-   (``traffic.generate``) under ``FleetAutoscaler`` over 1-3 replicas
-   with the reference's default thresholds, one outcome per arrival and
-   no error, the replica count over time and every action with its
-   pressure, the day's books balanced by the port's
-   ``accountability_check`` (every arrival one outcome, no error, every
-   crc its echo, every scale, ejection, retirement and death in the
-   router's merged journals with its cause); then, retired to one
-   replica as the reference measures it, the reference's tracing
+   with the healthy fleet alone on the card, the reference's tracing
    overhead pair (one request at a time, a burn-in at trace rate 0, 13
    pairs of 8 s, their requests at rate 1 and 0 interleaved one by one in
-   a seeded random order, the median per-pair p99 ratio within 1.05),
-   and a ``sigterm`` dump for each retired replica; and
+   a seeded random order, the median per-pair p99 ratio within 1.05);
+   then a 20 s open-loop day (``traffic.generate``) under
+   ``FleetAutoscaler`` over 1-3 replicas with the reference's default
+   thresholds, one outcome per arrival and no error, the replica count
+   over time and every action with its pressure, the day's books
+   balanced by the port's ``accountability_check`` (every arrival one
+   outcome, no error, every crc its echo, every scale, ejection,
+   retirement and death in the router's merged journals with its
+   cause), and a ``sigterm`` dump for each retired replica; and
    a fleet whose replica 0 is armed with ``hive.garbage_response``, its
    replicas under the lock witness (``$VELES_LOCK_WITNESS``):
    integrity strikes, an ejection, every answer the in-process
@@ -4265,8 +4264,7 @@ GRAY_KW = dict(deadline_ms=8000, hedge_min_ms=60, hedge_budget=1.0,
 #: method and bar, ``bench.py`` trace phase): one request at a time,
 #: TRACE_WINDOW_S of requests at trace rate 1 and as many at 0 a pair,
 #: TRACE_PAIRS pairs, the median of the per-pair p99 ratios at most
-#: TRACE_OVERHEAD_BAR, on one replica (the reference's fleet has one: no
-#: routing between replicas, no hedge).  A window's p99 (its fifth-slowest of ~530
+#: TRACE_OVERHEAD_BAR.  A window's p99 (its fifth-slowest of ~530
 #: requests on the card) is set by short stalls of the host and the
 #: fleet's own periodic work, each holding up a few consecutive requests:
 #: one window a side read per-pair ratios of 0.80-1.38 with no change to
@@ -5205,13 +5203,9 @@ def _fleet_small(card: str, workdir: str) -> dict:
                            p99_ratio=g["p99_ms"] / out["healthy"]["p99_ms"],
                            ejection_dump=_ejection_dump(small_dir, 0))
         gray.close()
-        # the healthy fleet alone on the card: the open-loop day, then
-        # tracing's cost on one replica, as the reference measures it
-        out["open_loop"] = _open_loop_day(healthy)
-        while sum(not r.retiring for r in healthy.replicas) > 1:
-            check(healthy.retire_replica(cause="trace overhead pair")
-                  is not None, "trace overhead: a retirement failed")
+        # the healthy fleet alone on the card: tracing's cost
         out["trace_overhead"] = _trace_overhead(healthy)
+        out["open_loop"] = _open_loop_day(healthy)
         healthy.close()
         out["sigterm"] = _sigterm_dumps(small_dir)
         # the corrupt replica

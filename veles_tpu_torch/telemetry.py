@@ -628,21 +628,35 @@ def flush() -> Optional[str]:
         return None
 
 
+#: the throttled flush's thread (one a process, started at its first
+#: flush) and its wake-up
+_flusher: Optional[threading.Thread] = None
+_flush_wake = threading.Event()
+
+
+def _flush_loop() -> None:
+    while True:
+        _flush_wake.wait()
+        _flush_wake.clear()
+        try:
+            flush()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
 def _maybe_flush() -> None:
     # the snapshot write (1-3 ms) runs on a thread of its own: paid on
-    # the emitting thread it would land in a serving request's latency
-    global _last_flush
+    # the emitting thread it would land in a serving request's latency.
+    # The thread lives on: starting one a flush would make the emitting
+    # thread wait for it to run, inside whichever request emitted
+    global _last_flush, _flusher
     if _dir and time.monotonic() - _last_flush > FLUSH_EVERY:
         _last_flush = time.monotonic()   # even on failure: no storms
-
-        def _bg() -> None:
-            try:
-                flush()
-            except Exception:  # noqa: BLE001 — interpreter teardown
-                pass
-
-        threading.Thread(target=_bg, daemon=True,
-                         name="telemetry-flush").start()
+        if _flusher is None or not _flusher.is_alive():
+            _flusher = threading.Thread(target=_flush_loop, daemon=True,
+                                        name="telemetry-flush")
+            _flusher.start()
+        _flush_wake.set()
 
 
 def maybe_flush() -> None:
