@@ -264,10 +264,10 @@ imports nothing of JAX and nothing of the JAX package.
    healthy one's, and the ejection's ``flightrec-<pid>-<n>-ejection.json``
    in the router's dir with a ``sentinel.eject`` entry for replica 0;
    with the healthy fleet alone on the card, the reference's tracing
-   overhead pair (one request at a time, a burn-in at trace rate 0, 13
+   overhead pair (one request at a time, a burn-in at trace rate 0, 11
    pairs of 8 s, their requests at rate 1 and 0 interleaved one by one in
    a seeded random order, the median per-pair p99 ratio within 1.05);
-   then a 20 s open-loop day (``traffic.generate``) under
+   then a 14 s open-loop day (``traffic.generate``) under
    ``FleetAutoscaler`` over 1-3 replicas with the reference's default
    thresholds, one outcome per arrival and no error, the replica count
    over time and every action with its pressure, the day's books
@@ -4273,11 +4273,13 @@ GRAY_KW = dict(deadline_ms=8000, hedge_min_ms=60, hedge_budget=1.0,
 #: requests one at each rate in a seeded random order, and each side's
 #: p99 is taken over its requests of the pair; interleaved so, nine
 #: pairs still read 0.93-1.19, a spread wider than the bar's margin, so
-#: the pairs are 13 (more samples, as the method allows)
+#: the pairs are 11 (more samples, as the method allows; 13 ran a whole
+#: run past its time)
 TRACE_WINDOW_S = 4.0
-TRACE_PAIRS, TRACE_OVERHEAD_BAR = 13, 1.05
-#: the open-loop day on the small model
-OPEN_LOOP = dict(duration_s=20.0, peak_rps=150.0, swing=10.0,
+TRACE_PAIRS, TRACE_OVERHEAD_BAR = 11, 1.05
+#: the open-loop day on the small model (14 s: 20 ran a whole run past
+#: its time)
+OPEN_LOOP = dict(duration_s=14.0, peak_rps=150.0, swing=10.0,
                  burst_every_s=6.0, burst_len_s=2.0, burst_mult=2.0,
                  models=["alpha"])
 

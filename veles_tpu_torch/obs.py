@@ -529,7 +529,6 @@ def learner_rows(reg: Registry, events):
     steps and gate state from the ``online.model.<name>.*`` gauges, the
     gate's last scored round and the promotions and rollbacks from the
     journal."""
-    from veles_tpu_torch.online.promote import GATE_STATES
     models = {}
     for n, g in reg.gauges.items():
         m = re.match(r"online\.model\.(.+)\.(buffer_rows|steps|"
@@ -554,8 +553,13 @@ def learner_rows(reg: Registry, events):
                 counts[name]["last_promote_ts"] = ev.get("ts")
             else:
                 counts[name]["last_rollback_ts"] = ev.get("ts")
+    names = sorted(set(models) | set(last_gate) | set(counts))
+    if not names:
+        return []
+    # imported only where a model learns: the package loads torch
+    from veles_tpu_torch.online.promote import GATE_STATES
     rows = []
-    for name in sorted(set(models) | set(last_gate) | set(counts)):
+    for name in names:
         d = models.get(name, {})
         ev = last_gate.get(name, {})
         c = counts.get(name, {})
