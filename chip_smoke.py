@@ -22,7 +22,10 @@ imports nothing of JAX and nothing of the JAX package.
 1. Device: the card's name and power limit; build both LRN kernels from
    ``veles_tpu_torch/csrc/`` (one ``nvcc`` each, started together),
    print each kernel function's registers and spills as ptxas reports
-   them, and fail on any spill.
+   them, and fail on any spill; beside them build ``native/``'s C++
+   runtime (``native.ensure_built``: the host compiler straight, into
+   ``veles_tpu_torch/_build/``) and print the compiler, its version
+   line and the seconds.
 2. Kernels vs plain on the card, at AlexNet's two norm shapes.
    ``lrn_fwd`` at batch 64 (serving) and 128 (training), ``lrn_bwd`` at
    batch 128; n = 5 and 4, f32 and bf16; plus the edges of the kernels'
@@ -58,7 +61,13 @@ imports nothing of JAX and nothing of the JAX package.
    CUDA events, each norm layer's backward at the activations and error
    of a real training minibatch, kernel vs plain, in bf16, and 3 + 3
    train supersteps alternately with telemetry on and off: the ratio of
-   the medians within 1.15 (the hooks add no sync).
+   the medians within 1.15 (the hooks add no sync).  Last, the trained
+   AlexNet is exported to VTPN (``export.export_model``, about 250 MB)
+   and ``native/``'s runtime answers 2 validation rows, held against
+   the port's f32 forward on the card (TF32 off), whose two ``lrn_fwd``
+   launches are counted apart (``launches_by_path`` ``export``):
+   probabilities within 1e-4, the argmax equal where the top two are
+   more than 1e-3 apart.
 5. Card vs CPU: one train superstep (k = 2, dropout 0, f32, TF32 off)
    from the same params and indices on the card and through the port's
    CPU plain path, the CPU replaying the card's choices at every max
@@ -104,7 +113,11 @@ imports nothing of JAX and nothing of the JAX package.
    timed from the end of initialize to the first validation class end
    at most 1% error, capped at MNIST7_CAP_S; epochs, train img/s per
    epoch, the resident data set's bytes.  Every param and the data set
-   must be on the card, and validation error must fall.
+   must be on the card, and validation error must fall.  Then the
+   trained model is exported to VTPN and ``native/`` answers 256
+   validation rows against the port's f32 forward on the card, with
+   phase 4's tolerance; the file's bytes, the export's seconds and
+   native's rows/s.
 10. CIFAR-10: ``models/cifar10.py`` at 50 000 + 10 000 images from the
    binary batches, 2 epochs; img/s, and the ``inv`` policy's rates by
    iteration checked on the last train superstep.
@@ -140,7 +153,13 @@ imports nothing of JAX and nothing of the JAX package.
    against the same unit on the CPU at small shapes in f32, the train
    mode on the CPU generator's uniforms on both (``prng.uniform``);
    and a ``resizable_all2all`` resized between two runs, on the card
-   and on the CPU.  The worst relative error of each.
+   and on the CPU.  The worst relative error of each.  Then one small
+   unit graph through the ported graph API (``workflow.py``,
+   ``accelerated_units.py``, ``memory.py``): a Repeater loop of 4 turns
+   around an AcceleratedUnit whose Vectors live on ``cuda:0``, gated
+   off by a counter, to the EndPoint; each turn's ``map_read`` equal to
+   the same graph's on the CPU, exactly, and the unit's output a CUDA
+   tensor until it.
 15. Wine: ``models/wine.py`` at its published DEFAULTS (30 epochs); the
    validation error per epoch and the final confusion matrices, whose
    rows must count each label of their class and whose trace must be
@@ -267,7 +286,7 @@ imports nothing of JAX and nothing of the JAX package.
    overhead pair (one request at a time, a burn-in at trace rate 0, 11
    pairs of 8 s, their requests at rate 1 and 0 interleaved one by one in
    a seeded random order, the median per-pair p99 ratio within 1.05);
-   then a 14 s open-loop day (``traffic.generate``) under
+   then a 10 s open-loop day (``traffic.generate``) under
    ``FleetAutoscaler`` over 1-3 replicas with the reference's default
    thresholds, one outcome per arrival and no error, the replica count
    over time and every action with its pressure, the day's books
@@ -322,7 +341,7 @@ N_MEMBERS = 2
 SAMPLE_SHAPE = (227, 227, 3)
 N_CLASSES = 1000
 #: the served burst: requests of 1-16 rows from N_THREADS client threads
-N_REQUESTS = 24
+N_REQUESTS = 16
 N_THREADS = 8
 #: the served package's synthetic data set (see build_package)
 PACKAGE_N_TRAIN, PACKAGE_N_VALID = 64, 16
@@ -1201,6 +1220,19 @@ def train_phase(card: str, workdir: str):
                         "window_term_share": float(
                             (b / (a + b).clamp(min=1e-30)).mean())})
     tel["on_off"] = telemetry_on_off(w)
+    # the trained model exported and answered by native/
+    off = ld.class_offset(1)   # the validation class
+    nat = native_vs_card(w, ld.normalized_host_rows(
+        slice(off, off + NATIVE_ALEXNET_ROWS)),
+        os.path.join(workdir, "alexnet.vtpn"), "alexnet export")
+    check(nat["launches"] == {"lrn_fwd": 2, "lrn_bwd": 0},
+          f"alexnet export: the card's forward launched {nat['launches']}")
+    print(f"train: exported {nat['file_bytes']} bytes in "
+          f"{nat['export_s']:.2f} s; native/ loaded it in "
+          f"{nat['load_s']:.2f} s and answered {nat['rows']} rows in "
+          f"{nat['native_s']:.2f} s, max abs {nat['max_abs_err']:.3g} from "
+          f"the card's f32 forward (limit {NATIVE_ATOL}), lrn_fwd "
+          f"{nat['launches']['lrn_fwd']}  [{card}]", flush=True)
     print(f"train: telemetry {tel['counters']}, flush "
           f"{tel['flush_ms']:.2f} ms ({tel['snapshot_bytes']} bytes), MFU "
           f"{tel['summary']['mfu']} at {tel['summary']['images_per_sec_wall']}"
@@ -1220,7 +1252,7 @@ def train_phase(card: str, workdir: str):
             "run_wall_s": w.wall_time, "run_img_s_wall":
             images / w.wall_time, "drive_wall_s": total_s,
             "lrn_bwd_in_situ": in_situ, "telemetry": tel,
-            "card": card}, w
+            "export": nat, "card": card}, w
 
 
 # -- phase 5: one step on the card against the CPU plain path -----------
@@ -1976,6 +2008,73 @@ def _on_card(w) -> None:
           "the data set is not resident on the card")
 
 
+#: an exported model answered by ``native/``'s C++ runtime against the
+#: port's f32 forward on the card (TF32 off): the probabilities within
+#: the reference's conv-net tolerance (``tests/test_native.py:92``),
+#: the argmax equal on every row whose top two are more than
+#: NATIVE_MARGIN apart; mnist7's and AlexNet's validation rows answered
+NATIVE_ATOL, NATIVE_MARGIN = 1e-4, 1e-3
+NATIVE_MNIST7_ROWS, NATIVE_ALEXNET_ROWS = 256, 2
+
+
+def _card_forward_f32(w, x: np.ndarray) -> np.ndarray:
+    """The port's eval forward of host rows ``x`` on the card, in f32
+    with ``w``'s live f32 params, flattened to (rows, -1)."""
+    import torch
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    out = torch.from_numpy(np.ascontiguousarray(x, np.float32)).cuda()
+    with torch.no_grad():
+        for f in w.forwards:
+            out, _ = f.apply_fwd(w.fused.device_params(f.name), out,
+                                 rng=None, train=False)
+    torch.cuda.synchronize()
+    return out.reshape(len(x), -1).cpu().numpy()
+
+
+def native_vs_card(w, x: np.ndarray, path: str, what: str) -> dict:
+    """Export ``w`` to ``path`` (VTPN), answer ``x`` with ``native/``'s
+    runtime, and hold the answers against :func:`_card_forward_f32`; the
+    kernel launches of that forward counted apart.  The file is
+    removed."""
+    from veles_tpu_torch import export, native
+    t0 = time.perf_counter()
+    export.export_model(w, path)
+    export_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    try:
+        t0 = time.perf_counter()
+        model = native.NativeModel(path)
+        load_s = time.perf_counter() - t0
+        check(model.input_shape == tuple(x.shape[1:]) and model.num_ops ==
+              len(w.forwards), f"{what}: native model {model.input_shape} "
+              f"with {model.num_ops} ops")
+        t0 = time.perf_counter()
+        got = model.run(x)
+        native_s = time.perf_counter() - t0
+        model.close()
+    finally:
+        os.remove(path)
+    _zero_launches()
+    want = _card_forward_f32(w, x)
+    launches = _launches()
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{what}: native answered {got.shape}, the card {want.shape}")
+    err = float(np.abs(got - want).max())
+    top2 = np.sort(want, axis=1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > NATIVE_MARGIN
+    differ = int((got.argmax(1) != want.argmax(1))[decided].sum())
+    check(err <= NATIVE_ATOL and differ == 0,
+          f"{what}: native vs the card's f32 forward: max abs "
+          f"{err:.3g} (limit {NATIVE_ATOL}), {differ} of "
+          f"{int(decided.sum())} decided rows with another argmax")
+    return {"file_bytes": size, "export_s": export_s, "load_s": load_s,
+            "rows": len(x), "native_s": native_s,
+            "native_rows_s": len(x) / native_s, "max_abs_err": err,
+            "atol": NATIVE_ATOL, "decided_rows": int(decided.sum()),
+            "argmax_differ": differ, "launches": launches}
+
+
 def mnist7_phase(card: str, data_dir: str):
     """BASELINE's secondary workload: ``models/mnist7.py`` through the
     path ``python -m veles_tpu_torch veles_tpu_torch/models/mnist7.py
@@ -2015,6 +2114,16 @@ def mnist7_phase(card: str, data_dir: str):
           f"epochs (validation error % {valid}); train img/s per epoch "
           f"{[round(v) for v in out['train_img_s_per_epoch']]}; resident "
           f"{out['resident_data_bytes']} bytes  [{card}]", flush=True)
+    off = ld.class_offset(1)   # the validation class
+    x = ld.normalized_host_rows(slice(off, off + NATIVE_MNIST7_ROWS))
+    out["native"] = nat = native_vs_card(
+        w, x, os.path.join(data_dir, "mnist7.vtpn"), "mnist7")
+    print(f"mnist7: exported {nat['file_bytes']} bytes in "
+          f"{nat['export_s']:.3f} s; native/ answered {nat['rows']} "
+          f"validation rows at {nat['native_rows_s']:.0f} rows/s, max abs "
+          f"{nat['max_abs_err']:.3g} from the card's f32 forward (limit "
+          f"{NATIVE_ATOL}), argmax equal on {nat['decided_rows']} decided "
+          f"rows  [{card}]", flush=True)
     return out, w
 
 
@@ -2497,6 +2606,80 @@ def _resize_run(backend: str):
     return w
 
 
+#: the unit graph: its loop's turns and its unit's (rows, features)
+GRAPH_TURNS, GRAPH_SHAPE = 4, (256, 512)
+
+
+def graph_run(device: str) -> dict:
+    """One small graph through the ported graph API on ``device``:
+    StartPoint -> Repeater -> an AcceleratedUnit (``acc = acc * 0.5 + x
+    * w`` on the device, its Vectors on ``device``) -> a counter that
+    reads ``acc`` on the host and gates the loop off after GRAPH_TURNS
+    turns -> EndPoint.  Each turn's host read, and where ``acc`` lay
+    just before it."""
+    import torch
+
+    from veles_tpu_torch.accelerated_units import AcceleratedUnit
+    from veles_tpu_torch.memory import Vector
+    from veles_tpu_torch.mutable import Bool
+    from veles_tpu_torch.units import Unit
+    from veles_tpu_torch.workflow import Repeater, Workflow
+
+    gen = np.random.default_rng(SEED + 700)
+    x0 = gen.standard_normal(GRAPH_SHAPE).astype(np.float32)
+    w0 = gen.standard_normal(GRAPH_SHAPE[1:]).astype(np.float32)
+
+    class Accumulate(AcceleratedUnit):
+        def __init__(self, wf, **kw):
+            super().__init__(wf, **kw)
+            self.x = self.declare_input("x", Vector(x0, name="x"))
+            self.w = Vector(w0, name="w")
+            self.acc = self.declare_output(
+                "acc", Vector(np.zeros_like(x0), name="acc"))
+
+        def initialize(self, device=None, **kw):
+            super().initialize(device=device, **kw)
+            self.w.initialize(self.device)
+            self.acc.unmap()
+
+        def gather_params(self):
+            return {"w": self.w.unmap()}
+
+        def gather_inputs(self):
+            return dict(super().gather_inputs(), acc=self.acc.unmap())
+
+        def apply(self, params, inputs, rng=None):
+            return {"acc": inputs["acc"] * 0.5 + inputs["x"] * params["w"]}
+
+    class Counter(Unit):
+        def __init__(self, wf, acc, **kw):
+            super().__init__(wf, **kw)
+            self.acc, self.complete, self.seen = acc, Bool(False), []
+
+        def run(self):
+            dev = self.acc.devmem
+            self.seen.append((str(dev.device) if isinstance(
+                dev, torch.Tensor) else None, self.acc._valid,
+                self.acc.map_read().copy()))
+            self.complete.set(len(self.seen) >= GRAPH_TURNS)
+
+    wf = Workflow(name="graph")
+    rpt = Repeater(wf, name="repeater")
+    unit = Accumulate(wf, name="accumulate")
+    cnt = Counter(wf, unit.acc, name="counter")
+    rpt.link_from(wf.start_point, cnt)
+    unit.link_from(rpt)
+    cnt.link_from(unit)
+    rpt.gate_block = cnt.complete
+    wf.end_point.link_from(cnt)
+    wf.end_point.gate_block = ~cnt.complete
+    t0 = time.perf_counter()
+    wf.initialize(device=torch.device(device))
+    wf.run()
+    return {"seconds": time.perf_counter() - t0,
+            "fired": unit.run_count, "seen": cnt.seen}
+
+
 def layers_phase(card: str) -> dict:
     """Each layer type this slice added, forward and backward on the card
     against the same unit on the CPU at small shapes, in f32."""
@@ -2567,6 +2750,21 @@ def layers_phase(card: str) -> dict:
           f"stochastic pooling: card and CPU differ: {out}")
     check(out["resizable_all2all"] <= CARD_CPU_RTOL,
           f"resize: card and CPU differ: {out['resizable_all2all']}")
+    # the unit graph on the card against the same graph on the CPU
+    on_card, on_cpu = graph_run("cuda:0"), graph_run("cpu")
+    where = [(d, v) for d, v, _ in on_card["seen"]]
+    check(on_card["fired"] == on_cpu["fired"] == GRAPH_TURNS
+          and where == [("cuda:0", 2)] * GRAPH_TURNS,
+          f"graph: fired {on_card['fired']} / {on_cpu['fired']} times, "
+          f"the output before each read {where}")
+    same = all(np.array_equal(a[2], b[2])
+               for a, b in zip(on_card["seen"], on_cpu["seen"]))
+    check(same and len(on_card["seen"]) == len(on_cpu["seen"]),
+          "graph: the card's reads differ from the CPU's")
+    out["graph"] = {"turns": on_card["fired"], "equal_to_cpu": same,
+                    "before_read": where,
+                    "card_s": on_card["seconds"],
+                    "cpu_s": on_cpu["seconds"]}
     out["card"] = card
     print(f"layers: worst relative error card vs CPU (f32) {out}",
           flush=True)
@@ -4277,9 +4475,9 @@ GRAY_KW = dict(deadline_ms=8000, hedge_min_ms=60, hedge_budget=1.0,
 #: run past its time)
 TRACE_WINDOW_S = 4.0
 TRACE_PAIRS, TRACE_OVERHEAD_BAR = 11, 1.05
-#: the open-loop day on the small model (14 s: 20 ran a whole run past
-#: its time)
-OPEN_LOOP = dict(duration_s=14.0, peak_rps=150.0, swing=10.0,
+#: the open-loop day on the small model (10 s: 20, then 14, ran whole
+#: runs past their time)
+OPEN_LOOP = dict(duration_s=10.0, peak_rps=150.0, swing=10.0,
                  burst_every_s=6.0, burst_len_s=2.0, burst_mult=2.0,
                  models=["alpha"])
 
@@ -4960,8 +5158,8 @@ def _closed_loop(routers: list, engine, clients: int, window_s: float,
 
 
 def _open_loop_day(router) -> dict:
-    """A 20 s ``traffic.generate`` day through ``OpenLoopDriver`` under
-    ``FleetAutoscaler`` over 1-3 replicas (the reference's thresholds):
+    """An OPEN_LOOP day (``traffic.generate``) through ``OpenLoopDriver``
+    under ``FleetAutoscaler`` over 1-3 replicas (the reference's thresholds):
     one outcome per arrival, no error; the replica count and pressure
     every 0.5 s, and every action with its cause."""
     from veles_tpu_torch.serve.autoscale import (FleetAutoscaler,
@@ -5417,6 +5615,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     try:
+        from veles_tpu_torch import native
         from veles_tpu_torch.backends import make_device
         from veles_tpu_torch.ops import lrn_cuda
     except ImportError as e:
@@ -5476,9 +5675,28 @@ def main() -> int:
               f"x{torch.cuda.device_count()}, torch {torch.__version__}, "
               f"CUDA {torch.version.cuda}", flush=True)
         t0 = time.perf_counter()
+        native_err = []
+
+        def build_native():
+            try:
+                native.ensure_built()
+            except Exception as e:  # noqa: BLE001 — raised below
+                native_err.append(e)
+        # native/'s host build runs beside the two nvcc processes
+        nb = threading.Thread(target=build_native)
+        nb.start()
         lrn_cuda.build()
         print(f"build: lrn_fwd and lrn_bwd in {time.perf_counter() - t0:.1f}"
               f"s", flush=True)
+        nb.join()
+        if native_err:
+            raise native_err[0]
+        info = native.build_info
+        print(f"build: native/ with {info.get('compiler')} "
+              f"({info.get('version')}) in {info.get('seconds', 0.0):.1f}s "
+              f"({native.ensure_built()})" if info else
+              f"build: native/ built by an earlier process "
+              f"({native.ensure_built()})", flush=True)
         for kname, info in lrn_cuda.build_info.items():
             print(f"build: {kname} {info['seconds']:.1f}s "
                   f"({info['path']})", flush=True)
@@ -5581,7 +5799,9 @@ def summary(rows, serve_launches, res: dict, phases: dict,
                                res["ensemble"]),
             **_online_launches(k, res["online"]),
             "fleet": res["fleet"]["launches"][k]}
-    launches["lrn_fwd"] = dict(launches["lrn_fwd"], serve=serve_launches)
+    launches["lrn_fwd"] = dict(
+        launches["lrn_fwd"], serve=serve_launches,
+        export=res["train"]["export"]["launches"]["lrn_fwd"])
     kernels = [
         summary_kernel("lrn_fwd", "veles_tpu/ops/lrn_pallas.py:132", rows,
                        launches["lrn_fwd"], card),

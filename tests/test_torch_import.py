@@ -1,6 +1,8 @@
 """The PyTorch/CUDA port stands alone: ``veles_tpu_torch`` and
 ``chip_smoke.py`` import neither JAX nor anything of the JAX package,
-and the port's entry points refuse to drop silently onto the CPU."""
+nor ``zmq``, ``matplotlib`` or ``PIL``, which the card's machine does
+not have, and the port's entry points refuse to drop silently onto the
+CPU."""
 
 import ast
 import os
@@ -15,6 +17,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "veles_tpu_torch")
 
 
+#: what no module of the port imports: JAX and the reference, and the
+#: packages the card's machine lacks
+BLOCKED = ("jax", "jaxlib", "veles_tpu", "zmq", "matplotlib", "PIL")
+
+
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
     for d, _, files in os.walk(PKG):
@@ -24,7 +31,7 @@ def _port_sources():
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "veles_tpu")
+    return top in BLOCKED
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -32,7 +39,7 @@ def test_every_port_module_imports_with_jax_blocked():
     raise, so one stray import anywhere in the package fails here."""
     code = (
         "import pkgutil, sys\n"
-        "for m in ('jax', 'jaxlib', 'veles_tpu'):\n"
+        f"for m in {BLOCKED!r}:\n"
         "    sys.modules[m] = None\n"
         "import veles_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -84,7 +91,11 @@ def test_every_port_module_imports_with_jax_blocked():
             "veles_tpu_torch.serve.autoscale",
             "veles_tpu_torch.serve.traffic", "veles_tpu_torch.trace",
             "veles_tpu_torch.obs",
-            "veles_tpu_torch.analysis.witness"} <= set(names)
+            "veles_tpu_torch.analysis.witness",
+            "veles_tpu_torch.export", "veles_tpu_torch.native",
+            "veles_tpu_torch.mutable", "veles_tpu_torch.units",
+            "veles_tpu_torch.workflow", "veles_tpu_torch.memory",
+            "veles_tpu_torch.accelerated_units"} <= set(names)
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -273,6 +273,43 @@ def test_trace_lines_wait_off_the_emitting_thread_in_order(tmp_path,
         [0, 1, 2, 3, 4]
 
 
+def test_a_deferred_event_is_stamped_at_its_call_and_seen_by_every_reader(
+        tmp_path, monkeypatch):
+    """``event_later`` and ``trace.record_later`` (a traced request's
+    records once its answer came): the clocks and the provider's trace
+    are read at the call and the rest waits off the calling thread; the
+    ring, a flush, the flight recorder's ring see it; past
+    ``TRACE_PENDING_MAX`` waiting, the caller runs it all."""
+    from veles_tpu_torch import trace
+    d = str(tmp_path)
+    telemetry.configure(d)
+    telemetry.set_trace_provider(lambda: ("tr9", "sp9"))
+    t0 = time.monotonic()
+    telemetry.event_later("trace.hop", n=1)
+    trace.record_later("hop.ring", n=1)
+    t1 = time.monotonic()
+    telemetry.set_trace_provider(None)
+    assert len(telemetry._deferred) == 2
+    evs = telemetry.recent_events("trace.hop")
+    assert not telemetry._deferred
+    assert [(e["n"], e["trace"], e["span"]) for e in evs] == \
+        [(1, "tr9", "sp9")]
+    assert t0 - 1e-6 <= evs[0]["mono"] <= t1 + 1e-6
+    ring = [e for e in trace.ring_entries() if e["ev"] == "hop.ring"]
+    assert ring[-1]["n"] == 1 and t0 - 1e-6 <= ring[-1]["mono"] <= t1 + 1e-6
+    telemetry.event_later("trace.hop", n=2)
+    telemetry.flush()
+    jf = os.path.join(d, f"journal-{os.getpid()}.jsonl")
+    assert [json.loads(ln)["n"] for ln in open(jf)
+            if json.loads(ln)["event"] == "trace.hop"] == [1, 2]
+    monkeypatch.setattr(telemetry, "TRACE_PENDING_MAX", 2)
+    for n in range(3, 6):
+        telemetry.event_later("trace.hop", n=n)
+    assert not telemetry._deferred   # the third ran them on its caller
+    assert [e["n"] for e in telemetry._recent
+            if e["event"] == "trace.hop"] == [1, 2, 3, 4, 5]
+
+
 def test_concurrent_writer_torture(tmp_path):
     """Writers flush in a loop while readers parse: a reader never sees
     a torn snapshot, and no temp file survives."""

@@ -3,7 +3,7 @@
 Counterpart of ``veles_tpu/ensemble/packaging.py`` (``save_members``,
 ``load_members``, ``pack_ensemble``, ``normalize_npz_path``) with the
 same wire format: one
-compressed npz of ``m<i>|<forward>|<param>`` arrays plus a JSON
+npz of ``m<i>|<forward>|<param>`` arrays plus a JSON
 ``__meta__`` record per member (seed, valid_error, forward_names,
 values).  The arrays are in the REFERENCE's layout, which is what makes
 one members file serve both frameworks: the port maps them onto its own
@@ -33,10 +33,12 @@ def normalize_npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def save_members(path: str, members: List[Dict[str, Any]]) -> str:
+def save_members(path: str, members: List[Dict[str, Any]],
+                 compress: bool = True) -> str:
     """Serialize member dicts (``params``, ``seed``, ``valid_error``,
-    ``forward_names``, optional ``values``) to one compressed npz;
-    returns the on-disk path (numpy appends ``.npz`` when missing)."""
+    ``forward_names``, optional ``values``) to one npz, compressed
+    unless ``compress`` is False; returns the on-disk path (numpy
+    appends ``.npz`` when missing).  Either kind loads the same way."""
     if not members:
         raise ValueError("empty ensemble")
     arrays: Dict[str, np.ndarray] = {}
@@ -55,7 +57,7 @@ def save_members(path: str, members: List[Dict[str, Any]]) -> str:
                     np.asarray(arr)
     arrays[_META] = np.frombuffer(json.dumps(meta).encode(),
                                   np.uint8).copy()
-    np.savez_compressed(path, **arrays)
+    (np.savez_compressed if compress else np.savez)(path, **arrays)
     return normalize_npz_path(path)
 
 
@@ -85,8 +87,10 @@ def pack_ensemble(out_path: str, name: str,
     """A Forge package whose snapshot is the members npz and whose
     entry is ``workflow_file``."""
     with tempfile.TemporaryDirectory() as tmp:
+        # float weights deflate slowly and hardly at all: the package
+        # (a gzip container, see ForgePackage.pack) holds them stored
         npz = save_members(os.path.join(tmp, f"{name}_members.npz"),
-                           members)
+                           members, compress=False)
         return ForgePackage.pack(
             out_path, name, workflow_file, config_files=config_files,
             snapshot=npz, version=version, author=author,

@@ -61,7 +61,10 @@ class ForgePackage:
             "sha256": {os.path.basename(f): _sha256(f) for f in files},
         }
         blob = json.dumps(manifest, indent=2).encode()
-        with tarfile.open(out_path, "w:gz") as tar:
+        # a gzip container at level 0: every reader opens it as it opens
+        # the reference's ("r:gz"), and the float weights that fill a
+        # package deflate slowly and hardly at all
+        with tarfile.open(out_path, "w:gz", compresslevel=0) as tar:
             info = tarfile.TarInfo(MANIFEST)
             info.size = len(blob)
             info.mtime = int(time.time())

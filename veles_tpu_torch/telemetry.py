@@ -21,6 +21,11 @@ Counterpart of ``veles_tpu/telemetry.py``:
   host's clock only: it never waits for the device.
 - :func:`event` appends a state transition to an in-memory ring that
   :func:`recent_events` reads, and to the journal.
+  :func:`event_later` reads the clocks (and the trace) at its call and
+  leaves the rest to the flush thread (:func:`defer`): the fleet
+  router's records of a traced request, made once its answer came,
+  while its caller waits.  Every reader of the ring or the journal
+  runs the deferred work first.
 
 One process-wide :class:`Registry`; :func:`snapshot` is what a hive
 answers ``op=stats`` with (``counters``, ``gauges``, ``histograms``),
@@ -392,6 +397,7 @@ def metrics_dir() -> Optional[str]:
 
 def _close_journal() -> None:
     global _journal_file
+    run_deferred()
     with _journal_lock:
         _write_pending()
         if _journal_file is not None:
@@ -418,9 +424,12 @@ def configure(metrics_dir: Optional[str]) -> None:
 #: per-request ``trace.*`` records not yet in the journal: appended by the
 #: emitting thread (a deque's append needs no lock), encoded and written
 #: by the next notable event, :func:`flush` (the throttled one runs on its
-#: own thread) or the first emitter past :data:`TRACE_PENDING_MAX`
+#: own thread) or the first emitter past :data:`TRACE_PENDING_MAX`.  The
+#: writer offers the GIL back every :data:`TRACE_WRITE_CHUNK` lines, so
+#: one chunk's encoding holds the serving threads up for a fraction of a
+#: millisecond (``tools/trace_cost.py`` times a line's: ``journal_line``)
 _trace_pending: deque = deque()
-TRACE_PENDING_MAX, TRACE_WRITE_CHUNK = 4096, 256
+TRACE_PENDING_MAX, TRACE_WRITE_CHUNK = 4096, 32
 
 
 def _open_journal():
@@ -474,11 +483,11 @@ def _write_pending() -> None:
         time.sleep(0)
 
 
-def _journal(rec: Dict[str, Any]) -> None:
+def _journal(rec: Dict[str, Any], traced: bool) -> None:
     global _journal_file
     if not _dir:
         return
-    if str(rec.get("event", "")).startswith("trace."):
+    if traced:
         # the per-request family is encoded and written off the request's
         # path: a JSON line on the emitting thread is paid inside every
         # traced request's latency
@@ -489,7 +498,7 @@ def _journal(rec: Dict[str, Any]) -> None:
         # a notable event reaches the disk at once (a drill polls live
         # journals), every earlier line before it
         _write_pending()
-        if str(rec.get("event", "")).startswith("trace."):
+        if traced:
             return
         _write_lines([rec])
         if _journal_file is not None:
@@ -519,26 +528,80 @@ def event(name: str, **fields: Any) -> None:
     (``mono``: ``veles_tpu/obs.py`` interleaves processes by it), and
     with ``trace``/``span`` where a trace provider names them (the
     caller's own fields win)."""
-    if not _enabled:
-        return
-    rec: Dict[str, Any] = {"ts": round(time.time(), 3),
-                           "mono": round(time.monotonic(), 6),
+    if _enabled:
+        _event_at(name, _with_trace(fields), time.time(), time.monotonic())
+
+
+def event_later(name: str, **fields: Any) -> None:
+    """:func:`event` with its clocks and trace read now, and the rest
+    (the record, the ring, the journal) run off this thread
+    (:func:`defer`): for a thread whose caller is waiting, such as a
+    traced request's after its answer came."""
+    if _enabled:
+        defer(_event_at, name, _with_trace(fields), time.time(),
+              time.monotonic())
+
+
+def _with_trace(fields: Dict[str, Any]) -> Dict[str, Any]:
+    """``fields`` with the provider's trace and span where the caller
+    named none (every ``trace.*`` event names its own)."""
+    if _trace_provider is None or ("trace" in fields and "span" in fields):
+        return fields
+    try:
+        t = _trace_provider()
+    except Exception:  # noqa: BLE001 — tracing never breaks the journal
+        t = None
+    if t is not None:
+        fields.setdefault("trace", t[0])
+        fields.setdefault("span", t[1])
+    return fields
+
+
+def _event_at(name: str, fields: Dict[str, Any], wall: float,
+              mono: float) -> None:
+    rec: Dict[str, Any] = {"ts": round(wall, 3), "mono": round(mono, 6),
                            "event": name}
     rec.update(fields)
-    if _trace_provider is not None:
-        try:
-            t = _trace_provider()
-        except Exception:  # noqa: BLE001 — tracing never breaks the
-            t = None       # journal
-        if t is not None:
-            rec.setdefault("trace", t[0])
-            rec.setdefault("span", t[1])
     _recent.append(rec)
-    _journal(rec)
+    _journal(rec, name.startswith("trace."))
     _maybe_flush()
 
 
+#: work handed over by a thread whose caller is waiting
+#: (:func:`event_later`, ``trace.record_later``), its clocks already
+#: read: the flush thread runs it, and so does every reader of the ring
+#: or the journal first (:func:`run_deferred`), so none sees it missing
+_deferred: deque = deque()
+
+
+def defer(fn: Any, *args: Any) -> None:
+    """Run ``fn(*args)`` off the calling thread (see :data:`_deferred`);
+    past :data:`TRACE_PENDING_MAX` waiting, the caller runs them all."""
+    _deferred.append((fn, args))
+    if len(_deferred) > TRACE_PENDING_MAX:
+        run_deferred()
+    else:
+        _maybe_flush()
+
+
+def run_deferred() -> None:
+    """Run the deferred work, oldest first, offering the GIL back every
+    :data:`TRACE_WRITE_CHUNK` items (the flush thread runs seconds'
+    worth at once, beside the serving threads)."""
+    n = 0
+    while True:
+        try:
+            fn, args = _deferred.popleft()
+        except IndexError:
+            return
+        fn(*args)
+        n += 1
+        if n % TRACE_WRITE_CHUNK == 0:
+            time.sleep(0)
+
+
 def recent_events(name: Optional[str] = None) -> List[Dict[str, Any]]:
+    run_deferred()
     evs = list(_recent)
     if name is not None:
         evs = [e for e in evs if e.get("event") == name]
@@ -595,6 +658,7 @@ def flush() -> Optional[str]:
     nothing written, without a metrics dir; never raises on a file
     error."""
     global _last_flush
+    run_deferred()
     d = _dir
     if not d:
         return None
@@ -696,6 +760,7 @@ def reset() -> None:
     slate); references held elsewhere stay wired."""
     global _dir, _last_flush
     _registry.reset()
+    _deferred.clear()
     _recent.clear()
     _close_journal()
     _dir = knobs.get(ENV_DIR) or None

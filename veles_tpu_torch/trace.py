@@ -56,19 +56,25 @@ K_SAMPLED = "sampled"
 WIRE_FIELDS = ("trace", "span", "parent", "sampled")
 
 
-#: (pid, generator) of the ids: seeded once a process from the OS.  An
-#: ``os.urandom`` call an id is a system call, which lets another thread
-#: take the GIL in the middle of a traced request's hop
-_ids = (None, None)
+#: the ids' generator: seeded once a process from the OS, and again in a
+#: forked child, which must draw its own.  A system call an id (an
+#: ``os.urandom``, or an ``os.getpid`` to notice a fork) lets another
+#: thread take the GIL in the middle of a traced request's hop
+_gen: Optional[random.Random] = None
+
+
+def _reseed() -> None:
+    global _gen
+    _gen = random.Random(int.from_bytes(os.urandom(16), "big"))
+
+
+os.register_at_fork(after_in_child=_reseed)
 
 
 def _hex(nbytes: int) -> str:
-    global _ids
-    pid, gen = _ids
-    if pid != os.getpid():   # a forked child draws its own ids
-        gen = random.Random(int.from_bytes(os.urandom(16), "big"))
-        _ids = (os.getpid(), gen)
-    return f"{gen.getrandbits(8 * nbytes):0{2 * nbytes}x}"
+    if _gen is None:
+        _reseed()
+    return f"{_gen.getrandbits(8 * nbytes):0{2 * nbytes}x}"
 
 
 def new_span_id() -> str:
@@ -192,10 +198,23 @@ def record(name: str, ctx: Optional[TraceContext] = None,
     """Append one entry to the always-armed ring.  No I/O: the hot path
     (each request leg, each dispatch) may call it freely; the entry
     leaves memory only on :func:`dump`."""
-    rec: Dict[str, Any] = {"ts": round(time.time(), 3),
-                           "mono": round(time.monotonic(), 6),
+    _record_at(name, ctx if ctx is not None else current(), fields,
+               time.time(), time.monotonic())
+
+
+def record_later(name: str, ctx: Optional[TraceContext] = None,
+                 **fields: Any) -> None:
+    """:func:`record` with its clocks and context read now and the entry
+    appended off this thread (``telemetry.defer``)."""
+    telemetry.defer(_record_at, name,
+                    ctx if ctx is not None else current(), fields,
+                    time.time(), time.monotonic())
+
+
+def _record_at(name: str, c: Optional[TraceContext],
+               fields: Dict[str, Any], wall: float, mono: float) -> None:
+    rec: Dict[str, Any] = {"ts": round(wall, 3), "mono": round(mono, 6),
                            "ev": name}
-    c = ctx if ctx is not None else current()
     if c is not None:
         rec["trace"] = c.trace_id
         rec["span"] = c.span_id
@@ -206,6 +225,7 @@ def record(name: str, ctx: Optional[TraceContext] = None,
 
 def ring_entries() -> Tuple[Dict[str, Any], ...]:
     """The ring's entries, oldest first."""
+    telemetry.run_deferred()
     with _rec_lock:
         return tuple(_ring)
 
@@ -222,6 +242,7 @@ def dump(reason: str,
     if not d:
         return None
     reason = re.sub(r"[^A-Za-z0-9_.-]+", "_", str(reason)) or "dump"
+    telemetry.run_deferred()
     with _rec_lock:
         _dump_seq += 1
         seq = _dump_seq
