@@ -27,6 +27,7 @@ def test_a_short_run_reports_both_sides_and_every_stage():
     assert e["requests_each"] == 40
     for side in ("traced", "untraced"):
         assert 0 < e[f"{side}_ms"]["p50"] <= e[f"{side}_ms"]["p99"]
+        assert 0 <= e[f"{side}_hedged"] < 40
         parts = e[f"{side}_parts_median_us"]
         assert tuple(parts) == trace_cost.PARTS
         assert all(v > 0 for v in parts.values())

@@ -204,23 +204,32 @@ PARTS = ("pre_submit", "submit", "wire_and_replica", "post_answer")
 def end_to_end(router, pairs: int, seed: int = 600) -> Dict[str, object]:
     """``pairs`` one-row requests at each rate, interleaved request by
     request after 16 warm requests and 200 at rate 0; each side's p50
-    and p99, and the median of each of its requests' :data:`PARTS`."""
+    and p99, and the median of each of its requests' :data:`PARTS`
+    (over the requests answered before the hedge threshold; the others
+    are counted, ``*_hedged``)."""
     gen = np.random.default_rng(seed)
     prev = os.environ.get(knobs.TRACE_SAMPLE)
     marks: Dict[str, float] = {}
     parts: Dict[int, list] = {1: [], 0: []}
+    hedged = {1: 0, 0: 0}
 
     def one(rate) -> float:
         os.environ[knobs.TRACE_SAMPLE] = str(rate)
+        marks.clear()
         t0 = time.perf_counter()
         a = router.request("alpha", ROW, timeout=30)
         t1 = time.perf_counter()
         if "probs" not in a:
             raise RuntimeError(f"trace cost: a request failed: {a}")
-        parts[rate].append((marks["submit"] - t0,
-                            marks["sent"] - marks["submit"],
-                            marks["answered"] - marks["sent"],
-                            t1 - marks["answered"]))
+        if "answered" in marks:
+            parts[rate].append((marks["submit"] - t0,
+                                marks["sent"] - marks["submit"],
+                                marks["answered"] - marks["sent"],
+                                t1 - marks["answered"]))
+        else:
+            # it outlived the hedge threshold: its answer came through
+            # the hedged fan-in, which the four parts do not describe
+            hedged[rate] += 1
         return t1 - t0
 
     undo = _marked(router, marks)
@@ -231,6 +240,7 @@ def end_to_end(router, pairs: int, seed: int = 600) -> Dict[str, object]:
             one(0)
         lats: Dict[int, list] = {1: [], 0: []}
         parts[0].clear()
+        hedged[0] = 0
         for _ in range(pairs):
             for rate in gen.permutation([1, 0]):
                 lats[int(rate)].append(one(int(rate)))
@@ -251,8 +261,10 @@ def end_to_end(router, pairs: int, seed: int = 600) -> Dict[str, object]:
     res["p50_delta_us"] = 1e3 * (res["traced_ms"]["p50"]
                                  - res["untraced_ms"]["p50"])
     for rate, side in ((1, "traced"), (0, "untraced")):
-        med = np.median(1e6 * np.asarray(parts[rate]), axis=0)
+        med = np.median(1e6 * np.asarray(parts[rate]), axis=0) \
+            if parts[rate] else [float("nan")] * len(PARTS)
         res[f"{side}_parts_median_us"] = dict(zip(PARTS, map(float, med)))
+        res[f"{side}_hedged"] = hedged[rate]
     return res
 
 
