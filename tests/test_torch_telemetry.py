@@ -273,41 +273,26 @@ def test_trace_lines_wait_off_the_emitting_thread_in_order(tmp_path,
         [0, 1, 2, 3, 4]
 
 
-def test_a_deferred_event_is_stamped_at_its_call_and_seen_by_every_reader(
-        tmp_path, monkeypatch):
-    """``event_later`` and ``trace.record_later`` (a traced request's
-    records once its answer came): the clocks and the provider's trace
-    are read at the call and the rest waits off the calling thread; the
-    ring, a flush, the flight recorder's ring see it; past
-    ``TRACE_PENDING_MAX`` waiting, the caller runs it all."""
-    from veles_tpu_torch import trace
+def test_trace_lines_waiting_at_reset_reach_the_old_journal(tmp_path):
+    """``reset`` closes the journal: the ``trace.*`` lines still waiting
+    are written to it first, none dropped.  An event that names its own
+    trace and span does not ask the provider; one that names none gets
+    the provider's."""
     d = str(tmp_path)
     telemetry.configure(d)
-    telemetry.set_trace_provider(lambda: ("tr9", "sp9"))
-    t0 = time.monotonic()
-    telemetry.event_later("trace.hop", n=1)
-    trace.record_later("hop.ring", n=1)
-    t1 = time.monotonic()
-    telemetry.set_trace_provider(None)
-    assert len(telemetry._deferred) == 2
-    evs = telemetry.recent_events("trace.hop")
-    assert not telemetry._deferred
-    assert [(e["n"], e["trace"], e["span"]) for e in evs] == \
-        [(1, "tr9", "sp9")]
-    assert t0 - 1e-6 <= evs[0]["mono"] <= t1 + 1e-6
-    ring = [e for e in trace.ring_entries() if e["ev"] == "hop.ring"]
-    assert ring[-1]["n"] == 1 and t0 - 1e-6 <= ring[-1]["mono"] <= t1 + 1e-6
-    telemetry.event_later("trace.hop", n=2)
-    telemetry.flush()
+    asked = []
+    telemetry.set_trace_provider(
+        lambda: asked.append(1) or ("tr9", "sp9"))
+    telemetry.event("trace.hop", trace="t1", span="s1", n=1)
+    telemetry.event("trace.hop", n=2)
+    assert len(asked) == 1 and len(telemetry._trace_pending) == 2
+    os.environ.pop(telemetry.ENV_DIR, None)
+    telemetry.reset()
+    assert not telemetry._trace_pending and telemetry.metrics_dir() is None
     jf = os.path.join(d, f"journal-{os.getpid()}.jsonl")
-    assert [json.loads(ln)["n"] for ln in open(jf)
-            if json.loads(ln)["event"] == "trace.hop"] == [1, 2]
-    monkeypatch.setattr(telemetry, "TRACE_PENDING_MAX", 2)
-    for n in range(3, 6):
-        telemetry.event_later("trace.hop", n=n)
-    assert not telemetry._deferred   # the third ran them on its caller
-    assert [e["n"] for e in telemetry._recent
-            if e["event"] == "trace.hop"] == [1, 2, 3, 4, 5]
+    assert [(r["n"], r["trace"], r["span"])
+            for r in map(json.loads, open(jf))] == \
+        [(1, "t1", "s1"), (2, "tr9", "sp9")]
 
 
 def test_concurrent_writer_torture(tmp_path):

@@ -62,6 +62,27 @@ def test_mint_rate_bounds(raw, sampled):
     assert ref_trace.mint({"VELES_TRACE_SAMPLE": raw}).sampled is sampled
 
 
+def test_a_forked_child_draws_ids_of_its_own():
+    """The ids' generator is seeded again in a forked child (no system
+    call an id to notice the fork): the child's next id is not the one
+    its parent draws next."""
+    code = ("import os\n"
+            "from veles_tpu_torch import trace\n"
+            "trace.new_span_id()\n"
+            "r, w = os.pipe()\n"
+            "pid = os.fork()\n"
+            "if pid == 0:\n"
+            "    os.write(w, trace.new_span_id().encode())\n"
+            "    os._exit(0)\n"
+            "os.waitpid(pid, 0)\n"
+            "print(os.read(r, 64).decode(), trace.new_span_id())\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    child, parent = proc.stdout.split()
+    assert len(child) == len(parent) == 8 and child != parent
+
+
 def test_child_keeps_trace_parents_span():
     root = trace.TraceContext("aa" * 8)
     kid = root.child()

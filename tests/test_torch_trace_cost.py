@@ -10,7 +10,6 @@ import sys
 
 import numpy as np
 
-from veles_tpu_torch.tools import trace_cost
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -27,15 +26,11 @@ def test_a_short_run_reports_both_sides_and_every_stage():
     assert e["requests_each"] == 40
     for side in ("traced", "untraced"):
         assert 0 < e[f"{side}_ms"]["p50"] <= e[f"{side}_ms"]["p99"]
-        assert 0 <= e[f"{side}_hedged"] < 40
-        parts = e[f"{side}_parts_median_us"]
-        assert tuple(parts) == trace_cost.PARTS
-        assert all(v > 0 for v in parts.values())
     assert np.isclose(e["p50_ratio"], e["traced_ms"]["p50"]
                       / e["untraced_ms"]["p50"])
     stages = rec["stages_us"]
     assert {"mint", "leg_span", "wire_encode", "trace_leg",
-            "trace_request", "deferred", "wire_decode", "from_wire_span",
+            "trace_request", "wire_decode", "from_wire_span",
             "hive_record", "trace_serve", "trace_batch",
             "journal_line"} <= set(stages)
     assert all(np.isfinite(v) for v in stages.values())

@@ -33,12 +33,10 @@ def normalize_npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def save_members(path: str, members: List[Dict[str, Any]],
-                 compress: bool = True) -> str:
+def save_members(path: str, members: List[Dict[str, Any]]) -> str:
     """Serialize member dicts (``params``, ``seed``, ``valid_error``,
-    ``forward_names``, optional ``values``) to one npz, compressed
-    unless ``compress`` is False; returns the on-disk path (numpy
-    appends ``.npz`` when missing).  Either kind loads the same way."""
+    ``forward_names``, optional ``values``) to one npz; returns the
+    on-disk path (numpy appends ``.npz`` when missing)."""
     if not members:
         raise ValueError("empty ensemble")
     arrays: Dict[str, np.ndarray] = {}
@@ -57,7 +55,9 @@ def save_members(path: str, members: List[Dict[str, Any]],
                     np.asarray(arr)
     arrays[_META] = np.frombuffer(json.dumps(meta).encode(),
                                   np.uint8).copy()
-    (np.savez_compressed if compress else np.savez)(path, **arrays)
+    # stored, not deflated: float weights deflate slowly and hardly at
+    # all (np.load reads the reference's compressed files the same way)
+    np.savez(path, **arrays)
     return normalize_npz_path(path)
 
 
@@ -87,10 +87,8 @@ def pack_ensemble(out_path: str, name: str,
     """A Forge package whose snapshot is the members npz and whose
     entry is ``workflow_file``."""
     with tempfile.TemporaryDirectory() as tmp:
-        # float weights deflate slowly and hardly at all: the package
-        # (a gzip container, see ForgePackage.pack) holds them stored
         npz = save_members(os.path.join(tmp, f"{name}_members.npz"),
-                           members, compress=False)
+                           members)
         return ForgePackage.pack(
             out_path, name, workflow_file, config_files=config_files,
             snapshot=npz, version=version, author=author,

@@ -298,15 +298,13 @@ class FleetRouter:
                 outcome = ("shed" if resp.get("overloaded")
                            else "timeout" if resp.get("timeout")
                            else "error" if "error" in resp else "ok")
-                # stamped here, recorded off this thread: the caller is
-                # waiting for its answer
-                telemetry.event_later(
+                telemetry.event(
                     events.EV_TRACE_REQUEST, trace=ctx.trace_id,
                     span=ctx.span_id, model=model, rows=int(len(rows)),
                     outcome=outcome,
                     seconds=round(time.perf_counter() - t0, 6))
-                trace.record_later("fleet.request", ctx=ctx, model=model,
-                                   outcome=outcome)
+                trace.record("fleet.request", ctx=ctx, model=model,
+                             outcome=outcome)
         return resp
 
     def _dispatch(self, model: str, rows: Any,
@@ -378,7 +376,7 @@ class FleetRouter:
                       winner: bool = False) -> None:
             if lctx is None:
                 return
-            telemetry.event_later(
+            telemetry.event(
                 events.EV_TRACE_LEG, trace=lctx.trace_id,
                 span=lctx.span_id, parent=lctx.parent_id,
                 replica=rep.idx, verdict=verdict,

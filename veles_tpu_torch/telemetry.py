@@ -21,11 +21,6 @@ Counterpart of ``veles_tpu/telemetry.py``:
   host's clock only: it never waits for the device.
 - :func:`event` appends a state transition to an in-memory ring that
   :func:`recent_events` reads, and to the journal.
-  :func:`event_later` reads the clocks (and the trace) at its call and
-  leaves the rest to the flush thread (:func:`defer`): the fleet
-  router's records of a traced request, made once its answer came,
-  while its caller waits.  Every reader of the ring or the journal
-  runs the deferred work first.
 
 One process-wide :class:`Registry`; :func:`snapshot` is what a hive
 answers ``op=stats`` with (``counters``, ``gauges``, ``histograms``),
@@ -397,7 +392,6 @@ def metrics_dir() -> Optional[str]:
 
 def _close_journal() -> None:
     global _journal_file
-    run_deferred()
     with _journal_lock:
         _write_pending()
         if _journal_file is not None:
@@ -528,80 +522,28 @@ def event(name: str, **fields: Any) -> None:
     (``mono``: ``veles_tpu/obs.py`` interleaves processes by it), and
     with ``trace``/``span`` where a trace provider names them (the
     caller's own fields win)."""
-    if _enabled:
-        _event_at(name, _with_trace(fields), time.time(), time.monotonic())
-
-
-def event_later(name: str, **fields: Any) -> None:
-    """:func:`event` with its clocks and trace read now, and the rest
-    (the record, the ring, the journal) run off this thread
-    (:func:`defer`): for a thread whose caller is waiting, such as a
-    traced request's after its answer came."""
-    if _enabled:
-        defer(_event_at, name, _with_trace(fields), time.time(),
-              time.monotonic())
-
-
-def _with_trace(fields: Dict[str, Any]) -> Dict[str, Any]:
-    """``fields`` with the provider's trace and span where the caller
-    named none (every ``trace.*`` event names its own)."""
-    if _trace_provider is None or ("trace" in fields and "span" in fields):
-        return fields
-    try:
-        t = _trace_provider()
-    except Exception:  # noqa: BLE001 — tracing never breaks the journal
-        t = None
-    if t is not None:
-        fields.setdefault("trace", t[0])
-        fields.setdefault("span", t[1])
-    return fields
-
-
-def _event_at(name: str, fields: Dict[str, Any], wall: float,
-              mono: float) -> None:
-    rec: Dict[str, Any] = {"ts": round(wall, 3), "mono": round(mono, 6),
+    if not _enabled:
+        return
+    rec: Dict[str, Any] = {"ts": round(time.time(), 3),
+                           "mono": round(time.monotonic(), 6),
                            "event": name}
     rec.update(fields)
+    # every ``trace.*`` event names its own trace and span
+    if _trace_provider is not None and not ("trace" in fields
+                                            and "span" in fields):
+        try:
+            t = _trace_provider()
+        except Exception:  # noqa: BLE001 — tracing never breaks the
+            t = None       # journal
+        if t is not None:
+            rec.setdefault("trace", t[0])
+            rec.setdefault("span", t[1])
     _recent.append(rec)
     _journal(rec, name.startswith("trace."))
     _maybe_flush()
 
 
-#: work handed over by a thread whose caller is waiting
-#: (:func:`event_later`, ``trace.record_later``), its clocks already
-#: read: the flush thread runs it, and so does every reader of the ring
-#: or the journal first (:func:`run_deferred`), so none sees it missing
-_deferred: deque = deque()
-
-
-def defer(fn: Any, *args: Any) -> None:
-    """Run ``fn(*args)`` off the calling thread (see :data:`_deferred`);
-    past :data:`TRACE_PENDING_MAX` waiting, the caller runs them all."""
-    _deferred.append((fn, args))
-    if len(_deferred) > TRACE_PENDING_MAX:
-        run_deferred()
-    else:
-        _maybe_flush()
-
-
-def run_deferred() -> None:
-    """Run the deferred work, oldest first, offering the GIL back every
-    :data:`TRACE_WRITE_CHUNK` items (the flush thread runs seconds'
-    worth at once, beside the serving threads)."""
-    n = 0
-    while True:
-        try:
-            fn, args = _deferred.popleft()
-        except IndexError:
-            return
-        fn(*args)
-        n += 1
-        if n % TRACE_WRITE_CHUNK == 0:
-            time.sleep(0)
-
-
 def recent_events(name: Optional[str] = None) -> List[Dict[str, Any]]:
-    run_deferred()
     evs = list(_recent)
     if name is not None:
         evs = [e for e in evs if e.get("event") == name]
@@ -658,7 +600,6 @@ def flush() -> Optional[str]:
     nothing written, without a metrics dir; never raises on a file
     error."""
     global _last_flush
-    run_deferred()
     d = _dir
     if not d:
         return None
@@ -760,7 +701,6 @@ def reset() -> None:
     slate); references held elsewhere stay wired."""
     global _dir, _last_flush
     _registry.reset()
-    _deferred.clear()
     _recent.clear()
     _close_journal()
     _dir = knobs.get(ENV_DIR) or None

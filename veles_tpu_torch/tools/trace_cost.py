@@ -13,17 +13,15 @@ metrics dir, as ``chip_smoke.py``'s tracing pair serves it:
 - **End to end**: one one-row request at a time, ``$VELES_TRACE_SAMPLE``
   1 and 0 interleaved request by request (each two consecutive requests
   one at each rate, in a seeded random order), ``--pairs`` of each after
-  a warm-up and a burn-in at rate 0; each side's p50 and p99, the
-  traced-over-untraced ratios, and the median of each request's four
-  parts (the router before the client's submit, the submit, the wire
-  and the replica, the router after the answer).
+  a warm-up and a burn-in at rate 0; each side's p50 and p99 and the
+  traced-over-untraced ratios.  Only the router's public ``request`` is
+  called.
 - **Stages**: each piece of work a traced request adds, timed alone in
   this process over ``--stage-calls`` calls (the best of 5 rounds, in
   microseconds a call), with the journal configured as the router's and
   the replicas' are: on the router, minting, the leg's span, the wire
   fields' encoding, ``trace.leg`` and ``trace.request`` and the flight
-  recorder (the part on the request's thread; what it hands to the
-  flush thread is ``deferred``), the histogram's exemplar; on a
+  recorder, the histogram's exemplar; on a
   replica, the longer line's decoding, the context off the wire, its
   span parked on the thread, the flight recorder, ``trace.serve`` and
   ``trace.batch``; and a journal line's encoding (``journal_line``, the
@@ -92,30 +90,21 @@ def stage_costs(calls: int) -> Dict[str, float]:
         lambda: json.dumps(trace.to_wire(dict(msg), leg)), calls) \
         - _best_us(lambda: json.dumps(trace.to_wire(dict(msg), None)),
                    calls)
-    # after the answer the router stamps its records and leaves the rest
-    # to the flush thread (``telemetry.event_later``): that rest is timed
-    # apart (``deferred``)
 
     def leg_event():
-        telemetry.event_later(
+        telemetry.event(
             events.EV_TRACE_LEG, trace=leg.trace_id, span=leg.span_id,
             parent=leg.parent_id, replica=0, verdict="ok",
             seconds=0.001234, hedge=False, winner=True)
     out["trace_leg"] = _best_us(leg_event, calls)
 
     def request_event():
-        telemetry.event_later(
+        telemetry.event(
             events.EV_TRACE_REQUEST, trace=root.trace_id, span=root.span_id,
             model="alpha", rows=1, outcome="ok", seconds=0.001234)
-        trace.record_later("fleet.request", ctx=root, model="alpha",
+        trace.record("fleet.request", ctx=root, model="alpha",
                            outcome="ok")
     out["trace_request"] = _best_us(request_event, calls)
-    for _ in range(calls):
-        leg_event()
-        request_event()
-    t0 = time.perf_counter()
-    telemetry.run_deferred()
-    out["deferred"] = 1e6 * (time.perf_counter() - t0) / calls
     out["exemplar"] = _best_us(
         lambda: hist.record(0.001, exemplar=root.trace_id), calls) \
         - _best_us(lambda: hist.record(0.001, exemplar=None), calls)
@@ -166,86 +155,30 @@ def stage_costs(calls: int) -> Dict[str, float]:
     return out
 
 
-def _marked(router, marks: Dict[str, float]) -> Callable[[], None]:
-    """Wrap each replica client's ``submit`` and ``wait_for`` so one
-    request at a time leaves the instants it was handed to a client, its
-    line was written, and its answer reached the router; returns the
-    undo."""
-    saved = []
-    for rep in router.replicas:
-        c = rep.client
-        sub, wait = c.submit, c.wait_for
-
-        def submit(*a, _f=sub, **k):
-            marks["submit"] = time.perf_counter()
-            jid = _f(*a, **k)
-            marks["sent"] = time.perf_counter()
-            return jid
-
-        def wait_for(*a, _f=wait, **k):
-            msg = _f(*a, **k)
-            marks["answered"] = time.perf_counter()
-            return msg
-        c.submit, c.wait_for = submit, wait_for
-        saved.append(c)
-
-    def undo() -> None:
-        for c in saved:
-            del c.submit, c.wait_for
-    return undo
-
-
-#: a request's four parts: the router before the client's submit, the
-#: submit (encoding and writing the line), the wire and the replica up
-#: to the answer's arrival, and the router after it
-PARTS = ("pre_submit", "submit", "wire_and_replica", "post_answer")
-
-
 def end_to_end(router, pairs: int, seed: int = 600) -> Dict[str, object]:
     """``pairs`` one-row requests at each rate, interleaved request by
     request after 16 warm requests and 200 at rate 0; each side's p50
-    and p99, and the median of each of its requests' :data:`PARTS`
-    (over the requests answered before the hedge threshold; the others
-    are counted, ``*_hedged``)."""
+    and p99."""
     gen = np.random.default_rng(seed)
     prev = os.environ.get(knobs.TRACE_SAMPLE)
-    marks: Dict[str, float] = {}
-    parts: Dict[int, list] = {1: [], 0: []}
-    hedged = {1: 0, 0: 0}
 
     def one(rate) -> float:
         os.environ[knobs.TRACE_SAMPLE] = str(rate)
-        marks.clear()
         t0 = time.perf_counter()
         a = router.request("alpha", ROW, timeout=30)
         t1 = time.perf_counter()
         if "probs" not in a:
             raise RuntimeError(f"trace cost: a request failed: {a}")
-        if "answered" in marks:
-            parts[rate].append((marks["submit"] - t0,
-                                marks["sent"] - marks["submit"],
-                                marks["answered"] - marks["sent"],
-                                t1 - marks["answered"]))
-        else:
-            # it outlived the hedge threshold: its answer came through
-            # the hedged fan-in, which the four parts do not describe
-            hedged[rate] += 1
         return t1 - t0
 
-    undo = _marked(router, marks)
     try:
-        for _ in range(16):
-            one(0)
-        for _ in range(200):
+        for _ in range(16 + 200):
             one(0)
         lats: Dict[int, list] = {1: [], 0: []}
-        parts[0].clear()
-        hedged[0] = 0
         for _ in range(pairs):
             for rate in gen.permutation([1, 0]):
                 lats[int(rate)].append(one(int(rate)))
     finally:
-        undo()
         if prev is None:
             os.environ.pop(knobs.TRACE_SAMPLE, None)
         else:
@@ -260,11 +193,6 @@ def end_to_end(router, pairs: int, seed: int = 600) -> Dict[str, object]:
     res["p99_ratio"] = res["traced_ms"]["p99"] / res["untraced_ms"]["p99"]
     res["p50_delta_us"] = 1e3 * (res["traced_ms"]["p50"]
                                  - res["untraced_ms"]["p50"])
-    for rate, side in ((1, "traced"), (0, "untraced")):
-        med = np.median(1e6 * np.asarray(parts[rate]), axis=0) \
-            if parts[rate] else [float("nan")] * len(PARTS)
-        res[f"{side}_parts_median_us"] = dict(zip(PARTS, map(float, med)))
-        res[f"{side}_hedged"] = hedged[rate]
     return res
 
 
@@ -324,9 +252,6 @@ def main(argv=None) -> int:
               f"{e['untraced_ms']['p50']:.4f} / p99 "
               f"{e['untraced_ms']['p99']:.4f} ms: ratios p50 "
               f"{e['p50_ratio']:.4f}, p99 {e['p99_ratio']:.4f}")
-        for side in ("traced", "untraced"):
-            print(f"{side} parts (median us): "
-                  f"{e[side + '_parts_median_us']}")
     print(json.dumps(rec), flush=True)
     return 0
 

@@ -198,23 +198,10 @@ def record(name: str, ctx: Optional[TraceContext] = None,
     """Append one entry to the always-armed ring.  No I/O: the hot path
     (each request leg, each dispatch) may call it freely; the entry
     leaves memory only on :func:`dump`."""
-    _record_at(name, ctx if ctx is not None else current(), fields,
-               time.time(), time.monotonic())
-
-
-def record_later(name: str, ctx: Optional[TraceContext] = None,
-                 **fields: Any) -> None:
-    """:func:`record` with its clocks and context read now and the entry
-    appended off this thread (``telemetry.defer``)."""
-    telemetry.defer(_record_at, name,
-                    ctx if ctx is not None else current(), fields,
-                    time.time(), time.monotonic())
-
-
-def _record_at(name: str, c: Optional[TraceContext],
-               fields: Dict[str, Any], wall: float, mono: float) -> None:
-    rec: Dict[str, Any] = {"ts": round(wall, 3), "mono": round(mono, 6),
+    rec: Dict[str, Any] = {"ts": round(time.time(), 3),
+                           "mono": round(time.monotonic(), 6),
                            "ev": name}
+    c = ctx if ctx is not None else current()
     if c is not None:
         rec["trace"] = c.trace_id
         rec["span"] = c.span_id
@@ -225,7 +212,6 @@ def _record_at(name: str, c: Optional[TraceContext],
 
 def ring_entries() -> Tuple[Dict[str, Any], ...]:
     """The ring's entries, oldest first."""
-    telemetry.run_deferred()
     with _rec_lock:
         return tuple(_ring)
 
@@ -242,7 +228,6 @@ def dump(reason: str,
     if not d:
         return None
     reason = re.sub(r"[^A-Za-z0-9_.-]+", "_", str(reason)) or "dump"
-    telemetry.run_deferred()
     with _rec_lock:
         _dump_seq += 1
         seq = _dump_seq
