@@ -5015,8 +5015,11 @@ def _fleet_alexnet(card: str, workdir: str, pkg: str) -> dict:
             time.sleep(0.005)
         on_victim = router.replicas[1].inflight
         t_kill = time.monotonic()
-        kill_wall = time.time()
         router.replicas[1].client.proc.kill()
+        # the wall clock once the signal is sent: ``Popen.kill`` polls
+        # the child first and may lose the GIL to this phase's request
+        # threads for tens of ms, in which the victim can still flush
+        kill_wall = time.time()
         for t in ts:
             t.join(600)
         check(not errs and len(got) == FLEET_KILL_INFLIGHT,
