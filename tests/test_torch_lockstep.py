@@ -1,5 +1,7 @@
 """The port's lock-order witness (``veles_tpu_torch/analysis/witness.py``)
-against the reference's law (``veles_tpu/analysis/lock_order.json``).
+against the port's law (``veles_tpu_torch/analysis/lock_order.json``,
+which the port's veleslint derives from the port's tree) and the
+reference's (``veles_tpu/analysis/lock_order.json``).
 
 The ``TestWitnessUnit`` scenarios of ``tests/test_lockstep.py`` run
 through the port's witness: switched off, a factory returns the bare
@@ -7,10 +9,11 @@ primitive; edges record and unwind last in, first out; a condition's
 wait releases; the snapshot round trip.  Every lock of the port is made
 through the factories under a name the port declares
 (:data:`witness.LOCK_NAMES`): the reference's, or one of the port's own
-three below.  Then real execution under the witness, an in-process
-batcher and sentinel and an armed ``-b cpu`` hive subprocess, observes
-only edges the reference's law declares, together with
-:data:`PORT_ONLY_EDGES`.
+three below.  The port's law names exactly those locks, and its edges
+are the reference's law's, together with :data:`PORT_ONLY_EDGES`.  Then
+real execution under the witness, an in-process batcher and sentinel
+and an armed ``-b cpu`` hive subprocess, observes only edges the port's
+law declares.
 """
 
 import ast
@@ -21,12 +24,14 @@ import time
 
 import numpy as np
 
-from veles_tpu.analysis import flow
-from veles_tpu_torch.analysis import witness
+from veles_tpu.analysis import flow as ref_flow
+from veles_tpu_torch.analysis import flow, witness
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "veles_tpu_torch")
-LAW_PATH = os.path.join(REPO, "veles_tpu", "analysis", "lock_order.json")
+LAW_PATH = os.path.join(PKG, "analysis", "lock_order.json")
+REF_LAW_PATH = os.path.join(REPO, "veles_tpu", "analysis",
+                            "lock_order.json")
 
 #: locks only the port has, and why
 PORT_ONLY_LOCKS = {
@@ -47,17 +52,21 @@ PORT_ONLY_LOCKS = {
 #: the other locks nest as the reference's do)
 PORT_ONLY_EDGES = set()
 
-#: the reference's locks the port does not have: its web status page
-#: (ROADMAP item 9e) is not ported
-NOT_PORTED_LOCKS = {"web_status.state"}
+#: the reference's locks the port does not have (none: its web status
+#: page's came with the port's web_status.py)
+NOT_PORTED_LOCKS = set()
 
 
 def _law():
     return flow.load_lock_order(LAW_PATH)
 
 
+def _ref_law():
+    return ref_flow.load_lock_order(REF_LAW_PATH)
+
+
 def _allowed_edges():
-    return flow.declared_edges(_law()) | PORT_ONLY_EDGES
+    return flow.declared_edges(_law())
 
 
 def _factory_calls():
@@ -94,9 +103,10 @@ def test_every_port_lock_is_named_through_the_factories():
     # as are the primitives its factories return
     assert all(w.startswith("analysis/witness.py") for w in bare), bare
     names = [n for n, _, _ in calls]
-    assert len(names) == len(set(names)) == 26, sorted(names)
+    assert len(names) == len(set(names)) == 27, sorted(names)
     assert set(names) == witness.LOCK_NAMES
-    ref_nodes = {n["name"]: n["kind"] for n in _law()["nodes"]}
+    assert {n["name"] for n in _law()["nodes"]} == witness.LOCK_NAMES
+    ref_nodes = {n["name"]: n["kind"] for n in _ref_law()["nodes"]}
     assert set(ref_nodes) - NOT_PORTED_LOCKS | set(PORT_ONLY_LOCKS) == \
         witness.LOCK_NAMES
     # the same primitive kind as the reference's
@@ -115,6 +125,9 @@ def test_the_law_with_the_port_edges_is_acyclic():
         graph.setdefault(a, set()).add(b)
     assert not _cycle(graph)
     assert _cycle({"a": {"b"}, "b": {"a"}})
+    # the port nests its locks as the reference does
+    assert _allowed_edges() <= \
+        ref_flow.declared_edges(_ref_law()) | PORT_ONLY_EDGES
 
 
 def _cycle(graph) -> bool:

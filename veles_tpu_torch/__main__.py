@@ -2,8 +2,9 @@
 
     python -m veles_tpu_torch [--supervise] [-b auto|cuda|cpu] [-s SEED]
         [--snapshot FILE] [--profile DIR] [--metrics-dir DIR]
-        [--log-events FILE] WORKFLOW.py [CONFIG.py ...]
-        [root.x.y=value ...]
+        [--log-events FILE] [-p] [--plots-endpoint ENDPOINT]
+        [--status-server URL] [-v] [--dump-config] WORKFLOW.py
+        [CONFIG.py ...] [root.x.y=value ...]
     python -m veles_tpu_torch --optimize POP:GEN [-b auto|cuda|cpu|
         cuda-evaluator|cpu-evaluator] [--ga-workers N] [--ga-cohort N]
         [--ga-state FILE] [--ga-eval-timeout S] [--heartbeat-deadline S]
@@ -37,7 +38,19 @@ run's telemetry in DIR (``metrics-<pid>.json`` snapshots and
 ``$VELES_METRICS_DIR``, so GA evaluators and a supervised child write
 there too), and ``--log-events FILE`` appends every ``veles.*`` log
 record to FILE as one JSON line.  ``python -m
-veles_tpu_torch.tools.obs_report DIR`` renders such a dir.
+veles_tpu_torch.tools.obs_report DIR`` renders such a dir.  ``-p``
+renders the standard plots (error and loss curves, the confusion
+matrix, the first layer's weights) once per epoch to
+``$VELES_PLOTS_DIR`` (``plots``), and ``--plots-endpoint ENDPOINT``
+also publishes them on a zmq PUB socket for
+``python -m veles_tpu_torch.graphics_client``; ``-p`` needs
+``matplotlib`` and ``--plots-endpoint`` ``zmq``, and each is refused
+(exit 2, naming the package) where it does not import, before anything
+touches the card.  ``--status-server URL`` POSTs the run's status after
+every epoch to a web status page (``python -m
+veles_tpu_torch.web_status``).  ``-v`` logs at DEBUG, and
+``--dump-config`` prints the configuration tree after the config files
+and overrides, and exits.
 
 ``--optimize POP:GEN`` tunes the config values wrapped in ``Tune(...)``
 (``veles_tpu_torch/genetics/``): a population of POP genomes for GEN
@@ -147,7 +160,39 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--ensemble-test: 'auto' predicts with the engine "
                         "on the run's device, 'host' with the CPU member "
                         "loop (the oracle)")
+    p.add_argument("-p", "--plotters", action="store_true",
+                   help="render per-epoch plots (error and loss curves, "
+                        "confusion, weight tiles) to $VELES_PLOTS_DIR; "
+                        "needs matplotlib")
+    p.add_argument("--plots-endpoint", default=None,
+                   help="also publish plot events on this zmq PUB "
+                        "endpoint for graphics_client viewers (implies "
+                        "-p); needs zmq")
+    p.add_argument("--status-server", default=None, metavar="URL",
+                   help="POST the run's status after every epoch to this "
+                        "web status page (http://host:port)")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="log at DEBUG")
+    p.add_argument("--dump-config", action="store_true",
+                   help="print the configuration tree and exit")
     return p
+
+
+def missing_plot_packages(args) -> Optional[str]:
+    """The message refusing ``-p`` without matplotlib or
+    ``--plots-endpoint`` without zmq; None when both import."""
+    need = []
+    if args.plotters or args.plots_endpoint:
+        need.append(("matplotlib", "-p"))
+    if args.plots_endpoint:
+        need.append(("zmq", "--plots-endpoint"))
+    for package, flag in need:
+        try:
+            __import__(package)
+        except ImportError as e:
+            return (f"{flag} needs {package}, which does not import "
+                    f"here ({e})")
+    return None
 
 
 def main(argv=None) -> int:
@@ -171,11 +216,16 @@ def main(argv=None) -> int:
     overrides = [a for a in argv if is_override(a)]
     args = build_parser().parse_args([a for a in argv
                                       if a not in overrides])
-    logging.basicConfig(level=logging.INFO,
+    refused = missing_plot_packages(args)
+    if refused:
+        print(refused, file=sys.stderr)
+        return 2
+    level = logging.DEBUG if args.verbose else logging.INFO
+    logging.basicConfig(level=level,
                         format="%(levelname)s %(name)s: %(message)s")
     from veles_tpu_torch import telemetry
     from veles_tpu_torch.logger import add_jsonl_sink, setup_logging
-    setup_logging()
+    setup_logging(level)
     if args.log_events:
         atexit.register(add_jsonl_sink(args.log_events))
     if args.metrics_dir:
@@ -188,6 +238,15 @@ def main(argv=None) -> int:
     for cf in config_files:
         apply_config_file(cf)
     parse_overrides(overrides)
+    if args.dump_config:
+        from veles_tpu_torch.config import root
+        root.print_()
+        return 0
+    if args.plots_endpoint:
+        from veles_tpu_torch import graphics_server
+        graphics_server.get_server().endpoint = args.plots_endpoint
+        graphics_server.get_server().bind()
+        args.plotters = True   # an endpoint without plotters is silence
     if args.optimize:
         return run_optimizer(args, workflow_file, config_files, overrides)
     if args.backend.endswith("-evaluator"):
@@ -196,7 +255,10 @@ def main(argv=None) -> int:
     if args.ensemble_train is not None or args.ensemble_test:
         return run_ensemble(args, workflow_file)
     launcher = Launcher(backend=args.backend, seed=args.seed,
-                        snapshot=args.snapshot, profile=args.profile)
+                        snapshot=args.snapshot, profile=args.profile,
+                        plotters=args.plotters,
+                        status_server=args.status_server,
+                        verbose=args.verbose)
     try:
         drive_workflow(launcher, workflow_file)
     except SnapshotCorruptError as e:

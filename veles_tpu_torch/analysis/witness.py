@@ -1,14 +1,15 @@
 """The lock-order witness (the port's copy of
 ``veles_tpu/analysis/witness.py``).
 
-The reference derives its lock acquisition graph from the AST and keeps
-it as ``veles_tpu/analysis/lock_order.json``, the reviewed statement of
-the locking law.  This module watches the real locks at run time: when
+The port's veleslint (``veles_tpu_torch/analysis/flow.py``) derives the
+lock acquisition graph from the port's AST and keeps it as
+``veles_tpu_torch/analysis/lock_order.json``, the reviewed statement of
+the port's locking law, whose nodes are exactly :data:`LOCK_NAMES`.
+This module watches the real locks at run time: when
 ``$VELES_LOCK_WITNESS`` is set, every instrumented acquire records
 ``(already-held lock, acquired lock)`` pairs into a process-wide table,
-and a tier-1 test asserts every observed edge of the port is declared in
-that law or in the port's own short list (``tests/
-test_torch_lockstep.py``).
+and a tier-1 test (``tests/test_torch_lockstep.py``) and the card's
+fleet phase assert every observed edge is declared in that law.
 
 Instrumentation is by construction: the thread-spawning modules make
 their locks through the factories here (``witness.lock("batcher.queue")``
@@ -38,10 +39,10 @@ from veles_tpu_torch import knobs
 ENV_VAR = knobs.LOCK_WITNESS
 
 #: every name the port gives a lock through the factories below: the
-#: reference's (``veles_tpu/analysis/lock_order.json``, less its web
-#: status page's, not ported) and three of the port's own, whose locks
-#: the reference does not have (``tests/test_torch_lockstep.py`` pins
-#: this set to the factory calls in the source)
+#: reference's (``veles_tpu/analysis/lock_order.json``) and three of the
+#: port's own, whose locks the reference does not have
+#: (``tests/test_torch_lockstep.py`` pins this set to the factory calls
+#: in the source, and the lock-order rule to the port's law)
 LOCK_NAMES = frozenset({
     "autoscale.state", "batcher.queue", "client.results", "client.wire",
     "fleet.replica", "hive.emit", "online.buffer", "online.learner",
@@ -49,7 +50,7 @@ LOCK_NAMES = frozenset({
     "router.emit", "router.state", "sentinel.health",
     "telemetry.counter", "telemetry.histogram", "telemetry.journal",
     "telemetry.registry", "trace.flightrec", "trace.mint",
-    "traffic.results", "worker.emit",
+    "traffic.results", "web_status.state", "worker.emit",
     # the port's own
     "fused.count", "hive.stats", "lrn_cuda.build",
 })

@@ -89,6 +89,16 @@ class Config:
             parsed = value
         setattr(node, leaf, parsed)
 
+    def print_(self, indent: int = 0, file=None) -> None:
+        """Print the tree, keys sorted, as the reference's
+        ``--dump-config`` does."""
+        for k, v in sorted(self.__dict__.items()):
+            if isinstance(v, Config):
+                print("  " * indent + f"{k}:", file=file)
+                v.print_(indent + 1, file=file)
+            else:
+                print("  " * indent + f"{k} = {v!r}", file=file)
+
 
 #: The global configuration tree every workflow/config file mutates.
 root = Config("root")

@@ -11,7 +11,8 @@ This copy holds the knobs the port reads, with the reference's names,
 defaults and types: fault injection and supervision (``FAULTS*``,
 ``PREEMPT_*``, ``SUPERVISE_*``, ``RESUME_MANIFEST``), the GA's
 ``GA_GENERATION``, the observability core's ``METRICS_DIR``, tracing's
-``TRACE_SAMPLE``, ``FLIGHTREC_CAP`` and ``LOCK_WITNESS``, the
+``TRACE_SAMPLE``, ``FLIGHTREC_CAP`` and ``LOCK_WITNESS``, the graphics
+server's ``PLOTS_DIR``, the
 device budgets (``HBM_BUDGET``, ``MAX_RESIDENT_BYTES``), the SOM's
 ``SOM_FUSED`` / ``SOM_SUPERSTEP``, the online-learning tier's, and the
 serving fleet's (the hive's ``SERVE_*``, ``FLEET_*`` and
@@ -40,6 +41,10 @@ class Knob:
         self.default = default
         self.parser = parser
         self.doc = doc
+
+    @property
+    def type_name(self) -> str:
+        return self.parser.__name__
 
     def read(self, environ: Optional[Dict[str, str]] = None) -> Any:
         env = os.environ if environ is None else environ
@@ -73,6 +78,23 @@ def get(name: str, environ: Optional[Dict[str, str]] = None) -> Any:
     """The parsed value of a declared knob (its default when unset or
     malformed).  KeyError for an undeclared name."""
     return KNOBS[name].read(environ)
+
+
+def render_table() -> str:
+    """The knob table (markdown, sorted by name).  ``python -m
+    veles_tpu_torch.tools.veleslint --sync-docs`` writes it between the
+    ``veleslint:knobs`` markers of README.md's port section, and the
+    env-registry rule fails when that copy drifts."""
+    rows = ["| Knob | Default | Type | Meaning |",
+            "| --- | --- | --- | --- |"]
+    for name in sorted(KNOBS):
+        k = KNOBS[name]
+        default = ("on" if k.default else "off") \
+            if k.parser is flag else \
+            ("(unset)" if k.default == "" else repr(k.default))
+        rows.append(f"| `{name}` | {default} | {k.type_name} | "
+                    f"{k.doc} |")
+    return "\n".join(rows) + "\n"
 
 
 # -- robustness and supervision --------------------------------------------
@@ -128,9 +150,13 @@ LOCK_WITNESS = _knob(
     "analysis/witness.py record (holder -> acquired) pairs, flushed "
     "as lockwitness-<pid>.json next to the telemetry snapshot; a "
     "tier-1 test asserts every observed edge is declared in the "
-    "reference's analysis/lock_order.json or the port's own list.  "
+    "port's veles_tpu_torch/analysis/lock_order.json.  "
     "Off (the default) the factories return bare threading "
     "primitives: zero overhead.")
+PLOTS_DIR = _knob(
+    "VELES_PLOTS_DIR", "plots", str,
+    "Output directory of the graphics server's rendered plot "
+    "artifacts.")
 TRACE_SAMPLE = _knob(
     "VELES_TRACE_SAMPLE", 1.0, float,
     "Head-based trace sampling rate in [0, 1]: the fraction of fleet "

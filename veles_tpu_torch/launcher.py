@@ -19,6 +19,11 @@ standalone mode:
   resumes.  If the stop has not landed within ``$VELES_PREEMPT_GRACE``
   seconds (25), the watchdog writes the final snapshot itself and
   exits 14; a second signal exits 14 at once.
+- ``Launcher(plotters=True)`` and ``Launcher(status_server=URL)``:
+  :meth:`Launcher.create_workflow` attaches the standard plotters
+  (``link_plotters``) and a status reporter posting to the web status
+  page at URL (``link_status_reporter``) to a workflow that has them,
+  made or resumed.  ``verbose=True`` logs at DEBUG.
 - ``Launcher(profile=DIR)``: :meth:`Launcher.run` runs the workflow
   inside ``profiling.trace(DIR)`` (a ``torch.profiler`` Chrome trace)
   and then writes the analytic per-layer FLOPs table,
@@ -70,12 +75,19 @@ class Launcher:
 
     def __init__(self, backend: str = "auto", seed: int = 1234,
                  snapshot: Optional[str] = None,
-                 profile: Optional[str] = None) -> None:
+                 profile: Optional[str] = None,
+                 plotters: bool = False,
+                 status_server: Optional[str] = None,
+                 verbose: bool = False) -> None:
         self.backend = backend
         self.snapshot = snapshot
         #: where ``run`` writes its profiler trace and FLOPs table
         self.profile_dir = profile
-        setup_logging()
+        #: attach the standard plotters / a status reporter posting to
+        #: this web status URL to the workflow made or resumed
+        self.plotters = plotters
+        self.status_server = status_server
+        setup_logging(logging.DEBUG if verbose else logging.INFO)
         prng.seed_all(seed)
         self.device = make_device(backend)
         self.workflow = None
@@ -98,6 +110,11 @@ class Launcher:
             self.snapshot_load_seconds = time.perf_counter() - t0
         else:
             self.workflow = factory(self, **kwargs)
+        if self.plotters and hasattr(self.workflow, "link_plotters"):
+            self.workflow.link_plotters()
+        if self.status_server and hasattr(self.workflow,
+                                          "link_status_reporter"):
+            self.workflow.link_status_reporter(self.status_server)
         return self.workflow
 
     def initialize(self) -> None:

@@ -7,10 +7,11 @@ validation error (``improved``), and sets ``complete`` once
 ``max_epochs`` is reached or validation has not improved for
 ``fail_iterations`` epochs.  With an evaluator's confusion matrix, the
 class's matrix is kept in ``confusion_per_class[klass]`` (a host int32
-array, replaced at every end of that class).  ``improved`` and
-``complete`` are plain
-booleans: the port has no ``mutable.Bool`` graph.  All of it is plain
-state that rides in a snapshot as it is.
+array, replaced at every end of that class).  ``epoch_ended_flag`` is
+set by the firing that ended a train class (the plotters' gate).
+``improved``, ``complete`` and ``epoch_ended_flag`` are plain booleans
+the workflow's loop reads.  All of it is plain state that rides in a
+snapshot as it is.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ class DecisionGD:
         self.fail_iterations = fail_iterations
         self.complete = False
         self.improved = False
+        self.epoch_ended_flag = False
         self.loader = None
         #: the fused runner: metrics accumulate on its device
         self.metrics_source = None
@@ -50,9 +52,11 @@ class DecisionGD:
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)
         self.__dict__.setdefault("confusion_per_class", [None, None, None])
+        self.__dict__.setdefault("epoch_ended_flag", False)
 
     def run(self) -> None:
         self.improved = False
+        self.epoch_ended_flag = False
         ld = self.loader
         if not ld.class_ended:
             return
@@ -83,6 +87,7 @@ class DecisionGD:
             self.improved = True
 
     def on_train_ended(self) -> None:
+        self.epoch_ended_flag = True
         # without a validation split, improvement is on train error
         if self.loader.class_lengths[VALID] == 0:
             err = self.epoch_n_err[TRAIN]

@@ -476,12 +476,14 @@ class FusedStepRunner:
         self._acc = self._conf = None
         return float(acc[0]), float(acc[1]), float(acc[2]), conf
 
-    def host_params(self) -> Dict[str, Dict[str, np.ndarray]]:
-        """Current params as host arrays (port layout); pass them through
+    def host_params(self, names=None) -> Dict[str, Dict[str, np.ndarray]]:
+        """Current params as host arrays (port layout), of every forward
+        or of the forwards ``names``; pass them through
         ``convert.params_to_jax`` for a members npz."""
         self._ensure_params()
         return {fn: {pn: self.device.get(t) for pn, t in ps.items()}
-                for fn, ps in self._params.items()}
+                for fn, ps in self._params.items()
+                if names is None or fn in names}
 
     def device_params(self, name: str) -> Dict[str, torch.Tensor]:
         """Forward ``name``'s live f32 master params on the device (no

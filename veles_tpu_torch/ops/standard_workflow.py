@@ -19,14 +19,22 @@ the optional ``LearningRateAdjust``, the fused step and the optional
   snapshot keeps its trained params and draws nothing.
 - :meth:`run` is a plain loop in the order the reference's fused wiring
   gives (``wire_fused``): loader -> lr_adjust -> fused step -> decision
-  -> snapshotter (on a validation improvement), until
-  ``decision.complete``, or until :meth:`request_stop` was called: the
-  loop then stops before the next firing of the loader, where every unit
-  has finished the iteration, so a snapshot taken there resumes exactly.
+  -> snapshotter (on a validation improvement) -> the units attached
+  after the decision, until ``decision.complete``, or until
+  :meth:`request_stop` was called: the loop then stops before the next
+  firing of the loader, where every unit has finished the iteration, so
+  a snapshot taken there resumes exactly.
+- :meth:`link_plotters` attaches the reference's standard plotters
+  (error and loss curves, the confusion matrix where the evaluator
+  computes one, the first layer's weights) and
+  :meth:`link_status_reporter` a unit that POSTs the run's status to a
+  web status page.  Each fires after every decision and runs when a
+  train epoch has just ended (its ``gate_skip``); a resumed workflow
+  derives their gates from its live decision again at
+  :meth:`initialize`, as the reference does at wiring time.
 
-Not ported: the reference's generic unit graph (``workflow.py``,
-``units.py``, ``mutable.py``) and its eager per-unit wiring, and the
-plotters.
+Not ported: the reference's eager per-unit wiring; the loop is not
+driven through the unit graph (``workflow.py``).
 """
 
 from __future__ import annotations
@@ -106,6 +114,9 @@ class StandardWorkflow:
             self.snapshotter = Snapshotter(self, name="snapshotter",
                                            **snapshotter_config)
             self.snapshotter.decision = self.decision
+        #: units fired after the decision (and the snapshotter), in order
+        self._extra_after_decision: list = []
+        self.plotters: list = []
 
     def __getstate__(self) -> dict:
         return dict(self.__dict__, device=None)
@@ -115,12 +126,54 @@ class StandardWorkflow:
         # a graceful stop's snapshot carries its request: never into
         # the resumed run
         self.stop_requested = False
+        self.__dict__.setdefault("_extra_after_decision", [])
+        self.__dict__.setdefault("plotters", [])
+
+    # -- plotters and the status reporter --------------------------------
+
+    def link_plotters(self) -> None:
+        """Attach the standard plotters (reference:
+        ``StandardWorkflow.link_plotters``); a resumed workflow keeps
+        its pickled ones."""
+        if self.plotters:
+            return
+        from veles_tpu_torch.plotting_units import (AccumulatingPlotter,
+                                                    MatrixPlotter,
+                                                    Weights2D)
+        ps = [AccumulatingPlotter(self, name="plt_error"),
+              AccumulatingPlotter(self, field="loss", name="plt_loss")]
+        if getattr(self.evaluator, "compute_confusion", False):
+            ps.append(MatrixPlotter(self, evaluator=self.evaluator,
+                                    name="plt_confusion"))
+        ps.append(Weights2D(self, unit=self.forwards[0],
+                            name="plt_weights"))
+        for p in ps:
+            p.link_decision(self.decision)
+        self._extra_after_decision.extend(ps)
+        self.plotters = ps
+
+    def link_status_reporter(self, url: str,
+                             mode: str = "standalone") -> None:
+        """Attach a per-epoch POST to the web status page at ``url``; a
+        resumed workflow keeps its pickled reporter."""
+        from veles_tpu_torch.web_status import StatusReporter
+        if any(type(u) is StatusReporter
+               for u in self._extra_after_decision):
+            return
+        rep = StatusReporter(self, url=url, mode=mode,
+                             name="status_reporter")
+        rep.link_decision(self.decision)
+        self._extra_after_decision.append(rep)
 
     def initialize(self, device: Any = None, batch: int = 1,
                    train: bool = False) -> None:
         """Bind the device and give every forward its input shape; with
         ``train=True`` also load the data and set up training."""
         self.device = device
+        # derived gates pickle as their momentary values: derive them
+        # from the live decision again
+        for extra in self._extra_after_decision:
+            extra.link_decision(self.decision)
         if train:
             self.loader.superstep = self.superstep
             self.loader.initialize(device)
@@ -155,6 +208,8 @@ class StandardWorkflow:
                 self.decision.run()
                 if self.snapshotter is not None and self.decision.improved:
                     self.snapshotter.run()
+                for extra in self._extra_after_decision:
+                    extra.fire()
         finally:
             self.loader.stop()
             self.fused.stop()

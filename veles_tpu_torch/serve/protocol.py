@@ -1,10 +1,11 @@
 """The registry of JSONL wire-protocol keys (the port's own copy).
 
-Counterpart of ``veles_tpu/serve/protocol.py``, key for key: every
-field name that crosses a serving pipe (hello lines, heartbeats,
-requests, responses, the introspection ops) is declared here, so this
-file is the one place the protocol is enumerated for a reader, and a
-test holds :data:`WIRE_KEYS` equal to the reference's.  Call sites keep
+Counterpart of ``veles_tpu/serve/protocol.py``, key for key, with the
+port's learner counters besides: every field name that crosses a
+serving pipe (hello lines, heartbeats, requests, responses, the
+introspection ops) is declared here, so this file is the one place the
+protocol is enumerated for a reader, and the ``wire-protocol`` lint rule
+(``veles_tpu_torch/analysis``) flags a key sent undeclared.  Call sites keep
 writing ``{"id": jid, ...}`` literals; the registry declares, it does
 not route.  Some keys belong to parts of the reference the port does
 not have yet (the fleet router, traffic traces): the protocol is one.
@@ -132,6 +133,14 @@ K_SHADOW_ERROR_PCT = _k("shadow_error_pct")
 K_INCUMBENT_ERROR_PCT = _k("incumbent_error_pct")
 K_MARGIN = _k("margin")          #: promote margin the gate holds
 K_TIME_TO_SERVE_MS = _k("time_to_serve_ms")
+# the port's learner counters (the hive's op=stats "online" entry)
+K_STEPS_SKIPPED_BUSY = _k("steps_skipped_busy")
+K_GATE_ROUNDS = _k("gate_rounds")
+K_GATE_ABORTS = _k("gate_aborts")
+K_STEP_SECONDS = _k("step_seconds")
+K_STEP_EMA_MS = _k("step_ema_ms")
+K_LABEL_ORPHANS = _k("label_orphans")
+K_LAST_PROMOTION = _k("last_promotion")
 
 # -- the elastic fleet and its degradation ladder ----------------------
 

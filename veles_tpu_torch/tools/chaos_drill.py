@@ -47,8 +47,9 @@ loader and ``multihost.peer_exit`` the multi-card launcher.
 The drills run on the card unless ``-b cpu`` asks for the CPU; without a
 card, ``-b auto`` and ``-b cuda`` exit 1 naming the missing card.  The
 whole matrix runs under the lock-order witness (every child inherits
-``$VELES_LOCK_WITNESS``): the edges it saw must form no cycle and name
-only the port's locks.  Every ejection, promotion and rollback must have
+``$VELES_LOCK_WITNESS``): the edges it saw must form no cycle, name
+only the port's locks and be declared in the port's locking law
+(``veles_tpu_torch/analysis/lock_order.json``).  Every ejection, promotion and rollback must have
 left its flight-recorder dump.  ``--only`` keeps the drills whose name
 holds the substring.  The last stdout line is one JSON object::
 
@@ -1008,23 +1009,28 @@ def _cyclic(edges) -> bool:
 
 def witness_pass(dirs: List[str]) -> dict:
     """The lock-order witness over the matrix: this process's edges and
-    every child's snapshot; they must form no cycle and name only the
-    port's locks (``witness.LOCK_NAMES``)."""
-    from veles_tpu_torch.analysis import witness
+    every child's snapshot; they must form no cycle, name only the
+    port's locks (``witness.LOCK_NAMES``) and be declared in the port's
+    locking law (``veles_tpu_torch/analysis/lock_order.json``)."""
+    from veles_tpu_torch.analysis import flow, witness
     observed = set(witness.observed_edges())
     for mdir in dirs:
         if os.path.isdir(mdir):
             observed |= set(witness.read_snapshots(mdir))
     undeclared = sorted({n for e in observed for n in e}
                         - witness.LOCK_NAMES)
+    law = flow.load_lock_order(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "analysis", "lock_order.json"))
+    outside = sorted(observed - flow.declared_edges(law or {}))
     cycle = _cyclic(observed)
-    ok = not undeclared and not cycle
+    ok = law is not None and not undeclared and not outside and not cycle
     if ok:
         log(f"lock witness: {len(observed)} observed edge(s), no cycle, "
-            f"every lock declared")
+            f"every lock and edge declared in the locking law")
     else:
-        log(f"LOCK WITNESS: undeclared locks {undeclared}, cycle {cycle} "
-            f"in {sorted(observed)}")
+        log(f"LOCK WITNESS: undeclared locks {undeclared}, edges outside "
+            f"the law {outside}, cycle {cycle} in {sorted(observed)}")
     return {"ok": ok, "edges": len(observed)}
 
 
