@@ -100,8 +100,8 @@ imports nothing of JAX and nothing of the JAX package.
    streamed one includes whatever host assembly the prefetch thread
    had not finished), the host assembly, staging and H2D ms and bytes
    per superstep, the assembly's steps timed one by one, and
-   ``save_workflow`` / ``load_workflow`` of the full-width workflow,
-   uncompressed.
+   ``save_workflow`` / ``load_workflow`` of the full-width workflow
+   uncompressed and as ``.gz``.
 7. Preempt-resume: a workflow file written to the scratch directory
    builds ``models/alexnet.py``'s workflow (superstep 4, so that a
    TRAIN class spans two firings) and, on the supervisor's first
@@ -1889,22 +1889,21 @@ def stream_phase(card: str, workdir: str) -> dict:
         del runs["resident"]["w"], wr
         torch.cuda.empty_cache()
 
-        # uncompressed only: the .gz save took 26-32 s of the phase on an
-        # NVIDIA H100 80GB HBM3 host at 700 W (PRs 4-17) for the same
-        # check; a run's depth is cut here
-        path = os.path.join(workdir, "stream.pickle")
-        t0 = time.perf_counter()
-        save_workflow(ws, path)
-        save_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        back = load_workflow(path)
-        load_s = time.perf_counter() - t0
-        check(back.fused.restored and back.fused._acc_carry is None,
-              ".pickle: not a snapshot with params")
-        snap = {".pickle": {"bytes": os.path.getsize(path),
-                            "save_s": save_s, "load_s": load_s}}
-        os.remove(path)
-        del back
+        snap = {}
+        for suffix in (".pickle", ".pickle.gz"):
+            path = os.path.join(workdir, "stream" + suffix)
+            t0 = time.perf_counter()
+            save_workflow(ws, path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = load_workflow(path)
+            load_s = time.perf_counter() - t0
+            check(back.fused.restored and back.fused._acc_carry is None,
+                  f"{suffix}: not a snapshot with params")
+            snap[suffix] = {"bytes": os.path.getsize(path),
+                            "save_s": save_s, "load_s": load_s}
+            os.remove(path)
+            del back
     finally:
         torch.backends.cudnn.deterministic = False
     out = {"epochs": N_EPOCHS, "minibatch": TRAIN_BATCH,
@@ -5707,8 +5706,7 @@ def _witnessed(metrics_dir: str, pids: list) -> dict:
           f"witness: the edges {edges} hold a cycle (or none was seen)")
     check(names <= witness.LOCK_NAMES,
           f"witness: undeclared lock names {names - witness.LOCK_NAMES}")
-    law = flow.declared_edges(flow.load_lock_order(os.path.join(
-        HERE, "veles_tpu_torch", "analysis", "lock_order.json")))
+    law = flow.declared_edges(flow.load_lock_order(flow.LAW_PATH))
     check(set(edges) <= law, f"witness: edges outside the port's law "
           f"{sorted(set(edges) - law)}")
     return {"snapshots": len(have), "edges": edges,

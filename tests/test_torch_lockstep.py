@@ -29,7 +29,7 @@ from veles_tpu_torch.analysis import flow, witness
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "veles_tpu_torch")
-LAW_PATH = os.path.join(PKG, "analysis", "lock_order.json")
+LAW_PATH = flow.LAW_PATH
 REF_LAW_PATH = os.path.join(REPO, "veles_tpu", "analysis",
                             "lock_order.json")
 

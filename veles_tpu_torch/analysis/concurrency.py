@@ -319,8 +319,8 @@ class LockOrderRule:
                                       scope=config.lock_modules,
                                       node_scope=config.law_scope)
         out: List[Finding] = []
-        law_rel = config.lock_order
-        law_path = os.path.join(root, law_rel)
+        law_path = os.path.join(root, config.lock_order)
+        law_rel = os.path.relpath(law_path, root)
         payload = flow.load_lock_order(law_path)
         declared_manual: Set[Tuple[str, str]] = set()
         if payload is not None:

@@ -79,6 +79,11 @@ class Finding:
 
 _PKG = "veles_tpu_torch"
 
+#: the port's checked-in locking law, absolute: the lint's default, the
+#: chaos drill's witness pass and the smoke's fleet witness all read it
+LAW_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "lock_order.json")
+
 
 def _mods(*names: str) -> List[str]:
     return [f"{_PKG}/{n}.py" for n in names]
@@ -136,7 +141,7 @@ _DEFAULTS: Dict[str, Any] = {
     # these modules is device-side step code (the fused step's builders)
     "device_step_modules": _mods("engine/core"),
     #: the checked-in locking law the lock-order rule verifies
-    "lock_order": f"{_PKG}/analysis/lock_order.json",
+    "lock_order": LAW_PATH,
     # the lock graph's nodes: the locks made under these prefixes (the
     # smoke script's own locks are not the port's law)
     "law_scope": [_PKG],

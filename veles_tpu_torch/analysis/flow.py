@@ -41,7 +41,11 @@ import os
 import tempfile
 from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
 
-from veles_tpu_torch.analysis.engine import Finding, ModuleContext
+from veles_tpu_torch.analysis.engine import (  # noqa: F401
+    LAW_PATH,
+    Finding,
+    ModuleContext,
+)
 
 #: follow-call depth for effects (lock acquires / blocking behaviour
 #: of callees) — deep enough for telemetry.histogram -> Registry

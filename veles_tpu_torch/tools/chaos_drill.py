@@ -1019,9 +1019,7 @@ def witness_pass(dirs: List[str]) -> dict:
             observed |= set(witness.read_snapshots(mdir))
     undeclared = sorted({n for e in observed for n in e}
                         - witness.LOCK_NAMES)
-    law = flow.load_lock_order(os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "analysis", "lock_order.json"))
+    law = flow.load_lock_order(flow.LAW_PATH)
     outside = sorted(observed - flow.declared_edges(law or {}))
     cycle = _cyclic(observed)
     ok = law is not None and not undeclared and not outside and not cycle
