@@ -103,8 +103,9 @@ imports nothing of JAX and nothing of the JAX package.
    ``save_workflow`` / ``load_workflow`` of the full-width workflow
    uncompressed and as ``.gz``.
 7. Preempt-resume: a workflow file written to the scratch directory
-   builds ``models/alexnet.py``'s workflow (superstep 4, so that a
-   TRAIN class spans two firings) and, on the supervisor's first
+   builds ``models/alexnet.py``'s workflow on 256 + 128 images for 2
+   epochs (superstep 1, so that a TRAIN class spans two firings) and,
+   on the supervisor's first
    attempt only, sends its own process SIGTERM after its second firing,
    in the middle of TRAIN.  ``python -m veles_tpu_torch --supervise``
    runs it on the card with a snapshotter: the child must exit 14
@@ -316,19 +317,38 @@ imports nothing of JAX and nothing of the JAX package.
    engine's, a ``lockwitness-<pid>.json`` from each replica whose edges
    hold no cycle, name only locks the port declares and lie within the
    port's locking law (``veles_tpu_torch/analysis/lock_order.json``).
-25. Summary (a phase of its own): each phase's wall seconds on a
+25. Data parallel: ``python -m veles_tpu_torch --dp 2`` without
+   ``$VELES_MESH_RANKS_PER_CARD`` exits 2 naming it (one card); with it
+   set to 2 and ``$VELES_MESH_SHARD_DATA=always``, two ranks of
+   full-width AlexNet share the card over gloo for 1 epoch of phase 4's
+   data: each rank launches ``lrn_fwd`` and ``lrn_bwd`` on every
+   minibatch (2 a norm layer; counts zeroed after ``initialize``, read
+   after the run), holds the padded half of the data set, sums 8
+   gradients a train minibatch (their ms a minibatch printed), and ends
+   with the other rank's param CRC and history; its first epoch's rows
+   agree with phase 4's within ``DP_LOSS_TOL`` and ``DP_NERR_FRAC``, and
+   its params' change over the epoch with phase 4's first epoch's
+   within ``DP_DELTA_RTOL`` (each param at ``DP_SAMPLE`` seeded
+   positions, ``param_sample``).  Then, side by side: ``--multihost``
+   with torchrun's variables for one rank over NCCL, one superstep of a
+   cut AlexNet (both kernels on every minibatch); the fault matrix's
+   ``multihost.peer_exit`` drill on the card (two ranks over gloo, rank
+   1 dies, rank 0 exits 13 with a final snapshot that resumes); and the
+   refusal.
+26. Summary (a phase of its own): each phase's wall seconds on a
    ``phases`` line (each also printed as it ends), then ``serve``,
    ``train``, ``stream``, ``preempt``, ``data``, ``mnist7``,
    ``cifar10``, ``quantized``, ``mnist_ae``, ``kohonen``, ``layers``, ``wine``, ``mnist_rbm``, ``mnist_dbn``, ``profile``,
-   ``cohort``, ``som_cohort``, ``ga``, ``ensemble``, ``online`` and
-   ``fleet`` JSON lines, each with its phase's ``seconds``, the total
-   minutes, the card line, the
+   ``cohort``, ``som_cohort``, ``ga``, ``ensemble``, ``online``,
+   ``fleet`` and ``dp`` JSON lines, each with its phase's ``seconds``,
+   the total minutes, the card line, the
    ``kernels`` line, then the device line last.
 
-``python3 chip_smoke.py --only fleet`` (or ``preempt``, ``online``, or a
-comma-separated list of them) runs phase 1's build, phase 3's package
-and phase 24 (7, 23, those listed) alone, and prints their JSON lines and
-no result lines.
+``python3 chip_smoke.py --only fleet`` (or ``preempt``, ``online``,
+``dp``, or a comma-separated list of them) runs phase 1's build, phase
+3's package and phase 24 (7, 23, 25, those listed) alone, and prints
+their JSON lines and no result lines (``dp`` then holds nothing against
+phase 4's epoch).
 """
 
 from __future__ import annotations
@@ -1340,15 +1360,20 @@ def train_phase(card: str, workdir: str):
     telemetry.configure(metrics_dir)
     detach = add_jsonl_sink(sink)
     page = _StatusPage(metrics_dir)
+    epoch1 = _EpochDelta()
     try:
         events = _plot_spy()
-        launcher, launches, total_s = _drive(
-            TRAIN_OVERRIDES, before=page.attach)
+        with epoch1:
+            launcher, launches, total_s = _drive(
+                TRAIN_OVERRIDES, before=page.attach)
     except BaseException:
         page.close()
         raise
     finally:
         detach()
+    # the first epoch's sampled param change: phase 25 holds its
+    # data-parallel run's against it
+    np.savez(os.path.join(workdir, "dp_delta_train_0.npz"), **epoch1.delta())
     w = launcher.workflow
     plots = _check_plots(w, events, N_EPOCHS, "train")
     # the port's AlexNet accumulates the confusion matrix (the
@@ -1741,6 +1766,54 @@ def _initial_params(w) -> dict:
     return {f.name: f.fill_params() for f in w.forwards}
 
 
+def param_sample(params, n: int) -> dict:
+    """``{"fwd|param": f64 values}`` of each param at ``n`` positions
+    drawn from a seed of its name (all of them where it has fewer):
+    what two runs' param changes are compared at."""
+    out = {}
+    for f in sorted(params):
+        for p in sorted(params[f]):
+            a = np.asarray(params[f][p]).reshape(-1)
+            rng = np.random.default_rng(zlib.crc32(f"{f}|{p}".encode()))
+            idx = rng.choice(a.size, min(a.size, n), replace=False)
+            out[f"{f}|{p}"] = a[np.sort(idx)].astype(np.float64)
+    return out
+
+
+class _EpochDelta:
+    """Wraps ``FusedStepRunner.take_class_metrics`` for one run: samples
+    (``param_sample``) the params at the first class end (the first
+    epoch's validation, before any update) and at the first TRAIN class
+    end; ``delta()`` is the first epoch's change there."""
+
+    def __enter__(self):
+        from veles_tpu_torch.loader.base import TRAIN
+        from veles_tpu_torch.ops.fused import FusedStepRunner
+        self.cls = FusedStepRunner
+        self.take = FusedStepRunner.take_class_metrics
+        self.samples = []
+        take, samples = self.take, self.samples
+
+        def taking(runner):
+            out = take(runner)
+            if not samples or (len(samples) == 1 and
+                               runner.loader.minibatch_class == TRAIN):
+                samples.append(param_sample(runner.host_params(),
+                                            DP_SAMPLE))
+            return out
+        FusedStepRunner.take_class_metrics = taking
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.take_class_metrics = self.take
+
+    def delta(self) -> dict:
+        check(len(self.samples) == 2, f"{len(self.samples)} of the first "
+              f"epoch's two class ends sampled")
+        before, after = self.samples
+        return {k: after[k] - before[k] for k in after}
+
+
 def _drive(overrides, backend="cuda", workflow_file=ALEXNET_FILE,
            before=None):
     """One run through Launcher + drive_workflow with the config cut
@@ -1929,7 +2002,7 @@ def stream_phase(card: str, workdir: str) -> dict:
     return out
 
 
-#: the preempt-resume phase's workflow: AlexNet with a superstep of 4, so
+#: the preempt-resume phase's workflow: AlexNet with a superstep of 1, so
 #: that TRAIN spans two firings, and on the supervisor's first attempt a
 #: SIGTERM to its own process after the second firing (inside TRAIN)
 PREEMPT_WORKFLOW = """
@@ -1984,7 +2057,14 @@ def run(launcher):
                    "snapshot": launcher.snapshot,
                    "snapshot_load_s": launcher.snapshot_load_seconds}, f)
 """
-PREEMPT_SUPERSTEP = 4
+#: the preempt phase's data set and superstep: 2 train minibatches and
+#: one validation minibatch an epoch, 2 epochs (1024 + 128 images at
+#: superstep 4 before PR 18: the depth cut to make room for phase 25;
+#: every check kept)
+PREEMPT_TRAIN, PREEMPT_VALID, PREEMPT_SUPERSTEP = 256, 128, 1
+PREEMPT_OVERRIDES = [f"root.alexnet.loader.n_train={PREEMPT_TRAIN}",
+                     f"root.alexnet.loader.n_valid={PREEMPT_VALID}",
+                     f"root.alexnet.decision.max_epochs={N_EPOCHS}"]
 
 
 def _preempt_result(workdir: str, tag: str):
@@ -2006,7 +2086,7 @@ def preempt_phase(card: str, workdir: str) -> dict:
     with open(wf, "w") as f:
         f.write(PREEMPT_WORKFLOW % {"superstep": PREEMPT_SUPERSTEP})
     snaps = os.path.join(workdir, "preempt_snaps")
-    overrides = TRAIN_OVERRIDES + [
+    overrides = PREEMPT_OVERRIDES + [
         "root.alexnet.snapshotter={'directory': %r, 'prefix': 'pr', "
         "'compression': '', 'keep': 1}" % snaps]
     env = dict(os.environ)
@@ -2016,11 +2096,31 @@ def preempt_phase(card: str, workdir: str) -> dict:
         env.pop(key, None)
     err_path = os.path.join(workdir, "supervise.stderr")
     t0 = time.perf_counter()
+    # the supervised run in its processes, beside it in this one the
+    # uninterrupted run and then the device drills: each is held on its
+    # own (deterministic cuDNN makes the two runs bitwise however they
+    # share the card)
     with open(err_path, "w") as err:
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [sys.executable, "-m", "veles_tpu_torch", "--supervise", "-b",
              "cuda", "-s", str(SEED), wf] + overrides, cwd=HERE, env=env,
-            stdout=err, stderr=subprocess.STDOUT, timeout=600)
+            stdout=err, stderr=subprocess.STDOUT)
+        try:
+            launcher, launches, straight_s = _drive(overrides[:-1] + [
+                overrides[-1].replace("preempt_snaps", "straight_snaps")],
+                workflow_file=wf)
+            torch.backends.cudnn.deterministic = False
+            drills = _device_drills(workdir)
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                # SIGTERM first: the supervisor stops its child with it
+                proc.terminate()
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
     supervise_s = time.perf_counter() - t0
     with open(err_path) as f:
         log = f.read()
@@ -2039,27 +2139,22 @@ def preempt_phase(card: str, workdir: str) -> dict:
     check(meta["snapshot"] == final, f"resumed from {meta['snapshot']}, "
           f"not the final snapshot {final}")
     # the resumed child: the second train firing of epoch 0, then epoch 1
-    train_mb = N_EPOCHS * N_TRAIN // TRAIN_BATCH - PREEMPT_SUPERSTEP
-    valid_mb = N_EPOCHS * -(-N_VALID // TRAIN_BATCH) - 1
+    train_mb = N_EPOCHS * PREEMPT_TRAIN // TRAIN_BATCH - PREEMPT_SUPERSTEP
+    valid_mb = N_EPOCHS * -(-PREEMPT_VALID // TRAIN_BATCH) - 1
     check(meta["launches"] == _want_launches(train_mb, valid_mb),
           f"resumed child launched {meta['launches']} for {train_mb} train "
           f"and {valid_mb} validation minibatches")
 
-    launcher, launches, straight_s = _drive(overrides[:-1] + [
-        overrides[-1].replace("preempt_snaps", "straight_snaps")],
-        workflow_file=wf)
-    torch.backends.cudnn.deterministic = False
     smeta, sparams = _preempt_result(workdir, "straight")
     check(smeta["launches"] == _want_launches(
-        N_EPOCHS * N_TRAIN // TRAIN_BATCH,
-        N_EPOCHS * -(-N_VALID // TRAIN_BATCH)),
+        N_EPOCHS * PREEMPT_TRAIN // TRAIN_BATCH,
+        N_EPOCHS * -(-PREEMPT_VALID // TRAIN_BATCH)),
         f"straight run launched {smeta['launches']}")
     check([(r["class"], r["count"]) for r in smeta["history"]] ==
-          [("validation", N_VALID), ("train", N_TRAIN)] * N_EPOCHS,
-          f"straight history {smeta['history']}")
+          [("validation", PREEMPT_VALID), ("train", PREEMPT_TRAIN)]
+          * N_EPOCHS, f"straight history {smeta['history']}")
     same = same_run(meta["history"], params, smeta["history"], sparams,
                     _initial_params(launcher.workflow))
-    drills = _device_drills(workdir)
     out = {"device_drills": drills,
            "supervise_rc": proc.returncode, "supervise_s": supervise_s,
            "straight_s": straight_s, "final_snapshot_bytes":
@@ -4550,27 +4645,39 @@ def _timed_stream(client, stream) -> list:
 
 
 #: the requests of each of the --online hive's two timed streams (cut from
-#: the stream's 24 to keep a whole run inside its time)
-ONLINE_SERVE_REQUESTS = 12
+#: the stream's 24, then 12 before PR 18, to keep a whole run inside its
+#: time)
+ONLINE_SERVE_REQUESTS = 6
 
 
-def _online_serve(card: str, workdir: str, pkg: str) -> dict:
-    """``--serve-models alexnet=PKG --online`` on the card: three
-    warm-up requests, then one labeled stream with the learner
-    suspended, and again with it resumed (after its first step); p50 and
-    p99 of each; the hive's launches over its whole life."""
+def _start_online_hive(workdir: str, pkg: str):
+    """``--serve-models alexnet=PKG --online`` on the card, up to its
+    hello: (client, its stderr file, seconds to the hello)."""
     from veles_tpu_torch.serve.client import HiveClient
 
-    stream = labeled_stream()[:ONLINE_SERVE_REQUESTS]
+    err = open(os.path.join(workdir, "online_hive.stderr"), "w")
     t0 = time.perf_counter()
-    with open(os.path.join(workdir, "online_hive.stderr"), "w") as err:
+    try:
         client = HiveClient(
             {"alexnet": pkg}, backend="cuda", max_batch=MAX_BATCH,
             max_wait_ms=20, heartbeat_every=0,
             install_dir=os.path.join(workdir, "online_hive_install"),
             online=True, env=ONLINE_ENV, stderr=err, start_timeout=600)
+    except BaseException:
+        err.close()
+        raise
+    return client, err, time.perf_counter() - t0
+
+
+def _online_serve(card: str, started) -> dict:
+    """The started ``--online`` hive (``_start_online_hive``): three
+    warm-up requests, then one labeled stream with the learner
+    suspended, and again with it resumed (after its first step); p50 and
+    p99 of each; the hive's launches over its whole life."""
+    stream = labeled_stream()[:ONLINE_SERVE_REQUESTS]
+    client, err, ready_s = started
+    with err:
         try:
-            ready_s = time.perf_counter() - t0
             check(client.hello.get("online") is True,
                   f"online hive: hello {client.hello}")
             st0 = client.stats()
@@ -4766,18 +4873,42 @@ def online_phase(card: str, workdir: str) -> dict:
     import torch
     t0 = time.perf_counter()
     pkg = os.path.join(workdir, "alexnet.vpkg")
-    torch.backends.cudnn.deterministic = True
-    try:
-        inproc = _online_in_process(card, workdir, pkg)
-        handoff = _online_handoff(card, workdir)
-    finally:
-        torch.backends.cudnn.deterministic = False
-    torch.cuda.empty_cache()
-    serve = _online_serve(card, workdir, pkg)
-    drift = _online_drift(card, workdir)
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed_drift():
+        t = time.perf_counter()
+        return _online_drift(card, workdir), time.perf_counter() - t
+
+    parts = {}
+    # the --online hive comes up while this process runs the learner's
+    # parts (the hive is a process of its own); drift's small hive runs
+    # beside the timed streams, whose bar is 8x
+    with ThreadPoolExecutor(2, thread_name_prefix="online") as pool:
+        hive = pool.submit(_start_online_hive, workdir, pkg)
+        torch.backends.cudnn.deterministic = True
+        try:
+            inproc = _online_in_process(card, workdir, pkg)
+            parts["in_process"] = time.perf_counter() - t0
+            handoff = _online_handoff(card, workdir)
+            parts["handoff"] = time.perf_counter() - t0 - sum(parts.values())
+        except BaseException:
+            try:   # the phase has failed already: close what came up
+                client, err, _ = hive.result()
+                client.close()
+                err.close()
+            except Exception:  # noqa: BLE001 — the first failure is raised
+                pass
+            raise
+        finally:
+            torch.backends.cudnn.deterministic = False
+        torch.cuda.empty_cache()
+        drifting = pool.submit(timed_drift)
+        serve = _online_serve(card, hive.result())
+        parts["serve"] = time.perf_counter() - t0 - sum(parts.values())
+        drift, parts["drift_beside_serve"] = drifting.result()
     out = {"in_process": inproc, "handoff": handoff, "serve": serve,
            "drift": drift, "minutes": (time.perf_counter() - t0) / 60,
-           "card": card}
+           "seconds_by_part": parts, "card": card}
     print(f"online: AlexNet x{N_MEMBERS} bf16, {ONLINE_STEPS} shadow steps "
           f"of {ONLINE_MB} rows: median {inproc['step_ms_median']:.2f} ms "
           f"a step (first {inproc['step_ms'][0]:.1f}), launches "
@@ -4811,7 +4942,8 @@ def online_phase(card: str, workdir: str) -> dict:
           f"ensemble {drift['frozen_right_of_24']}; promote dump lineage_n "
           f"{drift['lineage']['lineage_n']}, every id one of the "
           f"{drift['minted']} the client minted  [{card}]", flush=True)
-    print(f"online: phase {out['minutes']:.2f} minutes", flush=True)
+    print(f"online: phase {out['minutes']:.2f} minutes, parts "
+          f"{out['seconds_by_part']}", flush=True)
     return out
 
 
@@ -5923,6 +6055,339 @@ def fleet_phase(card: str, workdir: str) -> dict:
     return out
 
 
+# -- phase 25: data parallel ---------------------------------------------
+
+#: the data-parallel phase's workflow: models/alexnet.py at the train
+#: phase's superstep, each rank's readings in dp_result_<tag>_<rank>.json
+#: beside it: its launch counts (zeroed after initialize, read after the
+#: run), history, param CRC, residency and collectives (it trains once
+#: the file $DP_GO names exists, where that is set); and in
+#: dp_delta_<tag>_<rank>.npz each param's change over the run at
+#: DP_SAMPLE positions drawn from a seed of the param's name
+#: (``param_sample``)
+DP_WORKFLOW = """
+import json
+import os
+import time
+import zlib
+
+import numpy as np
+
+from chip_smoke import DP_SAMPLE, param_sample
+from veles_tpu_torch.models import alexnet
+from veles_tpu_torch.ops import lrn_cuda
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def run(launcher):
+    w = launcher.create_workflow(alexnet.create_workflow)
+    w.superstep = %(superstep)d
+    t0 = time.perf_counter()
+    launcher.initialize()
+    init_s = time.perf_counter() - t0
+    # $DP_GO: train once that file exists (the phase's side runs ended)
+    while os.environ.get("DP_GO") and not os.path.exists(
+            os.environ["DP_GO"]):
+        time.sleep(0.05)
+    before = param_sample(w.fused.host_params(), DP_SAMPLE)
+    lrn_cuda.lrn_fwd.launches = lrn_cuda.lrn_bwd.launches = 0
+    t0 = time.perf_counter()
+    launcher.run()
+    launcher.device.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"lrn_fwd": lrn_cuda.lrn_fwd.launches,
+                "lrn_bwd": lrn_cuda.lrn_bwd.launches}
+    group = launcher.group
+    rank, world, backend = (0, 1, "none") if group is None else \
+        (group.rank, group.world_size, group.backend)
+    params = w.fused.host_params()
+    crc = 0
+    for f in sorted(params):
+        for p in sorted(params[f]):
+            crc = zlib.crc32(params[f][p].tobytes(), crc)
+    after = param_sample(params, DP_SAMPLE)
+    tag = "%%s_%%d" %% (os.environ["DP_TAG"], rank)
+    np.savez(os.path.join(HERE, "dp_delta_" + tag + ".npz"),
+             **{k: after[k] - before[k] for k in after})
+    ld = w.loader
+    path = os.path.join(HERE, "dp_result_" + tag + ".json")
+    with open(path, "w") as f:
+        json.dump({"rank": rank, "world": world, "backend": backend,
+                   "device": str(launcher.device.device),
+                   "launches": launches, "history": w.decision.history,
+                   "crc": crc, "stats": {} if group is None
+                   else group.stats,
+                   "resident_bytes": ld.resident_bytes,
+                   "shard_resident": ld.shard_resident,
+                   "row_bytes": int(ld.sample_shape[0] * ld.sample_shape[1]
+                                    * ld.sample_shape[2] * 4 + 8),
+                   "init_s": init_s, "run_s": run_s}, f)
+"""
+#: the data-parallel runs: 1 epoch of the train phase's data
+DP_OVERRIDES = TRAIN_OVERRIDES[:2] + ["root.alexnet.decision.max_epochs=1"]
+DP_RANKS = 2
+#: AlexNet's layers with params: 5 convolutions, 3 fully connected
+DP_PARAM_LAYERS = 8
+#: the first epoch's validation and train rows against the train
+#: phase's: loss within DP_LOSS_TOL, n_err within DP_NERR_FRAC of the
+#: class's rows.  Measured (NVIDIA H100 80GB HBM3, 700 W): the two ranks'
+#: rows against one rank's of the same configuration and against two
+#: more one-rank runs differ by 0.0 in both (the loss stays at ln 1000
+#: for the first epoch), so the bars allow only f32 rounding of the
+#: class sums (DP_LOSS_TOL about 200 ulps of 6.9) and one row in 100
+DP_LOSS_TOL, DP_NERR_FRAC = 1e-4, 0.01
+#: positions of each param whose change over the epoch is compared, and
+#: the bar of max over params ||d_dp - d_train|| / ||d_train|| there.
+#: Measured against one NCCL rank of the same configuration: 0.036 at
+#: worst for a weight, 0.147 for a bias (conv1's, whose change sums
+#: gradients that nearly cancel, in bf16, over 64 rows against 128);
+#: two one-rank runs: 0.0.  A lost or doubled gradient reads 0.5 to 1
+DP_SAMPLE, DP_DELTA_RTOL = 65536, 0.3
+#: the one NCCL rank's net: models/alexnet.py cut (two conv + norm +
+#: pool stages, a fully connected layer, softmax) on 67x67x3, one
+#: superstep of 8 minibatches of 16 and one validation minibatch
+DP_TINY_CONFIG = """
+GD = {"learning_rate": 0.05, "weight_decay": 0.0005, "gradient_moment": 0.9}
+NORM = {"type": "norm", "->": {"alpha": 1e-3, "beta": 0.75, "n": 5,
+                               "k": 2.0}, "<-": {}}
+POOL = {"type": "max_pooling", "->": {"kx": 3, "ky": 3, "sliding": 2},
+        "<-": {}}
+root.alexnet.layers = [
+    {"type": "conv_relu", "->": {"n_kernels": 8, "kx": 11, "ky": 11,
+                                 "sliding": 4}, "<-": GD}, NORM, POOL,
+    {"type": "conv_relu", "->": {"n_kernels": 12, "kx": 5, "ky": 5,
+                                 "padding": 2}, "<-": GD}, NORM, POOL,
+    {"type": "all2all_relu", "->": {"output_sample_shape": 16}, "<-": GD},
+    {"type": "softmax", "->": {"output_sample_shape": 5}, "<-": GD}]
+root.alexnet.loader.shape = (67, 67, 3)
+root.alexnet.loader.n_classes = 5
+root.alexnet.loader.minibatch_size = 16
+root.alexnet.loader.n_train = 128
+root.alexnet.loader.n_valid = 16
+root.alexnet.decision.max_epochs = 1
+"""
+DP_TINY_PARAM_LAYERS = 4
+
+
+def _dp_results(workdir: str, tag: str, world: int) -> list:
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"dp_result_{tag}_{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _dp_env(**extra) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    for key in ("VELES_SUPERVISE_ATTEMPT", "VELES_RESUME_MANIFEST",
+                "VELES_FAULTS", "VELES_MESH_RANKS_PER_CARD",
+                "VELES_MESH_SHARD_DATA", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+                "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    env.update(extra)
+    return env
+
+
+def _epoch_gap(got: list, want: list) -> dict:
+    """The first epoch's validation and train rows against ``want``'s:
+    the largest loss gap, and the largest n_err gap as a share of the
+    class's rows."""
+    pairs = list(zip(got[:2], want[:2]))
+    check([r["class"] for r, _ in pairs] == [w["class"] for _, w in pairs]
+          == ["validation", "train"] and all(
+              a["count"] == b["count"] for a, b in pairs),
+          f"first epoch rows {got[:2]} against {want[:2]}")
+    return {"loss": max(abs(a["loss"] - b["loss"]) for a, b in pairs),
+            "n_err_frac": max(abs(a["n_err"] - b["n_err"]) / b["count"]
+                              for a, b in pairs)}
+
+
+def _delta_gap(workdir: str, tag: str, ref: str) -> dict:
+    """Per param, ||d - d_ref|| / ||d_ref|| over the sampled positions of
+    the run's param change (``DP_WORKFLOW``'s ``sample``)."""
+    got = np.load(os.path.join(workdir, f"dp_delta_{tag}.npz"))
+    want = np.load(os.path.join(workdir, f"dp_delta_{ref}.npz"))
+    check(sorted(got.files) == sorted(want.files),
+          f"{tag} and {ref} sampled other params")
+    return {k: float(np.linalg.norm(got[k] - want[k]) /
+                     max(np.linalg.norm(want[k]), 1e-30))
+            for k in sorted(want.files)}
+
+
+def dp_phase(card: str, workdir: str, train: dict = None) -> dict:
+    """Phase 25: ``python -m veles_tpu_torch --dp 2`` on full-width
+    AlexNet with two ranks sharing the card over gloo
+    (``$VELES_MESH_RANKS_PER_CARD=2``) and the data row-sharded
+    (``$VELES_MESH_SHARD_DATA=always``), held against ``train``'s first
+    epoch (phase 4's; None: not held); beside it, ended before its
+    ranks train: ``--dp 2`` refused without the knob, one
+    ``--multihost`` rank over NCCL on a cut AlexNet, and the
+    ``multihost.peer_exit`` drill on the card."""
+    wf = os.path.join(workdir, "dp_wf.py")
+    with open(wf, "w") as f:
+        f.write(DP_WORKFLOW % {"superstep": SUPERSTEP})
+    tiny = os.path.join(workdir, "dp_tiny.py")
+    with open(tiny, "w") as f:
+        f.write(DP_TINY_CONFIG)
+    cmd = [sys.executable, "-m", "veles_tpu_torch", "-b", "cuda", "-s",
+           str(SEED)]
+    # the side runs go beside the ranks' start and data generation; the
+    # ranks train once the side runs have ended ($DP_GO), so the
+    # collectives are timed alone on the card
+    go = os.path.join(workdir, "dp_go")
+    t0 = time.perf_counter()
+    runs = {
+        "refusal": (cmd + ["--dp", str(DP_RANKS), wf] + DP_OVERRIDES,
+                    _dp_env()),
+        "nccl": (cmd + ["--multihost", wf, tiny],
+                 _dp_env(MASTER_ADDR="127.0.0.1",
+                         MASTER_PORT=str(_free_port()), WORLD_SIZE="1",
+                         RANK="0", LOCAL_RANK="0", DP_TAG="nccl")),
+        "drill": ([sys.executable, "-m", "veles_tpu_torch.tools.chaos_drill",
+                   "--only", "peer_exit", "--json"],
+                  _dp_env(VELES_METRICS_DIR=os.path.join(workdir,
+                                                         "dp_drill")))}
+    side = {}
+    outs = {}
+
+    def read(path: str) -> str:
+        with open(path) as f:
+            return f.read()
+    runs["gloo"] = (cmd + ["--dp", str(DP_RANKS), wf] + DP_OVERRIDES,
+                    _dp_env(VELES_MESH_RANKS_PER_CARD=str(DP_RANKS),
+                            VELES_MESH_SHARD_DATA="always", DP_TAG="gloo",
+                            DP_GO=go))
+    try:
+        for name, (argv, env) in runs.items():
+            # files, not pipes: nothing reads them until the runs end
+            with open(os.path.join(workdir, f"dp_{name}.out"), "w") as o, \
+                    open(os.path.join(workdir, f"dp_{name}.err"), "w") as e:
+                side[name] = subprocess.Popen(argv, cwd=HERE, env=env,
+                                              stdout=o, stderr=e)
+        for name, proc in side.items():
+            if name == "gloo":
+                with open(go, "w"):
+                    pass
+                gloo_t0 = time.perf_counter()
+            proc.wait(timeout=600)
+            outs[name] = (read(os.path.join(workdir, f"dp_{name}.out")),
+                          read(os.path.join(workdir, f"dp_{name}.err")),
+                          proc.returncode)
+        dp_s = time.perf_counter() - gloo_t0
+    finally:
+        for proc in side.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    _, err_g, rc_g = outs["gloo"]
+    check(rc_g == 0, f"--dp {DP_RANKS}: rc {rc_g}: {err_g[-3000:]}")
+
+    out_r, err_r, rc_r = outs["refusal"]
+    check(rc_r == 2 and "VELES_MESH_RANKS_PER_CARD" in err_r,
+          f"--dp {DP_RANKS} on one card without the share knob: rc {rc_r}:"
+          f" {err_r[-1500:]}")
+    ranks = _dp_results(workdir, "gloo", DP_RANKS)
+    train_mb, valid_mb = N_TRAIN // TRAIN_BATCH, -(-N_VALID // TRAIN_BATCH)
+    want = _want_launches(train_mb, valid_mb)
+    rows = (N_TRAIN + N_VALID) // DP_RANKS
+    for r in ranks:
+        check(r["world"] == DP_RANKS and r["backend"] == "gloo"
+              and r["device"] == "cuda:0", f"rank {r['rank']}: {r['world']} "
+              f"ranks over {r['backend']} on {r['device']}")
+        check(r["launches"] == want, f"rank {r['rank']} launched "
+              f"{r['launches']}, want {want} for {train_mb} train and "
+              f"{valid_mb} validation minibatches")
+        check(r["shard_resident"] and r["resident_bytes"] ==
+              rows * r["row_bytes"], f"rank {r['rank']}: resident "
+              f"{r['resident_bytes']} bytes (sharded {r['shard_resident']}),"
+              f" want the padded half, {rows} rows of {r['row_bytes']}")
+        check(r["stats"]["grads"][0] == DP_PARAM_LAYERS * train_mb,
+              f"rank {r['rank']}: {r['stats']['grads'][0]} gradient sums "
+              f"for {train_mb} train minibatches")
+        check([(h["class"], h["count"]) for h in r["history"]] ==
+              [("validation", N_VALID), ("train", N_TRAIN)]
+              and all(np.isfinite(h["loss"]) for h in r["history"]),
+              f"rank {r['rank']} history {r['history']}")
+    check(len({r["crc"] for r in ranks}) == 1 and
+          ranks[0]["history"] == ranks[1]["history"],
+          f"the ranks' params or histories differ: crc "
+          f"{[r['crc'] for r in ranks]}")
+    grads = ranks[0]["stats"]["grads"]
+
+    _, err_n, rc_n = outs["nccl"]
+    check(rc_n == 0, f"--multihost over NCCL: rc {rc_n}: {err_n[-3000:]}")
+    (nccl,) = _dp_results(workdir, "nccl", 1)
+    # the cut net: 8 train minibatches and one validation minibatch too
+    check(nccl["backend"] == "nccl" and nccl["launches"] == want
+          and nccl["stats"]["grads"][0] == DP_TINY_PARAM_LAYERS * train_mb
+          and all(np.isfinite(h["loss"]) for h in nccl["history"]),
+          f"one NCCL rank: {nccl['backend']}, launches {nccl['launches']}, "
+          f"stats {nccl['stats']}, history {nccl['history']}")
+    gap = delta = worst_delta = None
+    if train is not None:
+        gap = _epoch_gap(ranks[0]["history"], train["history"])
+        check(gap["loss"] <= DP_LOSS_TOL and gap["n_err_frac"] <=
+              DP_NERR_FRAC, f"--dp {DP_RANKS}'s first epoch against the "
+              f"train phase's: {gap} (limits {DP_LOSS_TOL}, {DP_NERR_FRAC})")
+        delta = {f"rank{r}": _delta_gap(workdir, f"gloo_{r}", "train_0")
+                 for r in range(DP_RANKS)}
+        worst_delta = max(max(d.values()) for d in delta.values())
+        check(worst_delta <= DP_DELTA_RTOL, f"the params' change in --dp "
+              f"{DP_RANKS}'s epoch against the train phase's first: "
+              f"{delta} (limit {DP_DELTA_RTOL})")
+
+    out_d, err_d, rc_d = outs["drill"]
+    check(rc_d == 0, f"peer_exit drill: rc {rc_d}: {out_d[-1500:]} "
+          f"{err_d[-2500:]}")
+    rec = json.loads(out_d.strip().splitlines()[-1])
+    (drill,) = rec["results"]
+    check(rec["fault_drill_ok"] and rec["backend"] == "cuda"
+          and drill["fault"] == "multihost.peer_exit" and drill["ok"]
+          and drill["survivor_exit"] == 13 and drill["peer_exit"] == 17,
+          f"peer_exit drill: {rec}")
+    out = {"ranks": [{k: r[k] for k in ("rank", "launches", "crc",
+                                        "resident_bytes", "stats", "init_s",
+                                        "run_s")} for r in ranks],
+           "history": ranks[0]["history"],
+           "all_reduce_per_minibatch": grads[0] / train_mb,
+           "all_reduce_ms_per_minibatch": 1e3 * grads[1] / train_mb,
+           "epoch_gap_vs_train": gap, "delta_gap_vs_train": delta,
+           "worst_delta_gap": worst_delta,
+           "nccl": {k: nccl[k] for k in ("launches", "stats", "history",
+                                         "init_s", "run_s")},
+           "drill": drill, "seconds_by_part": {
+               "side_runs": gloo_t0 - t0, "ranks_after_them": dp_s},
+           "launches": {"lrn_fwd": [r["launches"]["lrn_fwd"] for r in ranks],
+                        "lrn_bwd": [r["launches"]["lrn_bwd"] for r in ranks]},
+           "card": card}
+    print(f"dp: AlexNet --dp {DP_RANKS} on one card over gloo, row-sharded "
+          f"{ranks[0]['resident_bytes']} bytes a rank; launches a rank "
+          f"{[r['launches'] for r in ranks]}; {grads[0] / train_mb:.0f} "
+          f"gradient all-reduces a minibatch, "
+          f"{1e3 * grads[1] / train_mb:.1f} ms a minibatch; params crc "
+          f"{[r['crc'] for r in ranks]}; first epoch against the train "
+          f"phase's {gap} (limits {DP_LOSS_TOL}, {DP_NERR_FRAC}), the "
+          f"params' change worst {worst_delta} (limit {DP_DELTA_RTOL})  "
+          f"[{card}]", flush=True)
+    print(f"dp: --dp {DP_RANKS} without the share knob refused (rc 2); one "
+          f"NCCL rank (cut AlexNet): launches {nccl['launches']}, "
+          f"{nccl['stats']}; "
+          f"peer_exit drill: survivor exit {drill['survivor_exit']} "
+          f"{drill['survivor_after_peer_sec']} s after the peer, snapshot "
+          f"{drill['final_snapshot']} resumed; parts "
+          f"{out['seconds_by_part']}  [{card}]", flush=True)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def _data_launches(name: str, mnist7: dict, cifar10: dict,
                    quantized: dict, mnist_ae: dict, kohonen: dict,
                    wine: dict, mnist_rbm: dict, mnist_dbn: dict,
@@ -6040,7 +6505,7 @@ def main() -> int:
         return out
 
     only = {"preempt": preempt_phase, "online": online_phase,
-            "fleet": fleet_phase}
+            "fleet": fleet_phase, "dp": dp_phase}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and set(sys.argv[2].split(",")) <= set(only):
         # development: phase 1's build, the served package and phases 7,
@@ -6147,6 +6612,8 @@ def main() -> int:
         online = timed("online", online_phase, card, workdir)
         # phase 24: the serving fleet
         fleet = timed("fleet", fleet_phase, card, workdir)
+        # phase 25: data parallel
+        dp = timed("dp", dp_phase, card, workdir, train)
         results = {"serve": serve, "train": train, "stream": stream,
                    "preempt": preempt, "data": data, "mnist7": mnist7,
                    "cifar10": cifar10, "quantized": quantized,
@@ -6154,8 +6621,9 @@ def main() -> int:
                    "layers": layers, "wine": wine, "mnist_rbm": mnist_rbm,
                    "mnist_dbn": mnist_dbn, "profile": profile,
                    "cohort": cohort, "som_cohort": som_cohort, "ga": ga,
-                   "ensemble": ensemble, "online": online, "fleet": fleet}
-        # phase 25: the summary
+                   "ensemble": ensemble, "online": online, "fleet": fleet,
+                   "dp": dp}
+        # phase 26: the summary
         kernels = timed("summary", summary, rows, serve_launches, results,
                         dict(phases), card)
     except Exception:   # named by timed()
@@ -6188,7 +6656,10 @@ def summary(rows, serve_launches, res: dict, phases: dict,
             **_cohort_launches(k, res["cohort"], res["som_cohort"],
                                res["ensemble"]),
             **_online_launches(k, res["online"]),
-            "fleet": res["fleet"]["launches"][k]}
+            "fleet": res["fleet"]["launches"][k],
+            "dp_rank0": res["dp"]["launches"][k][0],
+            "dp_rank1": res["dp"]["launches"][k][1],
+            "dp_nccl": res["dp"]["nccl"]["launches"][k]}
     launches["lrn_fwd"] = dict(
         launches["lrn_fwd"], serve=serve_launches,
         export=res["train"]["export"]["launches"]["lrn_fwd"])

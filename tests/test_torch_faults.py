@@ -71,7 +71,11 @@ def test_the_slices_knobs_are_declared_and_read_through_knobs(
     from veles_tpu import knobs as ref_knobs
     from veles_tpu_torch.launcher import Launcher
     from veles_tpu_torch.supervisor import Supervisor
-    assert set(SLICE_KNOBS) <= knobs.names() <= ref_knobs.names()
+    assert set(SLICE_KNOBS) <= knobs.names()
+    # the port's own knobs (ranks sharing one card over gloo; the
+    # reference's virtual devices are an XLA flag) have no counterpart
+    assert knobs.PORT_ONLY == {"VELES_MESH_RANKS_PER_CARD"}
+    assert knobs.names() - knobs.PORT_ONLY <= ref_knobs.names()
     monkeypatch.setenv("VELES_PREEMPT_GRACE", "7.5")
     monkeypatch.setenv("VELES_SUPERVISE_MAX_CRASHES", "x")
     monkeypatch.setenv("VELES_SUPERVISE_CRASH_WINDOW", "12")

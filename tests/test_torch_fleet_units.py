@@ -187,7 +187,8 @@ def test_faults_refuse_what_the_reference_refuses(bad):
 # -- knobs --------------------------------------------------------------
 
 FLEET_KNOBS = sorted(n for n in port_knobs.KNOBS
-                     if not n.startswith("VELES_ONLINE"))
+                     if not n.startswith("VELES_ONLINE")
+                     and n not in port_knobs.PORT_ONLY)
 
 
 @pytest.mark.parametrize("name", FLEET_KNOBS)

@@ -114,7 +114,9 @@ def test_every_port_module_imports_with_jax_blocked():
             "veles_tpu_torch.analysis.flow",
             "veles_tpu_torch.analysis.concurrency",
             "veles_tpu_torch.analysis.cli",
-            "veles_tpu_torch.tools.veleslint"} <= set(names)
+            "veles_tpu_torch.tools.veleslint",
+            "veles_tpu_torch.parallel", "veles_tpu_torch.parallel.mesh",
+            "veles_tpu_torch.parallel.data_parallel"} <= set(names)
 
 
 @pytest.mark.parametrize("path", _port_sources(),

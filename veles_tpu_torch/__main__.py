@@ -1,6 +1,7 @@
 """The port's command line.
 
     python -m veles_tpu_torch [--supervise] [-b auto|cuda|cpu] [-s SEED]
+        [--dp N] [--multihost]
         [--snapshot FILE] [--profile DIR] [--metrics-dir DIR]
         [--log-events FILE] [-p] [--plots-endpoint ENDPOINT]
         [--status-server URL] [-v] [--dump-config] WORKFLOW.py
@@ -52,6 +53,19 @@ veles_tpu_torch.web_status``).  ``-v`` logs at DEBUG, and
 ``--dump-config`` prints the configuration tree after the config files
 and overrides, and exits.
 
+``--dp N`` trains data parallel over N ranks on this host
+(``veles_tpu_torch/parallel/``): the command starts N processes of
+itself with ``--multihost`` and a local rendezvous
+(``launcher.run_ranks``), each on its own card (``cuda:LOCAL_RANK``,
+NCCL) or, with ``$VELES_MESH_RANKS_PER_CARD=N``, N of them on one card
+(gloo), or on the CPU with ``-b cpu`` (gloo); fewer cards than that
+needs is refused (exit 2) before anything starts.  ``--multihost``
+joins a group from torchrun's environment (``MASTER_ADDR``,
+``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``): ``torchrun
+--nnodes H --nproc-per-node C -m veles_tpu_torch --multihost ...`` on
+every host.  A rank whose peer died exits 13 after a final snapshot;
+``--supervise`` resumes 13 as it resumes 14.
+
 ``--optimize POP:GEN`` tunes the config values wrapped in ``Tune(...)``
 (``veles_tpu_torch/genetics/``): a population of POP genomes for GEN
 generations, each genome's fitness its best validation ``n_err``.
@@ -78,8 +92,9 @@ validation error, through the engine on the run's device
 fourth form starts the serving process (``veles_tpu_torch/serve/hive.py``),
 the last a fleet of N of them behind one router
 (``veles_tpu_torch/serve/router.py``: placement, failover, hedging,
-ejection, admission control).  Not ported yet, and so refused: ``--dp``,
-and the fleet's ``--mesh``.
+ejection, admission control).  Not ported yet, and so refused: ``--dp``
+or ``--multihost`` with ``--optimize`` or ``--ensemble-*`` (exit 2), and
+the fleet's ``--mesh``.
 """
 
 from __future__ import annotations
@@ -109,6 +124,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "--optimize only: one evaluator process on the "
                         "named device")
     p.add_argument("-s", "--seed", type=int, default=1234)
+    p.add_argument("--dp", type=int, default=None, metavar="N",
+                   help="train data parallel over N ranks on this host "
+                        "(one process each)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a data-parallel group from torchrun's "
+                        "environment (MASTER_ADDR, MASTER_PORT, "
+                        "WORLD_SIZE, RANK, LOCAL_RANK)")
     p.add_argument("--snapshot", default=None, metavar="FILE",
                    help="resume from this snapshot")
     p.add_argument("--profile", default=None, metavar="DIR",
@@ -195,6 +217,31 @@ def missing_plot_packages(args) -> Optional[str]:
     return None
 
 
+def refused_parallel(args) -> Optional[str]:
+    """The message refusing a data-parallel command line this slice
+    cannot run, or one whose cards are missing; None when it may
+    start."""
+    if args.dp is None and not args.multihost:
+        return None
+    if args.dp is not None and args.dp < 1:
+        return f"--dp {args.dp}: N must be at least 1"
+    for flag, on in (("--optimize", args.optimize),
+                     ("--ensemble-train / --ensemble-test",
+                      args.ensemble_train is not None or args.ensemble_test),
+                     ("-b " + args.backend,
+                      args.backend.endswith("-evaluator"))):
+        if on:
+            return (f"--dp / --multihost with {flag} is not ported yet "
+                    f"(ROADMAP item 10b: member-sharded cohorts)")
+    if args.dp and args.dp > 1 and not args.multihost:
+        from veles_tpu_torch.parallel.mesh import check_cards
+        try:
+            check_cards(args.dp, args.backend)
+        except ValueError as e:
+            return f"--dp {args.dp}: {e}"
+    return None
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--serve-models" in argv:
@@ -216,13 +263,16 @@ def main(argv=None) -> int:
     overrides = [a for a in argv if is_override(a)]
     args = build_parser().parse_args([a for a in argv
                                       if a not in overrides])
-    refused = missing_plot_packages(args)
+    refused = missing_plot_packages(args) or refused_parallel(args)
     if refused:
         print(refused, file=sys.stderr)
         return 2
     level = logging.DEBUG if args.verbose else logging.INFO
     logging.basicConfig(level=level,
                         format="%(levelname)s %(name)s: %(message)s")
+    if args.dp is not None and args.dp > 1 and not args.multihost:
+        from veles_tpu_torch.launcher import run_ranks
+        return run_ranks(argv, args.dp)
     from veles_tpu_torch import telemetry
     from veles_tpu_torch.logger import add_jsonl_sink, setup_logging
     setup_logging(level)
@@ -254,11 +304,18 @@ def main(argv=None) -> int:
         return 2
     if args.ensemble_train is not None or args.ensemble_test:
         return run_ensemble(args, workflow_file)
-    launcher = Launcher(backend=args.backend, seed=args.seed,
-                        snapshot=args.snapshot, profile=args.profile,
-                        plotters=args.plotters,
-                        status_server=args.status_server,
-                        verbose=args.verbose)
+    try:
+        launcher = Launcher(backend=args.backend, seed=args.seed,
+                            snapshot=args.snapshot, profile=args.profile,
+                            plotters=args.plotters,
+                            status_server=args.status_server,
+                            verbose=args.verbose, multihost=args.multihost,
+                            dp=args.dp)
+    except (RuntimeError, ValueError) as e:
+        if not args.multihost:
+            raise
+        print(f"--multihost: {e}", file=sys.stderr)
+        return 2
     try:
         drive_workflow(launcher, workflow_file)
     except SnapshotCorruptError as e:

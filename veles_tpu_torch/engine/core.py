@@ -6,8 +6,9 @@ Counterpart of ``veles_tpu/engine/core.py`` (``build_ingest``,
 ``build_forward``, ``build_backward``, ``build_member_forward``,
 ``build_mean_probs``, ``build_som_step``, ``build_som_epoch``,
 ``build_som_eval``).  The reference's ``ExecutionCore`` (donation,
-sharding, the HBM arbiter) is not ported: PyTorch runs eagerly, and the
-port has one device.  Each ``lax.scan`` of the reference is a Python
+sharding, the HBM arbiter) is not ported: PyTorch runs eagerly, and a
+process drives one device; data parallelism is one process per rank
+with the gradient ``all_reduce`` in :func:`build_backward`.  Each ``lax.scan`` of the reference is a Python
 loop over the group's minibatches here, and the SOM builders have no
 row-sharded gather.
 """
@@ -43,20 +44,25 @@ def build_ingest(dequant: Any, device: Any) -> Callable:
 
 
 def build_forward(forwards: List[Any], seed: int,
-                  compute_dtype: torch.dtype) -> Callable:
+                  compute_dtype: torch.dtype, rows=None) -> Callable:
     """One model's forward chain WITH residuals.  Its first op casts the
     rows to the compute dtype: bf16 in mixed precision, and in f32 any
     rows that are not f32 (a byte set with the codec off stays bytes up
     to here, ``loader/fullbatch.py``).  In training mode each
     stochastic layer ``i`` draws from ``prng.torch_generator(seed,
     rng_counter, i)``, the port's counterpart of the reference's
-    ``fold_in(fold_in(key(seed), rc), i)``."""
+    ``fold_in(fold_in(key(seed), rc), i)``; a data-parallel rank passes
+    ``rows=(lo, hi, global minibatch)`` and its layers draw the global
+    minibatch's and keep their rows (``prng.RowSlice``)."""
+    extra = {} if rows is None else {"rows": rows}
+
     def forward_pass(params: Dict[str, Dict[str, torch.Tensor]],
                      x: torch.Tensor, rng_counter: int, train: bool):
         residuals = []
         x = x.to(compute_dtype)
         for i, f in enumerate(forwards):
-            rng = prng.torch_generator(seed, rng_counter, i, x.device) \
+            rng = prng.torch_generator(seed, rng_counter, i, x.device,
+                                       **extra) \
                 if f.stochastic and train else None
             x, res = f.apply_fwd(params[f.name], x, rng=rng, train=train)
             residuals.append(res)
@@ -66,16 +72,33 @@ def build_forward(forwards: List[Any], seed: int,
 
 
 def build_backward(forwards: List[Any], gds: List[Any],
-                   compute_dtype: torch.dtype) -> Callable:
+                   compute_dtype: torch.dtype, group: Any = None
+                   ) -> Callable:
     """The backward + SGD chain: walk the gradient units in reverse,
     skip the chain head's err_input when nothing consumes it (for a
     stride-4 first conv, its whole input gradient), and apply
     ``update_params`` with this minibatch's (lr, bias lr) row, and with
     the (wd, bias wd) row ``wd`` when the caller gives one (the
     population engine's per-member decays; ``wd=None`` keeps the units'
-    own).  The error is cast to the compute dtype when it is not f32."""
+    own).  The error is cast to the compute dtype when it is not f32.
+    With a data-parallel ``group`` (``parallel/mesh.py``) each layer's
+    gradients are summed over the ranks between its backward and its
+    update, as one flat f32 buffer and one ``all_reduce``: the sum is
+    identical on every rank, and so are the updated params."""
     first_gd = next((i for i, g in enumerate(gds) if g is not None), -1)
     mixed = compute_dtype != torch.float32
+
+    def reduce_grads(grads: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        names = list(grads)
+        flat = torch.cat([grads[n].float().reshape(-1) for n in names])
+        group.all_reduce_(flat, "grads")
+        out, at = {}, 0
+        for n in names:
+            g = grads[n]
+            out[n] = flat[at:at + g.numel()].view(g.shape)
+            at += g.numel()
+        return out
 
     def backward_update(cparams, params, opt, residuals, err, lr, wd=None):
         if mixed:
@@ -95,6 +118,8 @@ def build_backward(forwards: List[Any], gds: List[Any],
                 err_in, grads = gd.backward_from_saved(
                     cparams[f.name], residuals[i], err)
             residuals[i] = None   # free the activation as soon as used
+            if grads and group is not None:
+                grads = reduce_grads(grads)
             if grads:
                 p, v = gd.update_params(
                     params[f.name], grads, opt.get(gd.name, {}),

@@ -20,8 +20,9 @@ Arming syntax (``VELES_FAULTS``)::
 
 The registry knows the reference's points (``POINTS``), so a string
 that arms the reference arms the port the same way.  The port wires
-every one of them but ``multihost.peer_exit`` (multi-GPU) and
-``stream.corrupt_file`` (the image loader): ``evaluator.hang`` and
+every one of them but ``stream.corrupt_file`` (the image loader):
+``multihost.peer_exit`` in ``launcher.init_multihost`` (``process`` =
+the rank), ``evaluator.hang`` and
 ``evaluator.garbage_line`` in the GA evaluator, ``snapshot.torn_write``
 in the snapshotter, ``checkpoint.corrupt`` in the GA's state file,
 ``device.oom_on_put`` on the streaming upload, the resident data set's

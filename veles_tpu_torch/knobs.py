@@ -9,7 +9,9 @@ down a run.
 
 This copy holds the knobs the port reads, with the reference's names,
 defaults and types: fault injection and supervision (``FAULTS*``,
-``PREEMPT_*``, ``SUPERVISE_*``, ``RESUME_MANIFEST``), the GA's
+``PREEMPT_*``, ``SUPERVISE_*``, ``RESUME_MANIFEST``), data
+parallelism's (``MULTIHOST_*``, ``MESH_SHARD_DATA``,
+``MESH_RANKS_PER_CARD``), the GA's
 ``GA_GENERATION``, the observability core's ``METRICS_DIR``, tracing's
 ``TRACE_SAMPLE``, ``FLIGHTREC_CAP`` and ``LOCK_WITNESS``, the graphics
 server's ``PLOTS_DIR``, the
@@ -129,6 +131,35 @@ RESUME_MANIFEST = _knob(
     "VELES_RESUME_MANIFEST", "", str,
     "Extra path every snapshot writer merge-updates the resume "
     "manifest at (the supervisor exports it).")
+
+# -- multihost and data parallelism ------------------------------------------
+
+MULTIHOST_HEARTBEAT = _knob(
+    "VELES_MULTIHOST_HEARTBEAT", 2.0, float,
+    "Seconds between a --multihost rank's liveness heartbeats in the "
+    "group's store.")
+MULTIHOST_DEADLINE = _knob(
+    "VELES_MULTIHOST_DEADLINE", 15.0, float,
+    "Seconds without a peer's heartbeat before the watchdog declares it "
+    "dead (final snapshot + exit 13).")
+MULTIHOST_ALLOW_SOLO = _knob(
+    "VELES_MULTIHOST_ALLOW_SOLO", False, flag,
+    "Accept single-process semantics when a --multihost launch finds no "
+    "torchrun layout (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK).")
+MESH_SHARD_DATA = _knob(
+    "VELES_MESH_SHARD_DATA", "auto", str,
+    "Row-shard the resident data set over the data-parallel ranks (each "
+    "holds 1/N of the rows): `auto` only when it exceeds one device's "
+    "residency budget but fits sharded, `always` whenever data parallel, "
+    "`never`/`0` keeps a whole copy on every rank.")
+MESH_RANKS_PER_CARD = _knob(
+    "VELES_MESH_RANKS_PER_CARD", 1, int,
+    "Data-parallel ranks that may share one CUDA card (the group then "
+    "runs over gloo: NCCL refuses two ranks on one card); 1 refuses "
+    "--dp N with fewer than N cards.")
+
+#: the knobs of the port's own, which the reference does not declare
+PORT_ONLY = frozenset({MESH_RANKS_PER_CARD})
 
 # -- genetic search --------------------------------------------------------
 

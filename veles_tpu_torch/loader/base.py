@@ -17,7 +17,10 @@ masked out.
   on the host (:meth:`assemble_rows`) into ``superstep_data``,
   ``superstep_labels`` and, for a set with regression targets,
   ``superstep_targets``: CPU tensors of shape (k, mb, ...), (k, mb) and
-  (k, mb, ...).  Floating data is cast to ``stream_dtype`` (the fused
+  (k, mb, ...); a data-parallel rank assembles only its own columns
+  of the (k, mb) indices (:meth:`rank_rows`), so every rank walks the
+  same global index sequence from the same seed and holds its slice.
+  Floating data is cast to ``stream_dtype`` (the fused
   runner sets the compute dtype, so bf16 is what crosses PCIe); any
   other data (the ingest codec's uint8, ``dequant`` set, or a byte set
   with the codec off, ``loader/fullbatch.py``) crosses as it is stored,
@@ -114,11 +117,14 @@ class Loader:
         self._prefetch_future = None       # (key, Future)
         #: monotonic start of the current epoch (None before a firing)
         self._epoch_t0 = None
+        #: the data-parallel group (``parallel.DataParallel.install``);
+        #: None: one device
+        self.group = None
 
     #: process-local state a snapshot drops
     _unpicklable = ("device", "_prefetch_pool", "_prefetch_future",
                     "superstep_data", "superstep_labels",
-                    "superstep_targets", "_epoch_t0")
+                    "superstep_targets", "_epoch_t0", "group")
 
     def __getstate__(self) -> dict:
         d = dict(self.__dict__)
@@ -131,6 +137,7 @@ class Loader:
         self.__dict__.setdefault("dequant", None)
         self.__dict__.setdefault("superstep_targets", None)
         self.__dict__["_epoch_t0"] = None
+        self.__dict__["group"] = None
 
     # -- subclass contract --------------------------------------------
 
@@ -156,6 +163,13 @@ class Loader:
         return min(self.minibatch_size,
                    max(c for c in self.class_lengths if c) if any(
                        self.class_lengths) else self.minibatch_size)
+
+    def rank_rows(self):
+        """This data-parallel rank's ``[lo, hi)`` of the static
+        minibatch, or None on one device."""
+        if self.group is None:
+            return None
+        return self.group.rows(self.max_minibatch_size)
 
     def class_offset(self, klass: int) -> int:
         """Global sample offset where ``klass`` starts."""
@@ -257,6 +271,9 @@ class Loader:
         to ``stream_dtype`` (other data stays as stored), and the seconds
         it took."""
         t0 = time.perf_counter()
+        rows = self.rank_rows()
+        if rows is not None:
+            idxs = idxs[:, rows[0]:rows[1]]
         k, mb = idxs.shape
         data, labels, targets = self.assemble_rows(idxs.reshape(-1))
         data = torch.as_tensor(data)

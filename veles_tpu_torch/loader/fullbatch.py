@@ -57,9 +57,18 @@ re-read their data; an :class:`ArrayLoader` keeps its split arrays).
 device and never makes a host copy.  A resident upload that runs out
 of card memory (or fault point ``device.oom_on_put``, ``site=
 resident_dataset``) degrades to streaming from the host, counted in
-``device.oom_degraded``.  Not ported: the reference's mesh
-placements (row-sharded residency) and the host ``fill_minibatch``
-path.
+``device.oom_degraded``.
+
+Under data parallelism (``parallel/``) the budget is charged per
+device: a replicated set costs its whole size on every rank.  With
+``mesh_shard`` (else ``$VELES_MESH_SHARD_DATA``) ``"auto"`` a set over
+one device's budget whose 1/N fits is ROW-SHARDED instead of streamed
+(``shard_resident``: each rank uploads its ``padded_rows(R, N) / N``
+rows, at the stored dtype, so the uint8 codec's bytes stay 1 byte a
+pixel), ``"always"`` shards whenever data parallel, ``"never"`` keeps
+whole copies; ``resident_bytes`` is what this device holds.  A streamed
+rank assembles only its own slice of every minibatch
+(``loader/base.py``).  Not ported: the host ``fill_minibatch`` path.
 """
 
 from __future__ import annotations
@@ -89,9 +98,20 @@ class FullBatchLoader(Loader):
                  max_resident_bytes: Optional[int] = None,
                  on_device: bool = True, normalization_type: str = "none",
                  normalization_parameters: Optional[dict] = None,
-                 quantized_ingest: Any = "auto", **kwargs: Any) -> None:
+                 quantized_ingest: Any = "auto",
+                 mesh_shard: Optional[str] = None, **kwargs: Any) -> None:
         super().__init__(workflow, **kwargs)
         self.max_resident_bytes = max_resident_bytes
+        #: the row-sharded residency policy under data parallelism
+        #: ("auto" / "always" / "never"); None reads
+        #: ``$VELES_MESH_SHARD_DATA``
+        self.mesh_shard = mesh_shard
+        #: True: each rank holds its 1/N of the rows (``original_*`` are
+        #: its shards) and the fused step gathers through
+        #: ``batching.make_sharded_row_gather``
+        self.shard_resident = False
+        #: device bytes of the resident set on this device (0 streamed)
+        self.resident_bytes = 0
         self.on_device = on_device
         self.normalization_type = normalization_type
         self.normalization_parameters = dict(normalization_parameters or {})
@@ -127,7 +147,10 @@ class FullBatchLoader(Loader):
                            ("quantized_ingest", "auto"),
                            ("_quant_pre_scale", 1.0),
                            ("host_targets", None),
-                           ("original_targets", None)):
+                           ("original_targets", None),
+                           ("mesh_shard", None),
+                           ("shard_resident", False),
+                           ("resident_bytes", 0)):
             self.__dict__.setdefault(key, value)
 
     @property
@@ -204,9 +227,38 @@ class FullBatchLoader(Loader):
             return int(self.max_resident_bytes)
         return int(knobs.get(RESIDENT_BYTES_ENV))
 
+    def _sharded_bytes(self, n: int) -> int:
+        """This rank's bytes of the row-sharded placement: the data set
+        padded to a whole per-rank tile, 1/N of its rows."""
+        from veles_tpu_torch.parallel.mesh import padded_rows
+        rows = len(self.host_data)
+        return padded_rows(rows, n) // n * (self.host_data.nbytes // rows)
+
     def _decide_residency(self) -> None:
+        """The budget is charged per device: a replicated set costs its
+        whole size on every rank.  Under data parallelism the set is
+        row-sharded when it is over one device's budget but its 1/N
+        fits, or when the mode is ``always``."""
         data_bytes = self.host_data.nbytes
         budget = self._resident_budget()
+        self.shard_resident = False
+        group = self.group
+        if self.on_device and group is not None and group.world_size > 1:
+            from veles_tpu_torch.parallel.mesh import shard_mode
+            mode = shard_mode(self.mesh_shard if self.mesh_shard is not None
+                              else knobs.get(knobs.MESH_SHARD_DATA))
+            per_rank = self._sharded_bytes(group.world_size)
+            if mode != "never" and (data_bytes > budget or mode == "always") \
+                    and per_rank <= budget:
+                self.shard_resident = self.device_resident = True
+                telemetry.event(events.EV_LOADER_SHARD_RESIDENT,
+                                devices=group.world_size,
+                                total_bytes=int(data_bytes),
+                                per_device_bytes=int(per_rank))
+                log.info("%s: data set %.1f MiB row-sharded over %d ranks "
+                         "(%.1f MiB a rank)", self.name, data_bytes / 2**20,
+                         group.world_size, per_rank / 2**20)
+                return
         self.device_resident = self.on_device and data_bytes <= budget
         if not self.device_resident:
             log.info("%s: data set %.1f MiB (%s) %s; streaming superstep "
@@ -229,6 +281,8 @@ class FullBatchLoader(Loader):
             # tenants, fragmentation): stream from the host instead
             self.original_data = self.original_labels = None
             self.original_targets = None
+            self.shard_resident = False
+            self.resident_bytes = 0
             telemetry.counter(events.CTR_DEVICE_OOM_DEGRADED).inc()
             telemetry.event(events.EV_DEVICE_OOM_DEGRADED,
                             site="resident_dataset")
@@ -245,14 +299,26 @@ class FullBatchLoader(Loader):
         data = self.host_data
         if data.dtype.kind == "f" and data.dtype != np.float32:
             data = data.astype(np.float32)
-        self.original_data = device.put(data)
+        if self.shard_resident:
+            from veles_tpu_torch.parallel.mesh import put_row_sharded
+
+            def put(a):
+                return put_row_sharded(self.group, device, a)[0]
+        else:
+            put = device.put
+        self.original_data = put(data)
         if self.host_labels is not None:
-            self.original_labels = device.put(self.host_labels)
+            self.original_labels = put(self.host_labels)
         if self.host_targets is self.host_data:
             self.original_targets = self.original_data
         elif self.host_targets is not None:
-            self.original_targets = device.put(
+            self.original_targets = put(
                 np.asarray(self.host_targets, np.float32))
+        stores = [self.original_data, self.original_labels]
+        if self.original_targets is not self.original_data:
+            stores.append(self.original_targets)
+        self.resident_bytes = sum(t.numel() * t.element_size()
+                                  for t in stores if t is not None)
 
     def normalized_host_rows(self, indices) -> np.ndarray:
         """f32 normalized rows for GLOBAL ``indices`` (or a slice),
@@ -260,6 +326,9 @@ class FullBatchLoader(Loader):
         raw bytes.  A resident data set is read back from the device."""
         if self.host_data is not None:
             rows = self.host_data[indices]
+        elif self.shard_resident:
+            raise ValueError(f"{self.name}: the data set is row-sharded "
+                             f"over the ranks; no rank holds every row")
         else:
             if not isinstance(indices, slice):
                 indices = torch.as_tensor(np.asarray(indices, np.int64),

@@ -13,6 +13,13 @@ with ``(scale, bias)`` the fitted normalizer's ``affine_params()``
 composed with the loader's byte-to-float convention (``pre_scale``).
 The composed affine is accumulated in float64 and applied in f32, so it
 lands within one f32 ulp of the host's two-op ``Normalizer.apply``.
+
+Under data parallelism the bytes keep their width on every rank: a
+row-sharded rank holds its 1/N of the rows as uint8, a streamed rank
+receives its slice of each superstep as uint8, and the sharded gather
+sums the bytes over the ranks as int32 and casts them back
+(``loader/fullbatch.py``, ``ops/batching.py``); each rank dequantizes
+its own rows.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Fixed-shape batching helpers of the engines.
 
-Counterpart of ``veles_tpu/ops/batching.py`` (single-device subset): the
-compute-dtype policy, the param caster, member stacking, the
-residency byte count, and the zero-padded micro-batch.
+Counterpart of ``veles_tpu/ops/batching.py``: the compute-dtype policy,
+the param caster, member stacking, the residency byte count, the
+zero-padded micro-batch, and the row-sharded gather of a data-parallel
+rank (:func:`make_sharded_row_gather`).
 """
 
 from __future__ import annotations
@@ -90,3 +91,35 @@ def padded_index_chunk(start: int, stop: int, chunk: int
         mask[len(idx):] = 0.0
         idx = np.pad(idx, (0, chunk - len(idx)))
     return idx, mask
+
+
+def make_sharded_row_gather(group: Any, rows_local: int):
+    """``gather(indices, *stores)`` over ROW-SHARDED resident stores
+    (each rank holds ``rows_local`` consecutive rows,
+    ``parallel.mesh.put_row_sharded``): every rank looks the GLOBAL
+    ``indices`` up in its own shard, zeroes the rows it does not hold,
+    and one ``all_reduce`` sum a store assembles the rows on every rank.
+    Exactly one rank contributes each row, so the sum is one real value
+    plus N-1 zeros: exact.  Integer stores (uint8 pixels, int64 labels)
+    ride the sum as int32 and are cast back, exact for any byte or
+    label.  Returns the gathered rows of each store, in order.  Indices
+    must point at real rows (the padded tail is placement filler)."""
+    lo = group.rank * rows_local
+
+    def gather(indices: torch.Tensor, *stores):
+        loc = (indices - lo).clamp(0, rows_local - 1)
+        hit = (indices >= lo) & (indices < lo + rows_local)
+        out = []
+        for s in stores:
+            x = s.index_select(0, loc)
+            keep = hit.reshape(hit.shape + (1,) * (x.dim() - 1))
+            x = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))
+            if x.is_floating_point():
+                out.append(group.all_reduce_(x, "gather"))
+            else:
+                out.append(group.all_reduce_(x.to(torch.int32),
+                                             "gather").to(s.dtype))
+        return out
+
+    return gather

@@ -3,8 +3,10 @@
 Counterpart of ``veles_tpu/ops/dropout.py``: inverted scaling (kept
 units scaled by 1/(1-p)), so eval mode is the identity.  In training
 mode the mask is drawn from the ``torch.Generator`` the fused step hands
-each stochastic layer (``prng.torch_generator``): deterministic within
-the port, not the reference's threefry bits.  The residual is
+each stochastic layer (``prng.torch_generator``) through
+``prng.uniform``: deterministic within the port, not the reference's
+threefry bits; a data-parallel rank draws the global minibatch's mask
+and keeps its own rows (``prng.RowSlice``).  The residual is
 ``(x, mask)`` and ``GDDropout`` applies the mask to the error.
 """
 
@@ -12,8 +14,7 @@ from __future__ import annotations
 
 from typing import Any
 
-import torch
-
+from veles_tpu_torch import prng
 from veles_tpu_torch.ops.nn_units import ForwardUnit, GradientUnit
 
 
@@ -38,7 +39,7 @@ class Dropout(ForwardUnit):
             raise ValueError(f"{self.name}: training mode needs a "
                              f"torch.Generator")
         keep = 1.0 - self.dropout_ratio
-        draw = torch.rand(x.shape, generator=rng, device=x.device)
+        draw = prng.uniform(rng, x.shape, x.device)
         mask = (draw < keep).to(x.dtype) / keep
         return x * mask, (x, mask)
 

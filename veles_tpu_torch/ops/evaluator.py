@@ -18,6 +18,12 @@ fused step accumulates on the device.
   D the features of a sample, ``err_output = (y - t) * mask /
   max(n * D, 1)``, ``loss_sum`` the sum over valid rows of ``0.5 *
   ||y - t||^2 / D``, and ``n_err`` 0.
+
+On a data-parallel rank the fused step passes ``n_total``, the GLOBAL
+minibatch's valid rows (every rank holds the whole mask on the host),
+and it takes ``n``'s place in the error seed's denominator, so the
+ranks' summed gradients are the global minibatch's; ``count`` stays the
+rank's own.
 """
 
 from __future__ import annotations
@@ -46,11 +52,13 @@ class EvaluatorSoftmax:
         self.__dict__.setdefault("compute_confusion", True)
 
     def metrics_fn(self, output: torch.Tensor, target: torch.Tensor,
-                   mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+                   mask: torch.Tensor, n_total: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
         eps = 1e-12
         n = mask.sum()
+        denom = n if n_total is None else n_total
         onehot = F.one_hot(target, output.shape[-1]).to(output.dtype)
-        err = (output - onehot) * mask[:, None] / torch.clamp(n, min=1.0)
+        err = (output - onehot) * mask[:, None] / torch.clamp(denom, min=1.0)
         pred = output.argmax(-1)
         n_err = ((pred != target).to(mask.dtype) * mask).sum()
         p = output.gather(1, target[:, None])[:, 0]
@@ -68,12 +76,14 @@ class EvaluatorMSE:
         self.name = name
 
     def metrics_fn(self, output: torch.Tensor, target: torch.Tensor,
-                   mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+                   mask: torch.Tensor, n_total: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
         diff = output - target
         m = mask.reshape((-1,) + (1,) * (diff.dim() - 1))
         n = mask.sum()
+        denom = n if n_total is None else n_total
         d = float(math.prod(output.shape[1:]))
-        err = diff * m / torch.clamp(n * d, min=1.0)
+        err = diff * m / torch.clamp(denom * d, min=1.0)
         per_row = 0.5 * (diff * diff).reshape(len(diff), -1).sum(-1) / d
         loss_sum = (per_row * mask).sum()
         return {"err_output": err, "n_err": torch.zeros_like(n),

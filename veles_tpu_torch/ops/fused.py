@@ -53,7 +53,17 @@ Counterpart of ``veles_tpu/ops/fused.py``:
   delivered images/s and MFU (``fused.summary``).  A streamed upload
   that runs out of card memory (or fault point ``device.oom_on_put``,
   ``site=stream``) waits for the in-flight firings and retries once.
-  Not ported: mesh and data-sharded placement.
+
+  Under data parallelism (``group``, set by ``parallel.DataParallel``)
+  each rank takes its columns ``[lo, hi)`` of every (k, mb) superstep:
+  its indices (resident), its assembled slice (streamed) or its columns
+  of the whole superstep's rows assembled by the row-sharded gather
+  (``loader.shard_resident``).  The evaluator divides the error seed by
+  the global minibatch's valid rows, ``build_backward`` sums each
+  layer's gradients over the group before its update, the first firing
+  broadcasts rank 0's params and velocities, and the class metrics are
+  summed over the group where a class end reads them.  Each rank
+  launches the LRN kernels on its slice.
 - :class:`EnsembleEvalEngine`, the serving half of the reference's
   class.  Every member's params are stacked along a leading member axis
   and uploaded once; a prediction runs each member's forward in the
@@ -152,11 +162,17 @@ class FusedStepRunner:
         self.stream_oom_retries = 0
         self._first_run_ts: Optional[float] = None
         self._dispatch_seen: set = set()
+        #: the data-parallel group (``parallel.DataParallel.install``)
+        #: and this rank's (lo, hi, global minibatch); None: one device
+        self.group = None
+        self._rows: Optional[Tuple[int, int, int]] = None
+        self._sharded_gather = None
 
     #: rebuilt by initialize, never pickled
     _unpicklable = ("device", "_params", "_opt", "_acc", "_conf", "_ingest",
                     "_forward", "_backward", "_cast", "_stream_state",
-                    "_first_run_ts", "_dispatch_seen")
+                    "_first_run_ts", "_dispatch_seen", "group", "_rows",
+                    "_sharded_gather")
 
     def _to_host(self, d: dict) -> None:
         """Write the live device state into ``d`` as host arrays: params,
@@ -207,6 +223,7 @@ class FusedStepRunner:
             self.compute_dtype, device)
         self._params = self._opt = self._acc = self._conf = None
         self._stream_state = None
+        self._bind_group()
         self.streaming = not getattr(self.loader, "device_resident", True)
         if self.streaming and getattr(self.loader, "dequant", None) is None:
             # the forward's first op is this cast: doing it on the host
@@ -216,12 +233,37 @@ class FusedStepRunner:
             getattr(self.loader, "dequant", None), device)
         self._build_chains()
 
+    def _bind_group(self) -> None:
+        """Under data parallelism: check the STATIC minibatch
+        (``max_minibatch_size``, which clamps below ``minibatch_size``
+        when every class is smaller) against the group's size, take this
+        rank's rows, keep a restored partial class's metrics on rank 0
+        only (they are the whole group's: every rank sums them at the
+        class end), and build the row-sharded gather."""
+        self._rows = self._sharded_gather = None
+        group = self.group
+        if group is None:
+            return
+        mb = self.loader.max_minibatch_size
+        if mb % group.world_size:
+            raise ValueError(
+                f"static minibatch shape {mb} (loader max_minibatch_size) "
+                f"not divisible by the {group.world_size}-rank group; "
+                f"lower minibatch_size or pad the data set")
+        self._rows = group.rows(mb) + (mb,)
+        if group.rank != 0:
+            self._acc_carry = self._conf_carry = None
+        if getattr(self.loader, "shard_resident", False):
+            rows = len(self.loader.original_data)
+            self._sharded_gather = batching.make_sharded_row_gather(group,
+                                                                    rows)
+
     def _build_chains(self) -> None:
         seed = prng.get(RNG_STREAM).seed
         self._forward = engine_core.build_forward(
-            self.forwards, seed, self.compute_dtype)
+            self.forwards, seed, self.compute_dtype, rows=self._rows)
         self._backward = engine_core.build_backward(
-            self.forwards, self.gds, self.compute_dtype)
+            self.forwards, self.gds, self.compute_dtype, group=self.group)
         self._cast = batching.make_caster(self.compute_dtype)
 
     def invalidate_trace(self) -> None:
@@ -260,6 +302,12 @@ class FusedStepRunner:
                 self._opt[gd.name] = {pn: torch.zeros_like(t) for pn, t in
                                       self._params[f.name].items()}
         self._host_params = self._host_opt = None
+        if self.group is not None:
+            # every rank starts from rank 0's params and velocities
+            for tree in (self._params, self._opt):
+                for ps in tree.values():
+                    for t in ps.values():
+                        self.group.broadcast_(t)
         # params and velocities are this runner's device footprint: the
         # arbiter's train pool
         from veles_tpu_torch.serve import residency
@@ -290,19 +338,18 @@ class FusedStepRunner:
         ld = self.loader
         self._ensure_params()
         dev = self.device
-        if self._acc is None:
-            self._acc = dev.zeros(3) if self._acc_carry is None else \
-                dev.put(self._acc_carry)
-            if self._want_confusion():
-                n = self.evaluator.n_classes
-                self._conf = dev.zeros((n, n), torch.int32) \
-                    if self._conf_carry is None else \
-                    dev.put(self._conf_carry)
-            self._acc_carry = self._conf_carry = None
-        mask = dev.put(ld.superstep_mask)
+        self._materialize_acc()
+        rows = self._rows
+        mask_host = ld.superstep_mask
+        n_total = None
+        if rows is not None:
+            # the error seed's denominator: the global minibatch's rows
+            n_total = dev.put(mask_host.sum(axis=1, dtype=np.float32))
+            mask_host = mask_host[:, rows[0]:rows[1]]
+        mask = dev.put(mask_host)
         k = mask.shape[0]
         train = ld.minibatch_class == TRAIN
-        images = float(np.sum(ld.superstep_mask))
+        images = float(np.sum(mask_host))
         if train:
             self.processed_images += images
             lr = self._lr_rows(k)
@@ -315,14 +362,20 @@ class FusedStepRunner:
         use_targets = self.evaluator.wants_targets
         if self.streaming:
             xb, tb = self._upload_superstep(k, use_targets)
+        elif self._sharded_gather is not None:
+            xb, tb = self._gather_sharded(use_targets)
         else:
-            indices = dev.put(ld.superstep_indices)
+            idx = ld.superstep_indices
+            indices = dev.put(idx if rows is None
+                              else idx[:, rows[0]:rows[1]])
             data = ld.original_data
             store = ld.original_targets if use_targets else \
                 ld.original_labels
         for j in range(k):
-            if self.streaming:
+            if self.streaming or self._sharded_gather is not None:
                 x, target = self._ingest(xb[j]), tb[j]
+                if use_targets:
+                    target = target.float()
             else:
                 x = self._ingest(data.index_select(0, indices[j]))
                 target = store.index_select(0, indices[j])
@@ -332,7 +385,9 @@ class FusedStepRunner:
                 cparams = self._cast(self._params)
             out, residuals = self._forward(cparams, x,
                                            self._rng_counter + j, train)
-            m = self.evaluator.metrics_fn(out.float(), target, mask[j])
+            m = self.evaluator.metrics_fn(
+                out.float(), target, mask[j],
+                *(() if n_total is None else (n_total[j],)))
             if train:
                 self._params, self._opt = self._backward(
                     cparams, self._params, self._opt, residuals,
@@ -453,6 +508,33 @@ class FusedStepRunner:
         telemetry.counter(events.CTR_FUSED_STREAM_TRANSFER_SECONDS).inc(dt)
         return xb, tb
 
+    def _gather_sharded(self, use_targets: bool):
+        """This rank's (k, mb/N, ...) rows and labels or targets of the
+        superstep, from the row-sharded resident set: the whole
+        superstep's rows assembled by the sharded gather (one
+        ``all_reduce`` a store), then this rank's columns."""
+        ld = self.loader
+        idx = ld.superstep_indices
+        k, mb = idx.shape
+        lo, hi, _ = self._rows
+        data = ld.original_data
+        store = ld.original_targets if use_targets else ld.original_labels
+        stores = [data] if store is data else [data, store]
+        got = self._sharded_gather(self.device.put(idx.reshape(-1)),
+                                   *stores)
+        x, t = got[0], got[-1]
+        return (x.reshape((k, mb) + tuple(x.shape[1:]))[:, lo:hi],
+                t.reshape((k, mb) + tuple(t.shape[1:]))[:, lo:hi])
+
+    def reduce_partial_metrics(self) -> None:
+        """Sum a partial class's metrics over the group in place (every
+        rank then holds the whole group's): before a coordinated stop's
+        snapshot, which rank 0 writes."""
+        if self.group is not None and self._acc is not None:
+            self.group.all_reduce_(self._acc)
+            if self._conf is not None:
+                self.group.all_reduce_(self._conf)
+
     def last_copy_ms(self) -> Optional[float]:
         """Device ms of the last streamed superstep's host-to-device
         copy (CUDA only; waits for it)."""
@@ -463,7 +545,12 @@ class FusedStepRunner:
                                           Optional[np.ndarray]]:
         """(n_err, loss_sum, count, confusion) accumulated since the last
         call, then reset: the metrics and the (n, n) int32 confusion
-        matrix (None when the evaluator computes none) fetched once."""
+        matrix (None when the evaluator computes none) fetched once.
+        Under data parallelism they are summed over the group first, on
+        every rank at the same class end."""
+        if self.group is not None:
+            self._materialize_acc()
+            self.reduce_partial_metrics()
         if self._acc is None:
             acc, conf = self._acc_carry, self._conf_carry
             self._acc_carry = self._conf_carry = None
@@ -475,6 +562,21 @@ class FusedStepRunner:
                 self.device.get(self._conf)
         self._acc = self._conf = None
         return float(acc[0]), float(acc[1]), float(acc[2]), conf
+
+    def _materialize_acc(self) -> None:
+        """The class's metrics on the device, from a restored carry or
+        zeros (a firing accumulates into them; a group's class end sums
+        them, on every rank)."""
+        if self._acc is not None:
+            return
+        dev = self.device
+        self._acc = dev.zeros(3) if self._acc_carry is None else \
+            dev.put(self._acc_carry)
+        if self._want_confusion():
+            n = self.evaluator.n_classes
+            self._conf = dev.zeros((n, n), torch.int32) \
+                if self._conf_carry is None else dev.put(self._conf_carry)
+        self._acc_carry = self._conf_carry = None
 
     def host_params(self, names=None) -> Dict[str, Dict[str, np.ndarray]]:
         """Current params as host arrays (port layout), of every forward

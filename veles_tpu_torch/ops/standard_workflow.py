@@ -23,7 +23,9 @@ the optional ``LearningRateAdjust``, the fused step and the optional
   after the decision, until ``decision.complete``, or until
   :meth:`request_stop` was called: the loop then stops before the next
   firing of the loader, where every unit has finished the iteration, so
-  a snapshot taken there resumes exactly.
+  a snapshot taken there resumes exactly.  Under data parallelism the
+  request is summed over the group before each firing, so every rank
+  stops before the same one.
 - :meth:`link_plotters` attaches the reference's standard plotters
   (error and loss curves, the confusion matrix where the evaluator
   computes one, the first layer's weights) and
@@ -77,6 +79,8 @@ class StandardWorkflow:
         #: seconds the last :meth:`run` took
         self.wall_time = 0.0
         self.stop_requested = False
+        #: the data-parallel group (``parallel.DataParallel.install``)
+        self.group = None
         self.forwards: List[Any] = []
         self.gds: List[Any] = []
         for i, cfg in enumerate(self.layers_config):
@@ -119,7 +123,7 @@ class StandardWorkflow:
         self.plotters: list = []
 
     def __getstate__(self) -> dict:
-        return dict(self.__dict__, device=None)
+        return dict(self.__dict__, device=None, group=None)
 
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)
@@ -128,6 +132,7 @@ class StandardWorkflow:
         self.stop_requested = False
         self.__dict__.setdefault("_extra_after_decision", [])
         self.__dict__.setdefault("plotters", [])
+        self.__dict__.setdefault("group", None)
 
     # -- plotters and the status reporter --------------------------------
 
@@ -196,11 +201,18 @@ class StandardWorkflow:
         preemption: the launcher snapshots right after)."""
         self.stop_requested = True
 
+    def _stopping(self) -> bool:
+        """A stop was requested: on any rank of a data-parallel group,
+        so that every rank stops before the same firing."""
+        if self.group is None:
+            return self.stop_requested
+        return self.group.any(self.stop_requested)
+
     def run(self) -> None:
         t0 = time.perf_counter()
         self.stop_requested = False
         try:
-            while not self.decision.complete and not self.stop_requested:
+            while not self.decision.complete and not self._stopping():
                 self.loader.run()
                 if self.lr_adjust is not None:
                     self.lr_adjust.run()

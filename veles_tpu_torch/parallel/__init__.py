@@ -1,0 +1,19 @@
+"""Data parallelism over ``torch.distributed``: one process per rank.
+
+Counterpart of ``veles_tpu/parallel/``.  The reference replaces the
+original master--slave gradient aggregation with an SPMD mesh whose
+gradient ``psum`` XLA inserts; the port runs one process per rank and
+sums the gradients with an explicit ``all_reduce`` (``mesh.py``,
+``data_parallel.py``).  ``python -m veles_tpu_torch --dp N`` starts N
+ranks on this host; ``--multihost`` joins from torchrun's environment.
+"""
+
+from veles_tpu_torch.parallel.data_parallel import DataParallel, RankDevice
+from veles_tpu_torch.parallel.mesh import (RankGroup, env_layout,
+                                           init_group, padded_rows,
+                                           put_member_sharded,
+                                           put_row_sharded, shard_mode)
+
+__all__ = ["RankGroup", "env_layout", "init_group", "padded_rows",
+           "put_row_sharded", "put_member_sharded", "shard_mode",
+           "DataParallel", "RankDevice"]

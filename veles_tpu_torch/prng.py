@@ -21,7 +21,10 @@ from a generator keyed by ``(layer's key, t)``, the counterpart of
 (Bernoulli ``u < p``, Gumbel ``-log(-log(max(u, tiny)))``), so a test
 that replaces :func:`torch_generator` and :func:`uniform` with the
 reference's key chain and ``jax.random.uniform`` draws exactly the
-reference's uniforms.  Dropout keeps its own ``torch.rand`` draw.
+reference's uniforms.  Dropout draws through it too.  On a
+data-parallel rank each layer's generator is a :class:`RowSlice`: the
+draw covers the global minibatch and the rank keeps its rows, so the
+ranks together draw what one device draws.
 
 :func:`snapshot_state` / :func:`restore_state` carry every named
 stream's numpy state through a snapshot (``snapshotter.py``), so a
@@ -119,22 +122,42 @@ def generator_seed(seed: int, counter: int, layer: int) -> int:
     return v & ((1 << 63) - 1)
 
 
+class RowSlice:
+    """A stochastic layer's generator on one data-parallel rank: every
+    draw is made for the GLOBAL minibatch's ``total`` rows and the rank
+    keeps rows ``[lo, hi)``, so N ranks together draw what one device
+    draws (``uniform`` reads it; the leading axis of a draw is the
+    minibatch's)."""
+
+    __slots__ = ("gen", "lo", "hi", "total")
+
+    def __init__(self, gen: torch.Generator, lo: int, hi: int,
+                 total: int) -> None:
+        self.gen, self.lo, self.hi, self.total = gen, lo, hi, total
+
+
 def torch_generator(seed: int, counter: int, layer: int,
-                    device: torch.device) -> torch.Generator:
+                    device: torch.device, rows=None):
     """A ``torch.Generator`` on ``device`` for stochastic layer ``layer``
     at the minibatch numbered ``counter`` (the fused runner's
-    rng_counter) of a run seeded by ``seed``."""
+    rng_counter) of a run seeded by ``seed``; with ``rows=(lo, hi,
+    total)`` (a data-parallel rank's slice) the :class:`RowSlice` of
+    it."""
     gen = torch.Generator(device=device)
     gen.manual_seed(generator_seed(seed, counter, layer))
-    return gen
+    return gen if rows is None else RowSlice(gen, *rows)
 
 
-def uniform(rng: torch.Generator, shape, device: torch.device,
-            t: int = 0) -> torch.Tensor:
+def uniform(rng, shape, device: torch.device, t: int = 0) -> torch.Tensor:
     """f32 uniforms on ``[0, 1)`` of ``shape`` on ``device``: from the
     layer's generator ``rng`` at Gibbs step ``t == 0``, else from a
     generator keyed by ``(rng's seed, t)``.  On the card ``rng`` is a
-    CUDA generator and the draw is made there."""
+    CUDA generator and the draw is made there.  A :class:`RowSlice`
+    draws the global minibatch's rows and returns its own."""
+    rows = None
+    if isinstance(rng, RowSlice):
+        rows, rng = rng, rng.gen
+        shape = (rows.total,) + tuple(shape[1:])
     if t:
         gen = torch.Generator(device=rng.device)
         gen.manual_seed(_splitmix64(rng.initial_seed() ^ (t & _M64))
@@ -142,4 +165,6 @@ def uniform(rng: torch.Generator, shape, device: torch.device,
         rng = gen
     u = torch.rand(tuple(shape), generator=rng, device=rng.device,
                    dtype=torch.float32)
+    if rows is not None:
+        u = u[rows.lo:rows.hi]
     return u.to(device)

@@ -26,7 +26,9 @@ classes, so a port snapshot resumes only in the port, and
   run with no operator flags.
 - :class:`Snapshotter` runs after the decision on a validation
   improvement and writes ``<prefix>_epoch<N>_<err>pt.pickle.gz``,
-  keeping the newest ``keep``.
+  keeping the newest ``keep``; in a data-parallel group only rank 0
+  writes (every rank holds the same params), and the group itself never
+  reaches the pickle: a resumed run installs data parallelism again.
 - Telemetry: saves and loads are timed into
   ``snapshot.save_seconds`` / ``snapshot.load_seconds``, saves and
   lineage fallbacks counted and journalled; the resume manifest records
@@ -327,6 +329,9 @@ class Snapshotter:
         self._epoch_count += 1
         if self.interval > 1 and self._epoch_count % self.interval:
             return
+        from veles_tpu_torch.parallel.mesh import is_writer
+        if not is_writer():
+            return   # a data-parallel group's snapshots are rank 0's
         err = "" if self.decision is None else \
             f"_{self.decision.epoch_error_pct[1]:.2f}pt"
         epoch = self.workflow.loader.epoch_number

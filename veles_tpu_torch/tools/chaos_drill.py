@@ -38,11 +38,14 @@ that reports it (:mod:`veles_tpu_torch.events`):
   traffic never tears an answer;
 - ``fleet.replica_flap``: a replica that kills itself after every hello
   is respawned with a growing backoff while the autoscaler takes no
-  action and every request is answered.
+  action and every request is answered;
+- ``multihost.peer_exit``: one rank of a 2-rank ``--multihost`` run
+  dies mid-training; the survivor exits 13 within the liveness deadline
+  with a final snapshot that resumes.
 
-Two of the reference's drills are not ported and are reported as such
+One of the reference's drills is not ported and is reported as such
 (``"ported": false``): ``stream.corrupt_file`` needs the image-file
-loader and ``multihost.peer_exit`` the multi-card launcher.
+loader.
 
 The drills run on the card unless ``-b cpu`` asks for the CPU; without a
 card, ``-b auto`` and ``-b cuda`` exit 1 naming the missing card.  The
@@ -75,7 +78,7 @@ from typing import Callable, Dict, List
 import numpy as np
 
 from veles_tpu_torch import events
-from veles_tpu_torch.supervisor import EXIT_PREEMPTED
+from veles_tpu_torch.supervisor import EXIT_MULTIHOST_ABORT, EXIT_PREEMPTED
 
 #: the repo's root: child processes run from it, the port on their path
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -86,8 +89,6 @@ NOT_PORTED = {
     "stream.corrupt_file": "needs the image-file loader "
                            "(veles_tpu/loader/image.py), not ported: the "
                            "card's machine has no image decoder",
-    "multihost.peer_exit": "needs the multi-card launcher (--multihost), "
-                           "not ported yet",
 }
 
 
@@ -513,6 +514,89 @@ def drill_preempt__sigterm_resume(matrix: Matrix):
             "preempt_snapshot_sec": round(snapshot_sec, 2),
             "resume_downtime_sec": resumed[-1].get("downtime"),
             "final_snapshot": snaps[0]}
+
+
+#: the peer drill's liveness settings, and the seconds past the deadline
+#: the survivor may take to write its final snapshot and exit
+MH_HEARTBEAT, MH_DEADLINE, MH_GRACE = 0.5, 5.0, 30.0
+#: rank 1 dies this long after joining, mid-training
+MH_AFTER_S = 2.0
+
+
+def drill_multihost__peer_exit(matrix: Matrix):
+    """Rank 1 of a 2-rank ``--multihost`` run (torchrun's variables set
+    by hand, ``-b`` the matrix's backend; on the card both ranks share it
+    over gloo) hard-exits mid-training (17).  Rank 0 must not hang in the
+    collective: it aborts cleanly, exit 13, within the deadline plus
+    MH_GRACE, with a final snapshot in the lineage and the abort in its
+    journal; the snapshot loads and resumes for an epoch."""
+    import socket
+
+    from veles_tpu_torch.snapshotter import load_workflow
+
+    d = tempfile.mkdtemp(prefix="chaos_mh_")
+    wf = os.path.join(d, "wf.py")
+    with open(wf, "w") as f:
+        f.write(_PHX_WF)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mdir = os.path.join(d, "m")
+    procs = []
+    for rank in range(2):
+        env = _child_env(
+            PHX_SNAP_DIR=os.path.join(d, "snaps"), PHX_EPOCHS="100000",
+            VELES_METRICS_DIR=mdir, MASTER_ADDR="127.0.0.1",
+            MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank),
+            LOCAL_RANK=str(rank), VELES_MESH_RANKS_PER_CARD="2",
+            VELES_MULTIHOST_HEARTBEAT=str(MH_HEARTBEAT),
+            VELES_MULTIHOST_DEADLINE=str(MH_DEADLINE),
+            VELES_FAULTS=f"multihost.peer_exit@process=1&after={MH_AFTER_S}")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "veles_tpu_torch", "--multihost", "-b",
+             matrix.backend, wf], env=env, cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    ended = [None, None]
+    try:
+        t_stop = time.monotonic() + 300
+        while None in ended and time.monotonic() < t_stop:
+            for i, p in enumerate(procs):
+                if ended[i] is None and p.poll() is not None:
+                    ended[i] = time.monotonic()
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    err0 = procs[0].communicate()[1]
+    procs[1].communicate()
+    rc0, rc1 = procs[0].returncode, procs[1].returncode
+    assert rc1 == 17, f"the peer did not die as injected (rc {rc1})"
+    assert rc0 == EXIT_MULTIHOST_ABORT, \
+        f"survivor rc {rc0}, wanted {EXIT_MULTIHOST_ABORT}: {err0[-1500:]}"
+    assert "aborting cleanly" in err0, err0[-1500:]
+    after_peer = ended[0] - ended[1]
+    assert after_peer <= MH_DEADLINE + MH_GRACE, after_peer
+    snaps = sorted(glob.glob(os.path.join(
+        d, "snaps", "*_final_multihost-abort_pid*")))
+    assert len(snaps) == 1, os.listdir(os.path.join(d, "snaps"))
+    evs = journal_events_from_dir(mdir,
+                                  events.EV_MULTIHOST_EMERGENCY_SNAPSHOT)
+    assert evs and evs[-1]["path"] == snaps[0], evs
+    # the final snapshot resumes: one more epoch on this process
+    w = load_workflow(snaps[0])
+    epoch = w.loader.epoch_number
+    w.decision.max_epochs = epoch + 1
+    w.initialize(device=matrix.device(), train=True)
+    w.run()
+    assert w.decision.complete and w.loader.epoch_number == epoch + 1
+    assert all(np.isfinite(a).all() for ps in w.fused.host_params().values()
+               for a in ps.values())
+    return {"survivor_exit": rc0, "peer_exit": rc1,
+            "survivor_after_peer_sec": round(after_peer, 2),
+            "final_snapshot": os.path.basename(snaps[0]),
+            "resumed_from_epoch": epoch,
+            "journal_event": events.EV_MULTIHOST_EMERGENCY_SNAPSHOT}
 
 
 def drill_supervisor__sigkill_ga_resume(matrix: Matrix):
@@ -987,6 +1071,7 @@ DRILLS = [
     drill_online__poison_batch,
     drill_online__swap_mid_request,
     drill_fleet__replica_flap,
+    drill_multihost__peer_exit,
 ]
 
 
