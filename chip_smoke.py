@@ -10,8 +10,10 @@ mnist7, cifar10, mnist_ae, wine, mnist_rbm and mnist_dbn models and the
 Kohonen SOM at their published sizes (the MNIST and CIFAR-10 ones from
 data files), profiles training supersteps, runs the GA and ensembles
 through the CLI, learns online in the serving process and hands a GA
-cohort to serving, serves from a fleet of hive replicas, and holds each
-hand-written kernel against its plain PyTorch version.  Every phase is fatal: the script
+cohort to serving, serves from a fleet of hive replicas, trains data
+parallel, serves and trains member-sharded over a mesh of two places
+sharing the card, and holds each hand-written kernel against its plain
+PyTorch version.  Every phase is fatal: the script
 exits nonzero, printing no result line, when any check fails, when
 there is no CUDA device, or when it is run without the repository
 beside it.  A phase that fails, by a check or by any other exception, is
@@ -49,8 +51,10 @@ imports nothing of JAX and nothing of the JAX package.
    superstep 8, bf16) for 2 epochs through ``Launcher`` +
    ``drive_workflow`` on ``veles_tpu_torch/models/alexnet.py``, the path
    ``python -m veles_tpu_torch`` takes, in process, with the data set
-   cut to 1024 train + 128 validation images.  The launch counts are
-   zeroed just before and read just after; every training minibatch
+   cut to 1024 train + 128 validation images, on cuDNN's deterministic
+   algorithms (phase 6 holds its streamed run against this one).  The
+   launch counts are zeroed just before and read just after; every
+   training minibatch
    must have run ``lrn_bwd`` at both norm layers and every minibatch
    ``lrn_fwd``.  The run writes a metrics dir (``telemetry.configure``)
    and a ``logger.add_jsonl_sink`` file: its flushed snapshot's
@@ -88,20 +92,21 @@ imports nothing of JAX and nothing of the JAX package.
    pool (argmax) and ReLU (mask), each choice it would have made
    otherwise a near tie: every param's change agrees within 1e-3
    relative.
-6. Stream: the training run of phase 4 twice more, resident and with
+6. Stream: the training run of phase 4 once more with
    ``root.alexnet.loader.max_resident_bytes=0`` (every superstep
    assembled on the host and streamed in bf16 through the pinned
-   double buffer), both with cuDNN's deterministic algorithms.  Every
-   minibatch ran both kernels; the loader did not go resident; the
-   streamed bytes are the bf16 samples and int64 labels of every
-   minibatch; the streamed run equals the resident one (see
-   ``same_run``).  Then, per path, train supersteps timed with CUDA
-   events (each right after a synchronised validation firing, so the
-   streamed one includes whatever host assembly the prefetch thread
-   had not finished), the host assembly, staging and H2D ms and bytes
-   per superstep, the assembly's steps timed one by one, and
-   ``save_workflow`` / ``load_workflow`` of the full-width workflow
-   uncompressed and as ``.gz``.
+   double buffer), held against phase 4's run as the resident one, both
+   drives on cuDNN's deterministic algorithms.  Every minibatch ran
+   both kernels; the loader did not go resident; the streamed bytes are
+   the bf16 samples and int64 labels of every minibatch; the streamed
+   run equals the resident one (see ``same_run``).  Then streamed train
+   supersteps timed with CUDA events (each right after a synchronised
+   validation firing, so it includes whatever host assembly the
+   prefetch thread had not finished; the resident superstep is phase
+   4's), the host assembly, staging and H2D ms and bytes per superstep,
+   the assembly's steps timed one by one, and ``save_workflow`` /
+   ``load_workflow`` of the full-width workflow uncompressed and as
+   ``.gz``.
 7. Preempt-resume: a workflow file written to the scratch directory
    builds ``models/alexnet.py``'s workflow on 256 + 128 images for 2
    epochs (superstep 1, so that a TRAIN class spans two firings) and,
@@ -335,20 +340,41 @@ imports nothing of JAX and nothing of the JAX package.
    ``multihost.peer_exit`` drill on the card (two ranks over gloo, rank
    1 dies, rank 0 exits 13 with a final snapshot that resumes); and the
    refusal.
-26. Summary (a phase of its own): each phase's wall seconds on a
+26. Mesh (ROADMAP item 10b): one process's mesh of 2 places sharing
+   the card (``$VELES_MESH_RANKS_PER_CARD=2``; no run covers a mesh over
+   two cards).  A 3-member full-width AlexNet package and the tier-1
+   model served by a ``--serve-models --mesh 2`` hive and a flat hive,
+   side by side, at one budget a place (``MESH_BUDGET``: the padded half
+   of the AlexNet stack fits, the whole stack does not): the mesh hive's
+   hello advertises ``devices`` 2 and AlexNet sharded and resident, it
+   answers 3 requests of 1-16 rows switching models with 0 spills
+   where the flat hive spills at every switch, each answer the flat
+   hive's (bitwise, else within the serve phase's card-vs-engine bar),
+   and ``lrn_fwd`` launched 6 times an AlexNet dispatch (2 layers
+   x 3 real members; the hives' own counts); an AlexNet cohort of 3
+   (conv1's rate the gene; padded to 4, 2 a place; 256 + 128 images,
+   bf16) through ``python -m veles_tpu_torch.genetics.worker --serve
+   --dp 2`` and, in this process, the same cohort unsharded and sharded:
+   the fitness rows equal, the sharded params within the cohort
+   phase's bf16 bar of the unsharded (``MESH_PARAM_*`` says why), the
+   LRN kernels launched 2 a layer a
+   minibatch (once a place; the unsharded cohort once), the cohort cap 2
+   places' worth of one place's budget; the SOM cohort of 3 over the 2
+   places against its unsharded run.
+27. Summary (a phase of its own): each phase's wall seconds on a
    ``phases`` line (each also printed as it ends), then ``serve``,
    ``train``, ``stream``, ``preempt``, ``data``, ``mnist7``,
    ``cifar10``, ``quantized``, ``mnist_ae``, ``kohonen``, ``layers``, ``wine``, ``mnist_rbm``, ``mnist_dbn``, ``profile``,
    ``cohort``, ``som_cohort``, ``ga``, ``ensemble``, ``online``,
-   ``fleet`` and ``dp`` JSON lines, each with its phase's ``seconds``,
-   the total minutes, the card line, the
+   ``fleet``, ``dp`` and ``mesh`` JSON lines, each with its phase's
+   ``seconds``, the total minutes, the card line, the
    ``kernels`` line, then the device line last.
 
 ``python3 chip_smoke.py --only fleet`` (or ``preempt``, ``online``,
-``dp``, or a comma-separated list of them) runs phase 1's build, phase
-3's package and phase 24 (7, 23, 25, those listed) alone, and prints
-their JSON lines and no result lines (``dp`` then holds nothing against
-phase 4's epoch).
+``dp``, ``mesh``, or a comma-separated list of them) runs phase 1's
+build, phase 3's package and phase 24 (7, 23, 25, 26, those listed)
+alone, and prints their JSON lines and no result lines (``dp`` then
+holds nothing against phase 4's epoch).
 """
 
 from __future__ import annotations
@@ -783,11 +809,13 @@ class HiveProcess:
         self._stderr.close()
 
 
-def build_package(workdir: str) -> str:
-    """A full-width AlexNet ensemble package: members drawn with numpy
-    from SEED at the stddevs ``alexnet_layers`` declares, written in
-    the framework-neutral (reference) layout.  The entry cuts the
-    synthetic data set to PACKAGE_N_TRAIN + PACKAGE_N_VALID images:
+def build_package(workdir: str, n_members: int = N_MEMBERS,
+                  name: str = "alexnet") -> str:
+    """A full-width AlexNet ensemble package of ``n_members``: members
+    drawn with numpy from SEED + i at the stddevs ``alexnet_layers``
+    declares, written in the framework-neutral (reference) layout.  The
+    entry cuts the synthetic data set to PACKAGE_N_TRAIN +
+    PACKAGE_N_VALID images:
     serving never loads it, and an ``--online`` hive loads it once on
     the host only for the codec's decision (``hive.attach_dequant``);
     the widths are the model's."""
@@ -808,14 +836,14 @@ def build_package(workdir: str) -> str:
     w = alexnet.create_workflow(FL())
     w.initialize()
     members = []
-    for i in range(N_MEMBERS):
+    for i in range(n_members):
         gen = np.random.default_rng(SEED + i)
         params = {f.name: f.fill_params(gen) for f in w.forwards}
         members.append({"params": params_to_jax(params),
                         "seed": SEED + i, "valid_error": 0.0,
                         "forward_names": [f.name for f in w.forwards]})
-    pkg = os.path.join(workdir, "alexnet.vpkg")
-    pack_ensemble(pkg, "alexnet", members, entry)
+    pkg = os.path.join(workdir, f"{name}.vpkg")
+    pack_ensemble(pkg, name, members, entry)
     return pkg
 
 
@@ -1342,9 +1370,11 @@ def _plot_cli() -> dict:
             "outcome": outcome}
 
 
-def train_phase(card: str, workdir: str):
+def train_phase(card: str, workdir: str, resident: dict):
     """Full-width AlexNet, 2 epochs, through the port's entry path, with
-    a metrics dir and an event sink.  Returns the readings and the
+    a metrics dir and an event sink, on deterministic cuDNN: it is also
+    the stream phase's resident run, whose history, params, launches and
+    superstep ms go into ``resident``.  Returns the readings and the
     workflow (the profile phase goes on with it)."""
     import torch
 
@@ -1361,15 +1391,24 @@ def train_phase(card: str, workdir: str):
     detach = add_jsonl_sink(sink)
     page = _StatusPage(metrics_dir)
     epoch1 = _EpochDelta()
+    # deterministic cuDNN: this run is held against the streamed one
+    torch.backends.cudnn.deterministic = True
     try:
         events = _plot_spy()
         with epoch1:
             launcher, launches, total_s = _drive(
                 TRAIN_OVERRIDES, before=page.attach)
+        w = launcher.workflow
+        resident.update(history=list(w.decision.history),
+                        params=w.fused.host_params(), launches=launches,
+                        drive_s=total_s,
+                        device_resident=w.loader.device_resident,
+                        streaming=w.fused.streaming)
     except BaseException:
         page.close()
         raise
     finally:
+        torch.backends.cudnn.deterministic = False
         detach()
     # the first epoch's sampled param change: phase 25 holds its
     # data-parallel run's against it
@@ -1438,6 +1477,7 @@ def train_phase(card: str, workdir: str):
     end.record()
     torch.cuda.synchronize()
     superstep_ms = start.elapsed_time(end)
+    resident["superstep_ms"] = [superstep_ms]
     fused.take_class_metrics()
 
     # in situ: each norm layer's backward at a real training minibatch
@@ -1908,27 +1948,26 @@ def _assembly_breakdown(ld) -> dict:
     return out
 
 
-def stream_phase(card: str, workdir: str) -> dict:
-    """Full-width AlexNet trained resident and streamed from the host,
-    the same cut data, config and seed."""
+def stream_phase(card: str, workdir: str, resident: dict) -> dict:
+    """Full-width AlexNet streamed from the host, held against the
+    resident run of the same cut data, config and seed: phase 4's
+    (``resident``, its drive on deterministic cuDNN as this one's)."""
     import torch
 
     from veles_tpu_torch.snapshotter import load_workflow, save_workflow
     torch.backends.cudnn.deterministic = True
     try:
-        runs = {}
-        for path, extra in (("resident", []), ("stream", [
-                "root.alexnet.loader.max_resident_bytes=0"])):
-            launcher, launches, seconds = _drive(TRAIN_OVERRIDES + extra)
-            w = launcher.workflow
-            runs[path] = {"w": w, "launches": launches, "drive_s": seconds,
-                          "history": list(w.decision.history),
-                          "params": w.fused.host_params()}
-        ws, wr = runs["stream"]["w"], runs["resident"]["w"]
+        launcher, launches, seconds = _drive(
+            TRAIN_OVERRIDES + ["root.alexnet.loader.max_resident_bytes=0"])
+        ws = launcher.workflow
+        runs = {"resident": resident,
+                "stream": {"w": ws, "launches": launches, "drive_s": seconds,
+                           "history": list(ws.decision.history),
+                           "params": ws.fused.host_params()}}
         ld, fused = ws.loader, ws.fused
         check(not ld.device_resident and ld.original_data is None
               and fused.streaming and ld.stream_dtype == torch.bfloat16
-              and wr.loader.device_resident and not wr.fused.streaming,
+              and resident["device_resident"] and not resident["streaming"],
               "the stream phase's runs are not streamed and resident")
         train_mb = N_EPOCHS * N_TRAIN // TRAIN_BATCH
         valid_mb = N_EPOCHS * -(-N_VALID // TRAIN_BATCH)
@@ -1951,16 +1990,14 @@ def stream_phase(card: str, workdir: str) -> dict:
         for r in runs["stream"]["history"]:
             check(np.isfinite(r["loss"]), f"non-finite loss {r}")
 
-        timed = {}
-        for path in ("resident", "stream"):
-            timed[path] = _time_train_supersteps(runs[path]["w"], 3)
+        streamed = _time_train_supersteps(ws, 3)
         h2d_ms = fused.last_copy_ms()
         breakdown = _assembly_breakdown(ld)
-        assemble_ms = float(np.mean([t[2] for t in timed["stream"]]))
-        stage_ms = float(np.mean([t[1] for t in timed["stream"]]))
-        timed = {p: [t[0] for t in ts] for p, ts in timed.items()}
-        del runs["resident"]["w"], wr
-        torch.cuda.empty_cache()
+        assemble_ms = float(np.mean([t[2] for t in streamed]))
+        stage_ms = float(np.mean([t[1] for t in streamed]))
+        # the resident superstep: phase 4's, timed there after its run
+        timed = {"stream": [t[0] for t in streamed],
+                 "resident": resident["superstep_ms"]}
 
         snap = {}
         for suffix in (".pickle", ".pickle.gz"):
@@ -6381,6 +6418,497 @@ def dp_phase(card: str, workdir: str, train: dict = None) -> dict:
     return out
 
 
+# -- phase 26: member-sharded cohorts and mesh serving -------------------
+
+#: phase 26: one process's mesh of 2 places, both on the one card
+#: ($VELES_MESH_RANKS_PER_CARD=2); no run covers a mesh over two cards
+MESH_PLACES = 2
+#: the served ensemble: 3 full-width AlexNet members (f32 stack 731.6 MB,
+#: padded to 4, 487.8 MB a place) beside the tier-1 model; a budget a
+#: place that the padded half fits and the whole stack does not
+MESH_MEMBERS = 3
+MESH_BUDGET = 640 << 20
+#: the requests, 1-16 rows, switching models so that a hive that cannot
+#: hold both spills at every switch
+MESH_REQUESTS = ("alexnet3", "small", "alexnet3")
+#: the cohort: conv1's learning rate as the one gene, P = 3 (padded to
+#: 4 over the 2 places), one epoch of 256 + 128 images
+MESH_COHORT_LRS = (0.01, 0.005, 0.02)
+MESH_COHORT_OVERRIDES = ["root.alexnet.loader.n_train=256",
+                         "root.alexnet.loader.n_valid=128",
+                         "root.alexnet.decision.max_epochs=1"]
+#: its minibatches of 128: 2 train, 1 validation
+MESH_COHORT_MB = {"train": 2, "valid": 1}
+#: the sharded cohort's params against the unsharded cohort's: in bf16 a
+#: grouped convolution over a place's 2 members rounds otherwise than one
+#: over all 3, so the bar is the cohort phase's for bf16 (the whole
+#: model's relative L2, COHORT_MODEL_RTOL); the share of elements outside
+#: tests/test_torch_population.py's f32 bar (which the tier-1 test holds
+#: on the CPU) is reported
+MESH_PARAM_RTOL, MESH_PARAM_ATOL = 1e-4, 5e-6
+MESH_COHORT_CONFIG = '''
+from veles_tpu_torch.config import root
+from veles_tpu_torch.genetics import Tune
+from veles_tpu_torch.models import alexnet
+
+layers = alexnet.alexnet_layers()
+layers[0] = dict(layers[0], **{"<-": dict(
+    layers[0]["<-"], learning_rate=Tune(0.01, 0.001, 0.1))})
+root.alexnet.layers = layers
+'''
+
+
+def _mesh_hives(pkgs: dict, workdir: str, hives: dict,
+                errors: list) -> list:
+    """Start a ``--mesh 2`` hive and a flat hive on the same packages and
+    budget, side by side, each in a thread of its own filling ``hives``
+    ({"mesh": client, "flat": client}) or ``errors``; returns the
+    threads."""
+    from veles_tpu_torch.serve.client import HiveClient
+
+    def start(kind: str) -> None:
+        try:
+            hives[kind] = HiveClient(
+                pkgs, backend="cuda", max_batch=MAX_BATCH,
+                max_wait_ms=5, hbm_budget=MESH_BUDGET,
+                heartbeat_every=0,
+                install_dir=os.path.join(workdir, f"mesh_{kind}_install"),
+                env={"VELES_MESH_RANKS_PER_CARD": str(MESH_PLACES),
+                     "VELES_SERVE_MESH_SHARD": "auto"},
+                cwd=HERE, mesh=MESH_PLACES if kind == "mesh" else 0,
+                stderr=open(os.path.join(workdir, f"mesh_{kind}.stderr"),
+                            "w"), start_timeout=300)
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(f"{kind} hive: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=start, args=(k,))
+               for k in ("mesh", "flat")]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _mesh_serve(hives: dict, small_rows: np.ndarray) -> dict:
+    """The requests through both hives, one at a time; their answers,
+    stats and spills."""
+    gen = np.random.default_rng(SEED + 200)
+    out = {}
+    answers = {k: [] for k in hives}
+    stats0 = {k: h.stats() for k, h in hives.items()}
+    for k, st in stats0.items():
+        check(st["kernel_launches"]["lrn_fwd"] == 0 and st["dispatches"]
+              == 0, f"mesh: {k} hive's counts not zero before the "
+              f"requests: {st['kernel_launches']}")
+    rows = []
+    for model in MESH_REQUESTS:
+        if model == "small":
+            rows.append(small_rows[:int(gen.integers(1, 5))])
+        else:
+            n = int(gen.integers(1, 17))
+            rows.append((gen.integers(0, 256, (n,) + SAMPLE_SHAPE)
+                         - 128).astype(np.float32))
+    def drive(kind: str, h) -> None:
+        t0 = time.perf_counter()
+        for model, x in zip(MESH_REQUESTS, rows):
+            a = h.request(model, x, timeout=300)
+            check("probs" in a, f"mesh: {kind} hive, {model}: {a}")
+            probs = np.asarray(a["probs"], np.float32)
+            check(probs.shape[0] == len(x) and a["crc"] ==
+                  zlib.crc32(probs.tobytes()) and np.all(np.isfinite(probs)),
+                  f"mesh: {kind} hive, {model}: a bad answer")
+            answers[kind].append(probs)
+        out[kind] = {"requests_s": time.perf_counter() - t0,
+                     "stats": h.stats()}
+        print(f"mesh: the {kind} hive answered {len(rows)} requests in "
+              f"{out[kind]['requests_s']:.1f} s", flush=True)
+
+    # the two hives answer side by side, each its requests one at a time
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as tp:
+        for f in [tp.submit(drive, k, h) for k, h in hives.items()]:
+            f.result()
+    return {"answers": answers, "rows": rows, **out}
+
+
+def _mesh_cohort_setup(cfg: str, values: list, mesh):
+    """The GA evaluator's cohort set-up (``genetics/worker.py``
+    ``_evaluate_cohort`` and ``_train_cohort_chunk``) in this process:
+    each member's rates and decays read off its own workflow, the
+    cohort's workflow built on the card; returns (workflow, engine)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.genetics import worker
+    from veles_tpu_torch.launcher import Launcher, load_workflow_module
+    from veles_tpu_torch.ops.fused import PopulationTrainEngine
+
+    class FL:
+        workflow = None
+
+    create = load_workflow_module(ALEXNET_FILE).create_workflow
+    saved = copy.deepcopy(dict(root.__dict__))
+    try:
+        rates, decays = [], []
+        for v in values:
+            worker._rebuild_root(saved, [cfg], MESH_COHORT_OVERRIDES, v)
+            prng.seed_all(SEED)
+            w = create(FL())
+            rates.append([[gd.learning_rate, gd.learning_rate_bias]
+                          if gd is not None else [0.0, 0.0]
+                          for gd in w.gds])
+            decays.append([[gd.weight_decay, gd.weight_decay_bias]
+                           if gd is not None else [0.0, 0.0]
+                           for gd in w.gds])
+        worker._rebuild_root(saved, [cfg], MESH_COHORT_OVERRIDES, values[0])
+        launcher = Launcher(backend="cuda", seed=SEED)
+        launcher.create_workflow(create)
+        launcher.initialize()
+    finally:
+        root.__dict__.clear()
+        root.__dict__.update(saved)
+    w = launcher.workflow
+    return w, PopulationTrainEngine(w, np.asarray(rates, np.float32),
+                                    np.asarray(decays, np.float32),
+                                    mesh=mesh)
+
+
+def _mesh_cohorts(cfg: str, values: list, mesh) -> dict:
+    """The AlexNet cohort unsharded and sharded over ``mesh``, in this
+    process: fitness, launches and params of each, and the cohort caps."""
+    import torch
+
+    from veles_tpu_torch.genetics.worker import _hbm_cohort_cap
+    runs = {}
+    for kind, m in (("flat", None), ("sharded", mesh)):
+        t0 = time.perf_counter()
+        w, engine = _mesh_cohort_setup(cfg, values, m)
+        setup_s = time.perf_counter() - t0
+        check(engine.member_sharded == (m is not None),
+              f"mesh: the {kind} cohort's placement")
+        if m is not None:
+            for tile, place in zip(engine._tiles, m.places):
+                check(all(t.device == place for ps in tile.values()
+                          for t in ps.values()),
+                      f"mesh: a tile off its place {place}")
+        _zero_launches()
+        fits = engine.run()
+        torch.cuda.synchronize()
+        runs[kind] = {
+            "fitness": fits.tolist(), "launches": _launches(),
+            "minibatches": engine.minibatches,
+            "seconds": engine.seconds,
+            "stacked": engine._n_stacked,
+            "params": [engine.member_params(i) for i in range(len(values))],
+            "cap": _hbm_cohort_cap(w, 0, m), "setup_s": setup_s}
+        print(f"mesh: the {kind} cohort set up in {setup_s:.1f} s, ran in "
+              f"{engine.seconds:.1f} s", flush=True)
+        if m is not None:
+            # one place's cap: the same budget a place, not N of them
+            os.environ["VELES_MESH_SHARD_MEMBERS"] = "never"
+            try:
+                runs["place_cap"] = _hbm_cohort_cap(w, 0, m)
+            finally:
+                os.environ.pop("VELES_MESH_SHARD_MEMBERS", None)
+        engine.release()
+        del engine, w
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _mesh_som(mesh) -> dict:
+    """The SOM cohort of the first three SOM_GENOMES (padded to 4 over
+    the 2 places) against its unsharded run."""
+    import torch
+
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher, load_workflow_module
+    from veles_tpu_torch.ops.kohonen import SOMPopulationEngine
+    create = load_workflow_module(
+        os.path.join(MODELS_DIR, "kohonen.py")).create_workflow
+    genomes = np.asarray(SOM_GENOMES[:3], np.float32)
+    out = {}
+    for kind, m in (("flat", None), ("sharded", mesh)):
+        saved = copy.deepcopy(dict(root.__dict__))
+        try:
+            hp = genomes[0]
+            root.kohonen.trainer = {"alpha0": hp[0], "alpha_min": hp[1],
+                                    "sigma0": hp[2], "sigma_min": hp[3]}
+            launcher = Launcher(backend="cuda", seed=SEED)
+            launcher.create_workflow(create)
+            launcher.initialize()
+        finally:
+            root.__dict__.clear()
+            root.__dict__.update(saved)
+        engine = SOMPopulationEngine(launcher.workflow, genomes, mesh=m)
+        check(engine._n_stacked == (4 if m is not None else 3),
+              f"mesh: SOM cohort stacked {engine._n_stacked}")
+        _zero_launches()
+        out[kind] = {"fitness": engine.run().tolist(),
+                     "launches": _launches()}
+        torch.cuda.synchronize()
+        out[kind]["maps"] = engine.weights.cpu().numpy()
+        engine.release()
+    return out
+
+
+def mesh_phase(card: str, workdir: str) -> dict:
+    """Phase 26: ROADMAP item 10b on the one card, a mesh of 2 places
+    sharing it (``$VELES_MESH_RANKS_PER_CARD=2``).  Serving: a 3-member
+    full-width AlexNet and the tier-1 model from a ``--serve-models
+    --mesh 2`` hive and a flat hive at one budget a place
+    (MESH_BUDGET): the mesh hive holds AlexNet member-sharded and
+    resident with 0 spills where the flat one spills, and answers as the
+    flat one does.  Training: an AlexNet cohort of 3 through ``python -m
+    veles_tpu_torch.genetics.worker --serve --dp 2`` (one job) beside the
+    same cohort unsharded and sharded in this process; the SOM cohort of
+    3 over the 2 places against its unsharded run."""
+    import torch
+
+    from veles_tpu_torch import knobs
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.genetics.core import find_tunes
+    from veles_tpu_torch.launcher import apply_config_file
+    from veles_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    steps = {}
+
+    def step(name: str) -> None:
+        steps[name] = time.perf_counter() - t0
+        print(f"mesh: {name} at {steps[name]:.1f} s", flush=True)
+
+    sub = os.path.join(workdir, "mesh")
+    os.makedirs(sub, exist_ok=True)
+    cfg = os.path.join(sub, "mesh_cohort_cfg.py")
+    with open(cfg, "w") as f:
+        f.write(MESH_COHORT_CONFIG)
+    saved = copy.deepcopy(dict(root.__dict__))
+    try:
+        apply_config_file(cfg)
+        (gene,) = find_tunes(root)
+    finally:
+        root.__dict__.clear()
+        root.__dict__.update(saved)
+    values = [{gene: lr} for lr in MESH_COHORT_LRS]
+    # the evaluator starts first, its one job sent at once; the package
+    # is packed beside its start, then the hives start beside this
+    # process's cohorts
+    env = _dp_env(VELES_MESH_RANKS_PER_CARD=str(MESH_PLACES))
+    with open(os.path.join(sub, "worker.stderr"), "w") as err:
+        worker = subprocess.Popen(
+            [sys.executable, "-m", "veles_tpu_torch.genetics.worker",
+             "--serve", ALEXNET_FILE, cfg] + MESH_COHORT_OVERRIDES +
+            ["-b", "cuda", "-s", str(SEED), "--dp", str(MESH_PLACES),
+             "--heartbeat-every", "0"], cwd=HERE, env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+            text=True)
+    worker.stdin.write(json.dumps({"id": 1, "members": values,
+                                   "seed": SEED}) + "\n")
+    worker.stdin.close()
+    worker_lines = []
+    reader = threading.Thread(
+        target=lambda: worker_lines.extend(worker.stdout), daemon=True)
+    reader.start()
+    hives, errors, threads = {}, [], []
+    saved_env = os.environ.get(knobs.MESH_RANKS_PER_CARD)
+    os.environ[knobs.MESH_RANKS_PER_CARD] = str(MESH_PLACES)
+    cache = None
+    try:
+        # packing draws from the process's streams and reads its config:
+        # it runs alone, then the hives start beside this process's
+        # cohorts
+        pkg = build_package(sub, MESH_MEMBERS, "alexnet3")
+        small_pkg, _, _, small_rows, _ = _drift_package(sub)
+        step("packed")
+        # the tier-1 model first: the flat hive then admits AlexNet over
+        # its budget alone by spilling it, and warms AlexNet up before
+        # its hello as the mesh hive does
+        threads = _mesh_hives({"small": small_pkg, "alexnet3": pkg}, sub,
+                              hives, errors)
+        cache = _CachedSynthetic()
+        mesh = make_mesh(MESH_PLACES, "cuda")
+        check(list(mesh.places) == [torch.device("cuda", 0)] * MESH_PLACES,
+              f"mesh: places {mesh.places}")
+        cohorts = _mesh_cohorts(cfg, values, mesh)
+        step("cohorts")
+        som = _mesh_som(mesh)
+        step("som")
+        for t in threads:
+            t.join(400)
+        check(not errors and len(hives) == 2, "; ".join(errors) or
+              "mesh: a hive did not start")
+        step("hives")
+        hellos = {k: h.hello for k, h in hives.items()}
+        serve = _mesh_serve(hives, small_rows)
+        closers = [threading.Thread(target=h.close) for h in hives.values()]
+        for t in closers:
+            t.start()
+        for t in closers:
+            t.join(60)
+        for h in hives.values():
+            check(h.proc.poll() == 0, f"mesh: a hive's shutdown rc "
+                  f"{h.proc.poll()}")
+        hives = {}
+        step("served")
+        worker.wait(timeout=300)
+        reader.join(60)
+        step("evaluator")
+    finally:
+        if cache is not None:
+            cache.restore()
+        for t in threads:
+            t.join(400)
+        for h in hives.values():
+            h.close(kill=True)
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+        if saved_env is None:
+            os.environ.pop(knobs.MESH_RANKS_PER_CARD, None)
+        else:
+            os.environ[knobs.MESH_RANKS_PER_CARD] = saved_env
+    check(worker.returncode == 0,
+          f"mesh: the evaluator exited {worker.returncode}")
+    lines = [json.loads(ln) for ln in worker_lines if ln.strip()]
+    hello = next(m for m in lines if m.get("ready"))
+    (job,) = [m for m in lines if m.get("id") == 1]
+    check("fitnesses" in job and job["fallbacks"] == 0,
+          f"mesh: the evaluator's job: {job}")
+
+    # -- serving: placement, spills, answers, launches
+    hm, hf = hellos["mesh"], hellos["flat"]
+    check(hm["devices"] == MESH_PLACES and hf["devices"] == 1,
+          f"mesh: hellos advertise devices {hm['devices']} / "
+          f"{hf['devices']}")
+    check(hm["models"]["alexnet3"]["sharded"] is True
+          and hm["models"]["alexnet3"]["resident"]
+          and hf["models"]["alexnet3"]["sharded"] is False,
+          f"mesh: hello models {hm['models']} / {hf['models']}")
+    sm, sf = serve["mesh"]["stats"], serve["flat"]["stats"]
+    check(sm["models"]["alexnet3"]["sharded"] is True and all(
+        r["resident"] for r in sm["models"].values()) and sm["spills"] == 0,
+        f"mesh: the mesh hive's stats {sm['models']}, spills "
+        f"{sm['spills']}")
+    check(sf["spills"] >= 2, f"mesh: the flat hive spilled {sf['spills']} "
+          f"times at the budget that the mesh holds both models in")
+    check(sm["gauges"]["serve.mesh_devices"] == MESH_PLACES,
+          "mesh: the serve.mesh_devices gauge")
+    n_norm = 2
+    launches = {}
+    for kind, st in (("mesh", sm), ("flat", sf)):
+        d = st["models"]["alexnet3"]["dispatches"]
+        launches[kind] = st["kernel_launches"]["lrn_fwd"]
+        check(d == MESH_REQUESTS.count("alexnet3") and launches[kind] ==
+              n_norm * MESH_MEMBERS * d,
+              f"mesh: the {kind} hive launched lrn_fwd {launches[kind]} "
+              f"times in {d} AlexNet dispatches (want {n_norm} layers x "
+              f"{MESH_MEMBERS} real members a dispatch)")
+    bitwise = all(np.array_equal(a, b) for a, b in
+                  zip(serve["answers"]["mesh"], serve["answers"]["flat"]))
+    answers = [agree(a, b, 1e-3, 0.0, 0.05, f"mesh request {i} vs flat")
+               for i, (a, b) in enumerate(zip(serve["answers"]["mesh"],
+                                              serve["answers"]["flat"]))]
+    stack = hm["models"]["alexnet3"]["param_bytes"]
+    want_place = stack // MESH_MEMBERS * 4 // MESH_PLACES
+    per_place = sm["ledger"]["serve"]
+    check(want_place <= per_place <= MESH_BUDGET < stack,
+          f"mesh: {per_place} bytes a place for a {stack}-byte stack "
+          f"(padded half {want_place}) at a budget of {MESH_BUDGET}")
+
+    # -- the cohorts
+    flat, sharded = cohorts["flat"], cohorts["sharded"]
+    check(job["fitnesses"] == flat["fitness"] == sharded["fitness"],
+          f"mesh: cohort fitness: evaluator --dp {job['fitnesses']}, "
+          f"sharded {sharded['fitness']}, unsharded {flat['fitness']}")
+    (chunk,) = job["stats"]
+    train_mb = MESH_COHORT_MB["train"]
+    valid_mb = MESH_COHORT_MB["valid"]
+    want_sharded = {"lrn_fwd": n_norm * MESH_PLACES * (train_mb + valid_mb),
+                    "lrn_bwd": n_norm * MESH_PLACES * train_mb}
+    want_flat = {k: v // MESH_PLACES for k, v in want_sharded.items()}
+    check(chunk["kernel_launches"] == sharded["launches"] == want_sharded
+          and flat["launches"] == want_flat and chunk["places"] ==
+          MESH_PLACES, f"mesh: cohort launches: evaluator "
+          f"{chunk['kernel_launches']}, sharded {sharded['launches']} "
+          f"(want {want_sharded}), unsharded {flat['launches']} (want "
+          f"{want_flat})")
+    place_cap = cohorts["place_cap"]
+    check(chunk["cap"] == sharded["cap"] and abs(
+        chunk["cap"] - MESH_PLACES * place_cap) <= MESH_PLACES,
+        f"mesh: cohort caps: evaluator {chunk['cap']}, in process "
+        f"{sharded['cap']}, one place's {place_cap}")
+    worst = {"abs": 0.0, "model_rel_l2": 0.0, "outside_f32_bar": 0}
+    for a_m, b_m in zip(sharded["params"], flat["params"]):
+        diff = norm = 0.0
+        for fn, ps in b_m.items():
+            for pn, b in ps.items():
+                err = np.abs(a_m[fn][pn] - b)
+                worst["abs"] = max(worst["abs"], float(err.max()))
+                worst["outside_f32_bar"] += int(np.sum(
+                    err > MESH_PARAM_ATOL + MESH_PARAM_RTOL * np.abs(b)))
+                diff += _norm(err) ** 2
+                norm += _norm(b) ** 2
+        worst["model_rel_l2"] = max(worst["model_rel_l2"],
+                                    diff ** 0.5 / max(norm ** 0.5, 1e-30))
+    check(worst["model_rel_l2"] <= COHORT_MODEL_RTOL["bfloat16"],
+          f"mesh: the sharded cohort's params differ from the unsharded's "
+          f"by {worst['model_rel_l2']:.3g} (relative L2 of the model)")
+    # the SOM cohort
+    check(not any(som["sharded"]["launches"].values()),
+          f"mesh: SOM cohort launched {som['sharded']['launches']}")
+    som_rel = float(np.max(np.abs(np.asarray(som["sharded"]["fitness"]) -
+                                  som["flat"]["fitness"]) /
+                           np.abs(som["flat"]["fitness"])))
+    check(som_rel <= SOM_FIT_RTOL, f"mesh: SOM cohort fitness "
+          f"{som['sharded']['fitness']} vs {som['flat']['fitness']}")
+    out = {
+        "places": MESH_PLACES, "cards": 1, "budget_bytes": MESH_BUDGET,
+        "steps_s": steps,
+        "serve": {
+            "hello_devices": [hm["devices"], hf["devices"]],
+            "sharded": hm["models"]["alexnet3"]["sharded"],
+            "mesh_spills": sm["spills"], "flat_spills": sf["spills"],
+            "stack_bytes": stack, "serve_bytes_a_place": per_place,
+            "padded_half_bytes": want_place,
+            "requests": len(MESH_REQUESTS),
+            "alexnet_dispatches": MESH_REQUESTS.count("alexnet3"),
+            "lrn_fwd_launches": launches, "answers_bitwise": bitwise,
+            "max_abs_err": max(a["max_abs_err"] for a in answers),
+            "requests_s": {k: serve[k]["requests_s"]
+                           for k in ("mesh", "flat")}},
+        "cohort": {
+            "members": len(values), "lrs": list(MESH_COHORT_LRS),
+            "fitness": job["fitnesses"], "stacked": sharded["stacked"],
+            "launches": chunk["kernel_launches"],
+            "launches_unsharded": flat["launches"],
+            "cap": chunk["cap"], "cap_one_place": place_cap,
+            "cap_unsharded_card": flat["cap"],
+            "setup_s": [flat["setup_s"], sharded["setup_s"]],
+            "params_max_abs_err": worst["abs"],
+            "params_model_rel_l2": worst["model_rel_l2"],
+            "params_outside_f32_bar": worst["outside_f32_bar"],
+            "minibatches": sharded["minibatches"],
+            "evaluator_places": hello.get("places"),
+            "evaluator_s": chunk["seconds"],
+            "sharded_s": sharded["seconds"], "unsharded_s": flat["seconds"]},
+        "som": {"fitness": som["sharded"]["fitness"],
+                "launches": som["sharded"]["launches"],
+                "unsharded_fitness": som["flat"]["fitness"],
+                "rel_fitness": som_rel,
+                "bitwise": som["sharded"]["fitness"] ==
+                som["flat"]["fitness"]},
+        "card": card}
+    print(f"mesh: 2 places on one card; served AlexNet x{MESH_MEMBERS} "
+          f"sharded, {per_place} bytes a place (budget {MESH_BUDGET}), "
+          f"spills mesh {sm['spills']} / flat {sf['spills']}, answers "
+          f"bitwise {bitwise}, lrn_fwd {launches}; cohort fitness "
+          f"{job['fitnesses']}, launches {chunk['kernel_launches']} "
+          f"(unsharded {flat['launches']}), cap {chunk['cap']} vs one "
+          f"place's {place_cap}, params rel L2 "
+          f"{worst['model_rel_l2']:.3g} (max abs {worst['abs']:.3g}); SOM "
+          f"rel {som_rel:.3g}  [{card}]", flush=True)
+    return out
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as sock:
@@ -6505,11 +7033,11 @@ def main() -> int:
         return out
 
     only = {"preempt": preempt_phase, "online": online_phase,
-            "fleet": fleet_phase, "dp": dp_phase}
+            "fleet": fleet_phase, "dp": dp_phase, "mesh": mesh_phase}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and set(sys.argv[2].split(",")) <= set(only):
         # development: phase 1's build, the served package and phases 7,
-        # 23 and / or 24 alone; no result lines
+        # 23, 24, 25 and / or 26 alone; no result lines
         try:
             timed("build", lrn_cuda.build)
             timed("package", build_package, workdir)
@@ -6577,11 +7105,15 @@ def main() -> int:
         # phase 3: the serving path
         serve, serve_launches = timed("serve", serve_phase, card, workdir)
         # phases 4 and 5: the training path
-        train, alexnet_w = timed("train", train_phase, card, workdir)
+        # phase 4's run is also phase 6's resident run
+        resident = {}
+        train, alexnet_w = timed("train", train_phase, card, workdir,
+                                 resident)
         train["f32_card_vs_cpu"] = timed("card_vs_cpu", card_vs_cpu_phase)
         train["f32_card_vs_cpu"]["seconds"] = phases["card_vs_cpu"]
         # phases 6 and 7: streaming, and preemption with resume
-        stream = timed("stream", stream_phase, card, workdir)
+        stream = timed("stream", stream_phase, card, workdir, resident)
+        del resident
         preempt = timed("preempt", preempt_phase, card, workdir)
         # phases 8-11: real data, the three small models, uint8 ingest
         data_dir = os.path.join(workdir, "data")
@@ -6614,6 +7146,8 @@ def main() -> int:
         fleet = timed("fleet", fleet_phase, card, workdir)
         # phase 25: data parallel
         dp = timed("dp", dp_phase, card, workdir, train)
+        # phase 26: member-sharded cohorts and mesh serving
+        mesh = timed("mesh", mesh_phase, card, workdir)
         results = {"serve": serve, "train": train, "stream": stream,
                    "preempt": preempt, "data": data, "mnist7": mnist7,
                    "cifar10": cifar10, "quantized": quantized,
@@ -6622,8 +7156,8 @@ def main() -> int:
                    "mnist_dbn": mnist_dbn, "profile": profile,
                    "cohort": cohort, "som_cohort": som_cohort, "ga": ga,
                    "ensemble": ensemble, "online": online, "fleet": fleet,
-                   "dp": dp}
-        # phase 26: the summary
+                   "dp": dp, "mesh": mesh}
+        # phase 27: the summary
         kernels = timed("summary", summary, rows, serve_launches, results,
                         dict(phases), card)
     except Exception:   # named by timed()
@@ -6659,10 +7193,13 @@ def summary(rows, serve_launches, res: dict, phases: dict,
             "fleet": res["fleet"]["launches"][k],
             "dp_rank0": res["dp"]["launches"][k][0],
             "dp_rank1": res["dp"]["launches"][k][1],
-            "dp_nccl": res["dp"]["nccl"]["launches"][k]}
+            "dp_nccl": res["dp"]["nccl"]["launches"][k],
+            "mesh_cohort": res["mesh"]["cohort"]["launches"][k],
+            "mesh_som": res["mesh"]["som"]["launches"][k]}
     launches["lrn_fwd"] = dict(
         launches["lrn_fwd"], serve=serve_launches,
-        export=res["train"]["export"]["launches"]["lrn_fwd"])
+        export=res["train"]["export"]["launches"]["lrn_fwd"],
+        mesh_serve=res["mesh"]["serve"]["lrn_fwd_launches"]["mesh"])
     kernels = [
         summary_kernel("lrn_fwd", "veles_tpu/ops/lrn_pallas.py:132", rows,
                        launches["lrn_fwd"], card),

@@ -96,9 +96,11 @@ def test_indivisible_minibatches_are_refused():
 
 def test_placements_per_rank():
     """Row-sharded: rank r's padded_rows(R, N) / N rows, the tail zeros;
-    member-sharded: rank r's P/N members, P a multiple of N; shard_mode
-    reads the reference's spellings."""
-    from veles_tpu_torch.parallel import (padded_rows, put_member_sharded,
+    member-sharded (a mesh of places, one process): place p's P/N
+    members on place p, P a multiple of N; shard_mode reads the
+    reference's spellings."""
+    from veles_tpu_torch.parallel import (make_mesh, padded_rows,
+                                          put_member_sharded,
                                           put_row_sharded, shard_mode)
     dev = TorchDevice(torch.device("cpu"))
     a = np.arange(7 * 2, dtype=np.float32).reshape(7, 2)
@@ -108,10 +110,13 @@ def test_placements_per_rank():
     assert n == 7
     np.testing.assert_array_equal(torch.cat([r0, r1]).numpy()[:7], a)
     assert r1.shape == (4, 2) and not r1[-1].any()
-    m = put_member_sharded(RankGroup(1, 2, "cpu"), dev, np.arange(6))
-    np.testing.assert_array_equal(m.numpy(), [3, 4, 5])
+    mesh = make_mesh(2, "cpu")
+    m = put_member_sharded(mesh, dev, np.arange(6))
+    assert [t.device for t in m] == list(mesh.places)
+    np.testing.assert_array_equal(m[1].numpy(), [3, 4, 5])
+    np.testing.assert_array_equal(m[0].numpy(), [0, 1, 2])
     with pytest.raises(ValueError, match="pad members"):
-        put_member_sharded(RankGroup(0, 4, "cpu"), dev, np.arange(6))
+        put_member_sharded(make_mesh(4, "cpu"), dev, np.arange(6))
     assert [shard_mode(v) for v in ("0", "never", "1", "always", "auto",
                                     "x")] == ["never", "never", "always",
                                               "always", "auto", "auto"]
@@ -141,7 +146,8 @@ def test_the_command_line_refuses_what_it_cannot_run(tmp_path):
     assert "only 0 visible" in p.stderr and \
         "VELES_MESH_RANKS_PER_CARD" in p.stderr, p.stderr[-2000:]
     p = run_cli(["--dp", "2", "-b", "cpu", "--optimize", "2:1", wf], env)
-    assert p.returncode == 2 and "10b" in p.stderr, p.stderr[-2000:]
+    assert p.returncode == 2 and "genetics.worker --serve --dp N" in \
+        p.stderr, p.stderr[-2000:]
     p = run_cli(["--multihost", "-b", "cpu", wf], env)
     assert p.returncode == 2, p.stderr[-2000:]
     assert "torchrun" in p.stderr and "MASTER_ADDR" in p.stderr, \

@@ -17,7 +17,7 @@ processes of the port, serving the reference test's packaged members
   EMA that admission sheds on is set from ``op=stats``;
 - the CLI round trip through ``python -m veles_tpu_torch --serve-fleet``:
   hello, an answer, ``op=fleet``, ``shutdown`` with rc 0; and the
-  refused ``--mesh`` / ``--metrics-dir``.
+  ``--mesh`` / ``--metrics-dir``.
 """
 
 import json
@@ -277,21 +277,26 @@ def test_cli_round_trip(packages):
 
 @pytest.mark.parametrize("flag", ["--mesh", "--metrics-dir"])
 def test_cli_refuses_what_is_not_ported(packages, flag, tmp_path):
-    """``--mesh`` is refused; ``--metrics-dir`` is ported now: the
-    fleet serves, and its dir holds the router's files and one
-    ``replica-<i>`` dir a replica, each with a snapshot and a journal
-    that ends in ``serve.shutdown``."""
+    """Both are ported now.  ``--mesh 2``: every replica owns a mesh of
+    two places, and ``op=fleet`` shows ``devices`` 2 for each.
+    ``--metrics-dir``: the fleet serves, and its dir holds the router's
+    files and one ``replica-<i>`` dir a replica, each with a snapshot
+    and a journal that ends in ``serve.shutdown``."""
     value = "2" if flag == "--mesh" else str(tmp_path / "m")
+    lines = [{"op": "fleet", "id": 1}] * (flag == "--mesh") + \
+        [{"op": "shutdown"}]
     p = subprocess.run(
         [sys.executable, "-m", "veles_tpu_torch", "--serve-fleet", "2",
          f"alpha={packages['alpha']['port_pkg']}", "-b", "cpu", flag,
-         value], input=json.dumps({"op": "shutdown"}) + "\n",
-        capture_output=True, text=True, cwd=REPO, timeout=120)
-    if flag == "--mesh":
-        assert p.returncode == 2
-        assert flag in p.stderr and "ROADMAP item" in p.stderr
-        return
+         value], input="".join(json.dumps(ln) + "\n" for ln in lines),
+        capture_output=True, text=True, cwd=REPO, timeout=180)
     assert p.returncode == 0, p.stderr[-2000:]
+    if flag == "--mesh":
+        (fleet,) = [m["fleet"] for m in map(json.loads,
+                                            p.stdout.splitlines())
+                    if m.get("id") == 1]
+        assert [r["devices"] for r in fleet["replicas"]] == [2, 2], fleet
+        return
     d = tmp_path / "m"
     assert sorted(f.name for f in d.glob("replica-*")) == \
         ["replica-0", "replica-1"]

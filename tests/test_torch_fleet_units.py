@@ -209,7 +209,8 @@ def test_every_serve_and_fleet_knob_is_ported():
             if n.startswith(("VELES_FLEET_", "VELES_TRAFFIC_"))}
     want |= {"VELES_HEARTBEAT_EVERY", "VELES_SERVE_MAX_WAIT_MS",
              "VELES_SERVE_MAX_BATCH", "VELES_SERVE_HBM_BUDGET",
-             "VELES_SERVE_ADAPTIVE_WAIT", "VELES_SERVE_WAIT_STRETCH"}
+             "VELES_SERVE_ADAPTIVE_WAIT", "VELES_SERVE_WAIT_STRETCH",
+             "VELES_SERVE_MESH", "VELES_SERVE_MESH_SHARD"}
     # the port's other knobs (faults, supervision, metrics, budgets)
     # are held to the reference by the test above
     assert want == {n for n in FLEET_KNOBS

@@ -1,6 +1,6 @@
 """The GA -> serving handoff in the port (``genetics/handoff.py``), after
 the reference's ``TestGAHandoff`` (``tests/test_engine_core.py``), its
-mesh case left out:
+mesh case in ``tests/test_torch_mesh_ensemble.py``:
 
 - ``top_k``: the same member order as the reference's, ties included;
 - a wine cohort of 3 (the reference test's rates) trained, then its 2

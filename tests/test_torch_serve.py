@@ -305,11 +305,16 @@ def test_residency_spills_the_lru_model_and_restores_it(twins):
 
 
 def test_out_of_slice_flags_are_rejected():
-    """``--mesh`` is not in this slice; ``--metrics-dir`` is (the hive
-    writing it is ``tests/test_torch_metrics_cli.py``'s)."""
+    """Both flags are in the port now: ``--mesh`` (``$VELES_SERVE_MESH``,
+    default 0: one device; the mesh hive is
+    ``tests/test_torch_mesh_serve.py``'s) and ``--metrics-dir`` (the hive
+    writing it is ``tests/test_torch_metrics_cli.py``'s); an unknown
+    flag is still rejected."""
     from veles_tpu_torch.serve.hive import build_parser
     with pytest.raises(SystemExit):
-        build_parser().parse_args(["m=p.vpkg", "--mesh", "2"])
+        build_parser().parse_args(["m=p.vpkg", "--no-such-flag"])
+    assert build_parser().parse_args(["m=p.vpkg"]).mesh == 0
+    assert build_parser().parse_args(["m=p.vpkg", "--mesh", "2"]).mesh == 2
     args = build_parser().parse_args(["m=p.vpkg", "--metrics-dir", "m"])
     assert args.metrics_dir == "m"
 

@@ -230,6 +230,34 @@ def test_flush_writes_what_the_reference_reader_reads(tmp_path):
     assert telemetry.metrics_dir() is None
 
 
+@pytest.mark.parametrize("overtake", ["reset", "configure"])
+def test_a_flush_overtaken_by_a_reset_writes_nothing(tmp_path, monkeypatch,
+                                                    overtake):
+    """The throttled flush runs on a thread of its own: one whose
+    snapshot is taken after a ``reset`` (or a ``configure``) must not
+    replace the last snapshot written into the dir with the reset
+    registry's (a snapshot leaves zero counters out, so a reader would
+    not find them at all)."""
+    d = str(tmp_path)
+    telemetry.configure(d)
+    telemetry.counter("t.kept").inc(2)
+    path = telemetry.flush()
+    before = open(path).read()
+    real = telemetry.snapshot
+
+    def overtaken():
+        if overtake == "reset":
+            telemetry.reset()
+        else:
+            telemetry.configure(str(tmp_path / "other"))
+        return real()
+    monkeypatch.setattr(telemetry, "snapshot", overtaken)
+    assert telemetry.flush() is None
+    assert open(path).read() == before
+    assert json.loads(before)["counters"]["t.kept"] == 2
+    assert not [f for f in os.listdir(d) if f.endswith(".tmp")]
+
+
 def test_trace_family_rides_the_buffer_until_a_notable_event(tmp_path):
     d = str(tmp_path)
     telemetry.configure(d)

@@ -218,9 +218,14 @@ def missing_plot_packages(args) -> Optional[str]:
 
 
 def refused_parallel(args) -> Optional[str]:
-    """The message refusing a data-parallel command line this slice
-    cannot run, or one whose cards are missing; None when it may
-    start."""
+    """The message refusing a data-parallel command line the port does
+    not run, or one whose cards are missing; None when it may start.
+    ``--dp`` with ``--optimize``, ``--ensemble-*`` or ``-b *-evaluator``
+    exits 2, a deliberate deviation: the reference shards none of these
+    and ignores ``--dp`` there (``veles_tpu/__main__.py:200-212``; its
+    evaluator command, ``:432-436``, passes no ``--dp``).  Member-sharded
+    cohorts run in the GA evaluator, ``python -m
+    veles_tpu_torch.genetics.worker --serve --dp N``."""
     if args.dp is None and not args.multihost:
         return None
     if args.dp is not None and args.dp < 1:
@@ -231,8 +236,11 @@ def refused_parallel(args) -> Optional[str]:
                      ("-b " + args.backend,
                       args.backend.endswith("-evaluator"))):
         if on:
-            return (f"--dp / --multihost with {flag} is not ported yet "
-                    f"(ROADMAP item 10b: member-sharded cohorts)")
+            return (f"--dp / --multihost with {flag} is refused: data "
+                    f"parallelism does not shard that path (the reference "
+                    f"ignores --dp there); member-sharded cohorts run in "
+                    f"the GA evaluator, python -m "
+                    f"veles_tpu_torch.genetics.worker --serve --dp N")
     if args.dp and args.dp > 1 and not args.multihost:
         from veles_tpu_torch.parallel.mesh import check_cards
         try:

@@ -42,14 +42,17 @@ class TorchDevice:
         #: bytes copied host -> device through :meth:`put`
         self.h2d_bytes = 0
 
-    def put(self, array: Any) -> torch.Tensor:
-        """A device copy of a host array (dtype-preserving).  The copy
-        is a value snapshot: the caller may reuse its buffer at once."""
+    def put(self, array: Any, to: Optional[torch.device] = None
+            ) -> torch.Tensor:
+        """A device copy of a host array (dtype-preserving), on this
+        device or on the place ``to`` (a mesh's, ``parallel/mesh.py``).
+        The copy is a value snapshot: the caller may reuse its buffer at
+        once."""
         arr = np.ascontiguousarray(array)
         self.h2d_bytes += arr.nbytes
-        t = torch.from_numpy(arr.copy() if self.platform == "cpu"
-                             else arr)
-        return t.to(self.device)
+        to = self.device if to is None else torch.device(to)
+        t = torch.from_numpy(arr.copy() if to.type == "cpu" else arr)
+        return t.to(to)
 
     def get(self, t: torch.Tensor) -> np.ndarray:
         return t.detach().to("cpu").numpy()

@@ -18,6 +18,13 @@ online promotion's swap).  So:
    card) plus one ``swap_params`` attribute store;
 3. the host member copies a later spill restores from are refreshed
    AFTER serving started (:meth:`GAServingHandoff.refresh_host`).
+
+Either side may be member-sharded over a mesh of places
+(``engine/core.py`` ``MemberPlacement``; the reference's
+``handoff.py:95-120``): a sharded cohort's members are gathered from
+their places' tiles onto the head place, and a sharded serving engine
+tiles the adopted tree on its own places, padding it with the best
+member (``EnsembleEvalEngine.adopt_stacked_params``).
 """
 
 from __future__ import annotations
@@ -80,7 +87,16 @@ class GAServingHandoff:
     @staticmethod
     def _gather(stacked_params: Any, idx: np.ndarray):
         """Members ``idx`` of every leaf of a member-stacked tree,
-        gathered on the tree's device."""
+        gathered on the tree's device; of a sharded cohort's per-place
+        tiles (a list of trees), gathered on the first place."""
+        if isinstance(stacked_params, list) and len(stacked_params) > 1:
+            tiles = stacked_params
+            return {fn: {pn: torch.stack([
+                tiles[p][fn][pn][j].to(t.device)
+                for p, j in (divmod(int(i), len(t)) for i in idx)])
+                for pn, t in ps.items()} for fn, ps in tiles[0].items()}
+        if isinstance(stacked_params, list):
+            (stacked_params,) = stacked_params
         index = None
         out = {}
         for fn, ps in stacked_params.items():
@@ -127,8 +143,9 @@ class GAServingHandoff:
     def adopt_cohort(self, cohort_engine: Any, fitness: np.ndarray):
         """The whole move for a just-trained cohort: top K by fitness,
         gather, swap.  ``cohort_engine`` exposes its member-stacked tree
-        as ``_params``: ``PopulationTrainEngine`` (supervised and CD-k
-        RBM cohorts) or ``SOMPopulationEngine``, whose ``run`` returned
+        as ``_params`` (a ``PopulationTrainEngine``'s is its per-place
+        tiles): ``PopulationTrainEngine`` (supervised and CD-k RBM
+        cohorts) or ``SOMPopulationEngine``, whose ``run`` returned
         ``fitness``.  It must not be released yet."""
         stacked = cohort_engine._params
         if stacked is None:

@@ -13,7 +13,7 @@ the global ``root`` and any crash.
 Serve mode, the evaluator that owns the card::
 
     python -m veles_tpu_torch.genetics.worker --serve workflow.py [...]
-        -b cuda [-s SEED] [--cohort N]
+        -b cuda [-s SEED] [--cohort N] [--dp N]
 
 makes the device ONCE and announces it with a hello line (``{"ready":
 true, "pid", "backend", "platform", "is_accelerator", "device"}``, read
@@ -35,7 +35,18 @@ the card's memory (``TorchDevice.total_memory``, :func:`_hbm_cohort_cap`).
 A chunk that fails (``torch.cuda.OutOfMemoryError`` included) is split
 in half and retried, and a failing singleton is trained per genome: the
 reference's semantics for a bad genome.  Every such split and
-per-genome fallback is counted in the result's ``fallbacks``.
+per-genome fallback is counted in the result's ``fallbacks``.  Each
+trained chunk adds ``{"members", "seconds", "minibatches", "places",
+"cap", "kernel_launches"}`` to the result's ``stats`` (the LRN kernels'
+launches during its run).
+
+``--dp N`` member-shards every cohort over a mesh of N places of this
+one process (``parallel/mesh.py`` ``make_mesh``; the reference's
+``worker.py:198-211``): P/N members a place, the cohort cap N times one
+place's (one place's budget is its card's memory over the places that
+card holds, ``$VELES_MESH_RANKS_PER_CARD``), unless
+``$VELES_MESH_SHARD_MEMBERS`` says never.  Fewer cards than the mesh
+needs: exit 2 naming the knob.  The hello carries ``places``.
 
 Telemetry: each job is the ``evaluator.job_seconds`` span (journalled)
 and counts into ``evaluator.jobs`` / ``evaluator.job_errors``; the
@@ -45,8 +56,6 @@ at most one genome stale.  Fault points (``job``, ``seq``: the job's
 ordinal in this evaluator, ``gen``): ``evaluator.hang`` stalls a job
 ``seconds`` (3600), its heartbeats silenced too with ``silent=1``;
 ``evaluator.garbage_line`` prints a line of garbage before a result.
-
-Not ported: the mesh (``--dp``).
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ import os
 import sys
 import threading
 import time
+from typing import Any
 
 from veles_tpu_torch import knobs
 
@@ -120,12 +130,15 @@ class _CohortTooBig(Exception):
         self.cap = max(1, cap)
 
 
-def _hbm_cohort_cap(workflow, requested: int) -> int:
+def _hbm_cohort_cap(workflow, requested: int, mesh: Any = None) -> int:
     """The most members one cohort may stack.  A member holds about four
     param-sized f32 buffers (params, velocities, the compute-dtype cast,
     the gradients); half the device's memory (``total_memory``, else
     HOST_BUDGET) is left to the data set and the activations.
-    ``requested`` > 0 caps it further."""
+    ``requested`` > 0 caps it further.  On a ``mesh`` of N places the
+    budget is one place's (``Mesh.place_memory``, else HOST_BUDGET), N
+    times over unless ``$VELES_MESH_SHARD_MEMBERS`` says never: each
+    place stacks only P/N members."""
     import numpy as np
     param_bytes = 0
     for f in workflow.forwards:
@@ -134,11 +147,26 @@ def _hbm_cohort_cap(workflow, requested: int) -> int:
         for shape in f.param_shapes(f.input_shape).values():
             param_bytes += int(np.prod(shape)) * 4
     per_member = max(param_bytes * 4, 1)
-    budget = workflow.device.total_memory() or HOST_BUDGET
+    if mesh is not None and mesh.size > 1:
+        from veles_tpu_torch.parallel.mesh import shard_mode
+        budget = mesh.place_memory() or HOST_BUDGET
+        if shard_mode(knobs.get(knobs.MESH_SHARD_MEMBERS)) != "never":
+            budget *= mesh.size
+    else:
+        budget = workflow.device.total_memory() or HOST_BUDGET
     cap = max(1, (budget // 2) // per_member)
     if requested:
         cap = min(cap, max(1, requested))
     return cap
+
+
+def _mesh(args):
+    """The mesh of ``--dp`` places (None for one device)."""
+    dp = int(getattr(args, "dp", 0) or 0)
+    if dp < 2:
+        return None
+    from veles_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(dp, args.backend)
 
 
 def _structure_sig(workflow):
@@ -164,6 +192,7 @@ def _train_cohort_chunk(create, pristine, config_files, overrides, args,
     import numpy as np
 
     from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.ops import lrn_cuda
     from veles_tpu_torch.ops.fused import PopulationTrainEngine
 
     _rebuild_root(pristine, config_files, overrides, members[idxs[0]])
@@ -173,15 +202,22 @@ def _train_cohort_chunk(create, pristine, config_files, overrides, args,
         launcher.create_workflow(create)
         launcher.initialize()
         w = launcher.workflow
-        cap = _hbm_cohort_cap(w, args.cohort)
+        mesh = _mesh(args)
+        cap = _hbm_cohort_cap(w, args.cohort, mesh)
         if len(idxs) > cap:
             raise _CohortTooBig(cap)
         engine = PopulationTrainEngine(
             w, np.stack([hypers[i][0] for i in idxs]),
-            np.stack([hypers[i][1] for i in idxs]))
+            np.stack([hypers[i][1] for i in idxs]), mesh=mesh)
+        launches = (lrn_cuda.lrn_fwd.launches, lrn_cuda.lrn_bwd.launches)
         fits = [float(f) for f in engine.run()]
         stats.append({"members": len(idxs), "seconds": engine.seconds,
-                      "minibatches": engine.minibatches})
+                      "minibatches": engine.minibatches,
+                      "places": len(engine.placement.places), "cap": cap,
+                      "kernel_launches": {
+                          "lrn_fwd": lrn_cuda.lrn_fwd.launches - launches[0],
+                          "lrn_bwd": lrn_cuda.lrn_bwd.launches -
+                          launches[1]}})
         return fits
     finally:
         if engine is not None:
@@ -296,11 +332,17 @@ def serve(args) -> int:
     # the config tree BEFORE any config file ran: each job rebuilds root
     # from here, so no substitution leaks into the next
     pristine = copy.deepcopy(dict(root.__dict__))
+    try:
+        mesh = _mesh(args)
+    except ValueError as e:
+        print(f"--dp {args.dp}: {e}", file=sys.stderr)
+        return 2
     device = make_device(args.backend)
     hello = {"ready": True, "pid": os.getpid(),
              "backend": device.backend_name, "platform": device.platform,
              "is_accelerator": device.platform == "cuda",
-             "device": _device_name(device)}
+             "device": _device_name(device),
+             "places": mesh.size if mesh is not None else 1}
     # one lock for every protocol line: the heartbeat thread must never
     # interleave bytes into a result
     emit_lock = witness.lock("worker.emit")
@@ -407,6 +449,10 @@ def main(argv=None) -> int:
     p.add_argument("--cohort", type=int, default=0,
                    help="serve mode: the most members of one cohort "
                         "(0: the device memory budget alone decides)")
+    p.add_argument("--dp", type=int, default=0,
+                   help="serve mode: member-shard every cohort over a mesh "
+                        "of N places of this process (P/N members a "
+                        "place; the cohort cap N times one place's)")
     p.add_argument("--heartbeat-every", type=float,
                    default=float(knobs.get(knobs.HEARTBEAT_EVERY)),
                    help="serve mode: seconds between heartbeat lines "

@@ -11,7 +11,8 @@ This copy holds the knobs the port reads, with the reference's names,
 defaults and types: fault injection and supervision (``FAULTS*``,
 ``PREEMPT_*``, ``SUPERVISE_*``, ``RESUME_MANIFEST``), data
 parallelism's (``MULTIHOST_*``, ``MESH_SHARD_DATA``,
-``MESH_RANKS_PER_CARD``), the GA's
+``MESH_RANKS_PER_CARD``), member sharding's ``MESH_SHARD_MEMBERS``, the
+mesh replica's ``SERVE_MESH`` / ``SERVE_MESH_SHARD``, the GA's
 ``GA_GENERATION``, the observability core's ``METRICS_DIR``, tracing's
 ``TRACE_SAMPLE``, ``FLIGHTREC_CAP`` and ``LOCK_WITNESS``, the graphics
 server's ``PLOTS_DIR``, the
@@ -148,15 +149,24 @@ MULTIHOST_ALLOW_SOLO = _knob(
     "torchrun layout (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK).")
 MESH_SHARD_DATA = _knob(
     "VELES_MESH_SHARD_DATA", "auto", str,
-    "Row-shard the resident data set over the data-parallel ranks (each "
-    "holds 1/N of the rows): `auto` only when it exceeds one device's "
-    "residency budget but fits sharded, `always` whenever data parallel, "
-    "`never`/`0` keeps a whole copy on every rank.")
+    "Row-shard the resident data set over the data-parallel ranks, or "
+    "an ensemble's attached split over a mesh's places (each holds 1/N "
+    "of the rows): `auto` only when it exceeds one device's residency "
+    "budget but fits sharded, `always` whenever there are N > 1, "
+    "`never`/`0` keeps a whole copy on every rank or the head place.")
+MESH_SHARD_MEMBERS = _knob(
+    "VELES_MESH_SHARD_MEMBERS", "auto", str,
+    "Shard the stacked member axis of population-batched GA cohorts "
+    "over the mesh (P/N members a place, raising the cohort cap by the "
+    "place count): `auto`/`always` shard whenever the engine is handed "
+    "a mesh, `never`/`0` keeps every member on one device.")
 MESH_RANKS_PER_CARD = _knob(
     "VELES_MESH_RANKS_PER_CARD", 1, int,
-    "Data-parallel ranks that may share one CUDA card (the group then "
-    "runs over gloo: NCCL refuses two ranks on one card); 1 refuses "
-    "--dp N with fewer than N cards.")
+    "Mesh places a CUDA card holds: data-parallel ranks that may share "
+    "one card (the group then runs over gloo: NCCL refuses two ranks on "
+    "one card), and the places of one process's mesh (--mesh, the GA "
+    "worker's --dp) on one card, which split its memory budget; 1 "
+    "refuses N ranks or places with fewer than N cards.")
 
 #: the knobs of the port's own, which the reference does not declare
 PORT_ONLY = frozenset({MESH_RANKS_PER_CARD})
@@ -300,6 +310,20 @@ SERVE_HBM_BUDGET = _knob(
     "Device-memory byte budget the fleet's placement policy assumes "
     "for a replica whose hello advertises none; over budget a "
     "replica's LRU model spills to the host.")
+SERVE_MESH = _knob(
+    "VELES_SERVE_MESH", 0, int,
+    "Places a hive replica owns (--serve-models --mesh): >1 binds an "
+    "N-place mesh instead of one device, so the fleet topology becomes "
+    "replicas x mesh and residency budgets are charged per place (0/1 "
+    "keeps the one-device replica).")
+SERVE_MESH_SHARD = _knob(
+    "VELES_SERVE_MESH_SHARD", "auto", str,
+    "Shard the stacked member axis of a served ensemble over the "
+    "replica's mesh (P/N members a place, request rows copied to every "
+    "place): `auto` shards only a model over ONE place's residency "
+    "budget, so it serves member-sharded and resident instead of LRU "
+    "spilling, `always` shards every model on a mesh replica, "
+    "`never`/`0` keeps every model on the head place.")
 SERVE_ADAPTIVE_WAIT = _knob(
     "VELES_SERVE_ADAPTIVE_WAIT", True, flag,
     "Let the serving micro-batcher track the windowed arrival rate "

@@ -1,9 +1,11 @@
 """Fixed-shape batching helpers of the engines.
 
 Counterpart of ``veles_tpu/ops/batching.py``: the compute-dtype policy,
-the param caster, member stacking, the residency byte count, the
-zero-padded micro-batch, and the row-sharded gather of a data-parallel
-rank (:func:`make_sharded_row_gather`).
+the param caster, member stacking and the mesh's member padding
+(:func:`pad_members`), the residency byte count, the zero-padded
+micro-batch, and the row-sharded gathers: a data-parallel rank's
+(:func:`make_sharded_row_gather`) and a mesh's places'
+(:func:`make_mesh_row_gather`).
 """
 
 from __future__ import annotations
@@ -48,6 +50,21 @@ def stack_member_params(forwards: List[Any],
                  for m in member_params]))
             for pn in member_params[0][f.name]}
         for f in forwards}
+
+
+def pad_members(arrays: List[np.ndarray], multiple: int
+                ) -> Tuple[List[np.ndarray], int]:
+    """Each array's leading member axis padded to a whole multiple of
+    ``multiple`` by repeating the first member's row (the reference's
+    ``veles_tpu/ops/batching.py:186-204``): a filler member computes
+    member 0's math, and its rows are dropped before anything reads
+    them.  Returns the padded arrays and the padded member count."""
+    p = len(arrays[0])
+    p_pad = -(-p // multiple) * multiple
+    if p_pad == p:
+        return list(arrays), p
+    return [np.concatenate([a, np.repeat(a[:1], p_pad - p, axis=0)])
+            for a in arrays], p_pad
 
 
 def stacked_param_bytes(member_params:
@@ -120,6 +137,40 @@ def make_sharded_row_gather(group: Any, rows_local: int):
             else:
                 out.append(group.all_reduce_(x.to(torch.int32),
                                              "gather").to(s.dtype))
+        return out
+
+    return gather
+
+
+def make_mesh_row_gather(places, rows_local: int):
+    """``gather(indices, *tiles_of_stores)`` over stores ROW-SHARDED on
+    a mesh's places (place r holds ``rows_local`` consecutive rows,
+    ``MeshDevice.put_sharded``): the counterpart of the reference's
+    ``shard_map`` local gather + ``psum`` in one process.  Each place
+    looks the GLOBAL ``indices`` up in its own tile, and the head place
+    (``places[0]``, where ``indices`` lie) keeps, row by row, the one
+    place that holds it (``torch.where``: a selection, no arithmetic, so
+    the gathered rows are bitwise the replicated gather's, any dtype).
+    Each store is given as its list of per-place tiles; returns the
+    gathered rows of each store on the head place, in order.  Indices
+    must point at real rows (the padded tail is placement filler)."""
+    head = torch.device(places[0])
+
+    def gather(indices: torch.Tensor, *stores):
+        out = []
+        for tiles in stores:
+            got = None
+            for r, (place, tile) in enumerate(zip(places, tiles)):
+                lo = r * rows_local
+                loc = (indices - lo).clamp(0, rows_local - 1)
+                hit = (indices >= lo) & (indices < lo + rows_local)
+                x = tile.index_select(0, loc.to(place)).to(head)
+                if got is None:
+                    got = x
+                    continue
+                keep = hit.reshape(hit.shape + (1,) * (x.dim() - 1))
+                got = torch.where(keep, x, got)
+            out.append(got)
         return out
 
     return gather

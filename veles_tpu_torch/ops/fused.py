@@ -90,8 +90,18 @@ Counterpart of ``veles_tpu/ops/fused.py``:
   there and not in a client's request; it counts apart
   (``warmup_dispatches``, ``warmup_seconds``) and only it sets the
   first-dispatch gauge.  Scoring and host predictions count into
-  ``ensemble.*``.  Left for later slices: member sharding over a mesh,
-  row-sharded attachment.
+  ``ensemble.*``.  ``shard_members=True`` on a ``MeshDevice`` (the
+  reference's ``fused.py:870-930``) pads the members to a multiple of
+  the mesh's N places by repeating member 0 and keeps place p's P/N on
+  place p (``engine/core.py`` ``MemberPlacement``): the request rows are
+  copied to each place, each real member runs on its place, and the
+  head place adds them in the fixed order; ``param_bytes_per_device``
+  is the padded stack over N, the residency charge.  On a mesh,
+  ``attach_dataset(shard=)`` row-shards the split over the places
+  (``MeshDevice.put_sharded``; ``"auto"`` by ``$VELES_MESH_SHARD_DATA``
+  against ``$VELES_MAX_RESIDENT_BYTES``) and the resident paths gather
+  through ``batching.make_mesh_row_gather``, bitwise the replicated
+  gather's rows.
 - :class:`PopulationTrainEngine` (``ops/population.py``): P genomes
   trained as one cohort under ``torch.func.vmap``.
 """
@@ -678,26 +688,49 @@ class _StagedUpload:
 class EnsembleEvalEngine:
     def __init__(self, forwards: List[Any],
                  member_params: List[Dict[str, Dict[str, Any]]],
-                 device: Any, compute_dtype: Optional[torch.dtype] = None
-                 ) -> None:
+                 device: Any, compute_dtype: Optional[torch.dtype] = None,
+                 shard_members: bool = False) -> None:
         if not member_params:
             raise ValueError("empty ensemble")
+        mesh = getattr(device, "mesh", None)
+        if shard_members and (mesh is None or mesh.size < 2):
+            raise ValueError("shard_members needs a mesh device "
+                             "(MeshDevice) of at least 2 places")
         self.forwards = list(forwards)
         self.device = device
         self.n_members = len(member_params)
         self._check_members(member_params)
         self.compute_dtype = batching.resolve_compute_dtype(
             compute_dtype, device)
-        self._params = batching.stack_member_params(
-            self.forwards, member_params, device)
-        #: device bytes of the stacked f32 params (the residency charge)
+        #: True: the stacked member axis is split P/N over the device's
+        #: mesh of places, and a model over one place's budget serves
+        #: resident at padded/N bytes a place instead of spilling
+        self.member_sharded = bool(shard_members)
+        self._placement = engine_core.MemberPlacement(
+            device, self.n_members, mesh if shard_members else None,
+            knob=False)
+        #: stacked member count, mesh padding included
+        self._n_stacked = self._placement.n_stacked
+        self._params = self._stack(member_params)
+        #: device bytes of the stacked f32 params of the real members
         self.param_bytes = batching.stacked_param_bytes(member_params)
+        #: the residency charge a device: the padded stack over N places
+        #: when member-sharded, the whole stack otherwise
+        self.param_bytes_per_device = self.param_bytes \
+            // self.n_members * self._n_stacked // len(
+                self._placement.places)
         self._mean_probs = engine_core.build_mean_probs(
-            self.forwards, self.n_members, self.compute_dtype)
+            self.forwards, self.n_members, self.compute_dtype,
+            places=self._placement.places if shard_members else None)
         self._batcher = None
-        #: the attached evaluation split (attach_dataset)
-        self._dataset: Optional[torch.Tensor] = None
-        self._labels: Optional[torch.Tensor] = None
+        #: the attached evaluation split (attach_dataset): a tensor, or
+        #: its per-place row tiles when row-sharded
+        self._dataset: Any = None
+        self._labels: Any = None
+        #: real rows of the attached split (the tiles are padded)
+        self._dataset_rows = 0
+        self._dataset_sharded = False
+        self._gather = None
         # a lock of the port only: the reference counts dispatches in
         # its jitted path's Python wrapper without one
         self._count_lock = witness.lock("fused.count")
@@ -711,6 +744,14 @@ class EnsembleEvalEngine:
         self._first_seen = False
         #: the one-shot hook of :meth:`notify_next_dispatch`
         self._on_next_dispatch = None
+
+    def _stack(self, member_params):
+        """The stacked params: one tree on the device, or per-place tiles
+        when member-sharded."""
+        if self.member_sharded:
+            return self._placement.stack(self.forwards, member_params)
+        return batching.stack_member_params(self.forwards, member_params,
+                                            self.device)
 
     def _check_members(self, member_params) -> None:
         """Every member must carry exactly the port-layout param shapes
@@ -794,12 +835,37 @@ class EnsembleEvalEngine:
     # -- resident path -------------------------------------------------
 
     def attach_dataset(self, x: np.ndarray,
-                       labels: Optional[np.ndarray] = None) -> None:
+                       labels: Optional[np.ndarray] = None,
+                       shard: Any = "auto") -> None:
         """Upload an evaluation split once; the ``*_resident`` methods
-        gather its rows on the device by index."""
-        self._dataset = self.device.put(np.asarray(x, np.float32))
-        self._labels = None if labels is None else \
-            self.device.put(np.asarray(labels, np.int64))
+        gather its rows on the device by index.  On a mesh device
+        ``shard=True`` row-shards it over the places (1/N of the rows a
+        place), ``False`` keeps it whole on the head place, and
+        ``"auto"`` shards by ``$VELES_MESH_SHARD_DATA`` against
+        ``$VELES_MAX_RESIDENT_BYTES`` (``parallel.mesh.shard_rows``)."""
+        from veles_tpu_torch.parallel.mesh import shard_rows
+        x = np.asarray(x, np.float32)
+        labels = None if labels is None else np.asarray(labels, np.int64)
+        mesh = getattr(self.device, "mesh", None)
+        if mesh is None or mesh.size < 2:
+            sharded = False
+        elif shard == "auto":
+            sharded = shard_rows(x.nbytes)
+        else:
+            sharded = bool(shard)
+        self._dataset_rows = len(x)
+        self._dataset_sharded = sharded
+        put = self.device.put_sharded if sharded else self.device.put
+        self._dataset = put(x)
+        self._labels = None if labels is None else put(labels)
+        self._gather = batching.make_mesh_row_gather(
+            mesh.places, len(self._dataset[0])) if sharded else None
+
+    def _attached_rows(self, idx: torch.Tensor, *stores) -> list:
+        """Rows ``idx`` of each attached store, on the head place."""
+        if self._gather is not None:
+            return self._gather(idx, *stores)
+        return [s.index_select(0, idx) for s in stores]
 
     def predict_proba_resident(self, indices) -> np.ndarray:
         """Mean member probabilities of the attached rows ``indices``."""
@@ -808,7 +874,7 @@ class EnsembleEvalEngine:
         t0 = time.perf_counter()
         idx = self.device.put(np.asarray(indices, np.int64))
         out = self.device.get(self.predict(
-            self._dataset.index_select(0, idx)))
+            self._attached_rows(idx, self._dataset)[0]))
         self._record_chunks(events.HIST_ENSEMBLE_DISPATCH_SECONDS,
                             time.perf_counter() - t0, 1, len(out))
         return out
@@ -819,7 +885,7 @@ class EnsembleEvalEngine:
         gathered on the device: no pixel crosses PCIe per call."""
         if self._dataset is None or self._labels is None:
             raise RuntimeError("attach_dataset(x, labels) first")
-        total = len(self._dataset) if n is None else int(n)
+        total = self._dataset_rows if n is None else int(n)
         chunk = max(1, min(chunk, total))
         dev = self.device
         t0 = time.perf_counter()
@@ -827,10 +893,9 @@ class EnsembleEvalEngine:
         for i in range(0, total, chunk):
             idx, mask = batching.padded_index_chunk(
                 i, min(i + chunk, total), chunk)
-            idx = dev.put(idx)
-            acc = self._score(acc, self._dataset.index_select(0, idx),
-                              self._labels.index_select(0, idx),
-                              dev.put(mask))
+            x, labels = self._attached_rows(dev.put(idx), self._dataset,
+                                            self._labels)
+            acc = self._score(acc, x, labels, dev.put(mask))
         acc = dev.get(acc)
         self._record_chunks(events.HIST_ENSEMBLE_SCORE_SECONDS,
                             time.perf_counter() - t0, -(-total // chunk),
@@ -945,20 +1010,30 @@ class EnsembleEvalEngine:
         self._params = None
 
     def restore_params(self, member_params) -> None:
-        self._params = batching.stack_member_params(
-            self.forwards, member_params, self.device)
+        """Upload the host member copies again, on the same placement."""
+        self._params = self._stack(member_params)
 
     @property
     def stacked_params(self):
-        """The live stacked param tree (None while spilled)."""
-        return self._params
+        """The live stacked param tree (None while spilled); of a
+        member-sharded engine, its real members gathered on the head
+        place (a copy)."""
+        params = self._params
+        if params is None or not self.member_sharded:
+            return params
+        return self._placement.gather_tree(params)
 
     def adopt_stacked_params(self, stacked) -> None:
         """Serve ``stacked``, a device tree of the same structure and
         shapes, from the next dispatch on: one attribute store, so a
-        dispatch that already read the old tree finishes on it.  Callers
-        go through ``ResidencyManager.swap_params``, which orders this
+        dispatch that already read the old tree finishes on it.  A
+        member-sharded engine takes a tree of its real members (tiled
+        here, padded by repeating the tree's first member, the
+        reference's handoff padding) or its own tiles.  Callers go
+        through ``ResidencyManager.swap_params``, which orders this
         against spill decisions."""
+        if self.member_sharded and isinstance(stacked, dict):
+            stacked = self._placement.tile_tree(stacked)
         self._params = stacked
 
     def notify_next_dispatch(self, callback) -> None:

@@ -26,7 +26,12 @@ as the reference does.
   step order; a TRAIN group updates the weights, an evaluation group
   only measures.  :meth:`KohonenTrainer.take_class_metrics` hands
   ``DecisionGD`` the class's ``(0, qe_sum, count, None)``, the contract of
-  ``FusedStepRunner.take_class_metrics``.
+  ``FusedStepRunner.take_class_metrics``.  With a ``mesh`` set before
+  ``initialize`` (the reference's ``trainer.mesh``), a resident data set
+  that ``$VELES_MESH_SHARD_DATA`` shards is held row-sharded over its
+  places, and each group gathers its rows through
+  ``batching.make_mesh_row_gather`` (the reference's
+  ``kohonen.py:366-371``): bitwise the replicated gather's rows.
 
 - :class:`SOMPopulationEngine`: P hyperparameter genomes ``(alpha0,
   alpha_min, sigma0, sigma_min)`` over one map shape and its initial
@@ -34,18 +39,17 @@ as the reference does.
   the group builders of ``engine/core.py`` run under
   ``torch.func.vmap`` with the weights and each member's (k,) alpha and
   sigma rows on the member axis and the data broadcast, so the device
-  holds prototypes x P, never data x P.
+  holds prototypes x P, never data x P.  On a mesh the members shard P/N
+  a place (``engine/core.py`` ``MemberPlacement``).
 
 Telemetry: each trainer firing counts into ``som.fused_dispatches`` /
 ``som.fused_images``; a cohort's run is the ``som.cohort_train`` span
 and counts into ``som.cohorts`` / ``som.cohort_members``.
-
-Not ported: the row-sharded gather and member sharding over a mesh.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +57,7 @@ import torch
 from veles_tpu_torch import events, prng, telemetry
 from veles_tpu_torch.engine import core as engine_core
 from veles_tpu_torch.loader.base import TRAIN, VALID
+from veles_tpu_torch.ops import batching
 
 
 def grid_coords(sx: int, sy: int) -> np.ndarray:
@@ -163,10 +168,16 @@ class KohonenTrainer:
         #: SOM steps run (train minibatches)
         self.steps = 0
         self._train_epoch = self._eval_epoch = None
+        #: a mesh of places (``parallel/mesh.py``) for the row-sharded
+        #: resident data set, set before :meth:`initialize`
+        self.mesh = None
+        #: the data set's per-place row tiles, when row-sharded
+        self._data_tiles: Optional[List[torch.Tensor]] = None
 
     def initialize(self, device: Any, weights: np.ndarray) -> None:
         """Bind the device, put the initial host ``weights`` there, and
-        build the group's step chains for the loader's residency."""
+        build the group's step chains for the loader's residency (the
+        data set row-sharded over ``mesh`` where the knob says so)."""
         f = self.forward
         self.device = device
         if self.sigma0 is None:
@@ -174,9 +185,24 @@ class KohonenTrainer:
         self.weights = device.put(np.asarray(weights, np.float32))
         self._acc = None
         coords = device.put(grid_coords(f.sx, f.sy))
-        resident = self.loader.device_resident
-        self._train_epoch = engine_core.build_som_epoch(coords, resident)
-        self._eval_epoch = engine_core.build_som_eval(resident)
+        ld = self.loader
+        resident = ld.device_resident
+        gather = None
+        self._data_tiles = None
+        if resident and self.mesh is not None and self.mesh.size > 1:
+            from veles_tpu_torch.parallel.mesh import (row_tile,
+                                                       shard_rows)
+            host = device.get(ld.original_data)
+            if shard_rows(host.nbytes):
+                n = self.mesh.size
+                self._data_tiles = [
+                    device.put(row_tile(host, r, n), to=place)
+                    for r, place in enumerate(self.mesh.places)]
+                gather = batching.make_mesh_row_gather(
+                    self.mesh.places, len(self._data_tiles[0]))
+        self._train_epoch = engine_core.build_som_epoch(coords, resident,
+                                                        gather)
+        self._eval_epoch = engine_core.build_som_eval(resident, gather)
 
     def schedule_at(self, epoch: int) -> Tuple[float, float]:
         t = min(epoch, self.decay_epochs) / max(self.decay_epochs, 1)
@@ -209,7 +235,9 @@ class KohonenTrainer:
         k = len(mask_host)
         mask = dev.put(mask_host)
         if ld.device_resident:
-            rows = (ld.original_data, dev.put(ld.superstep_indices))
+            data = self._data_tiles if self._data_tiles is not None \
+                else ld.original_data
+            rows = (data, dev.put(ld.superstep_indices))
         else:
             rows = (ld.superstep_data.to(dev.device),)
         n = float(np.sum(mask_host))
@@ -251,9 +279,18 @@ class SOMPopulationEngine:
     ``decision.max_epochs``; each member's schedule is the trainer's
     exponential decay with its own four values, and its per-step epoch
     logic (``KohonenTrainer.schedule_steps``).  The trained maps stay in
-    ``weights`` ((P, N, D) on the device) until :meth:`release`."""
+    ``weights`` ((P, N, D) on the device) until :meth:`release`.
 
-    def __init__(self, workflow: Any, member_hparams: np.ndarray) -> None:
+    On a ``mesh`` the member axis shards P/N a place as the supervised
+    cohort's does (``engine/core.py`` ``MemberPlacement``: padded by
+    repeating member 0, the fillers' rows dropped from every fetch; the
+    reference's ``kohonen.py:484-500``): each place runs the vmapped
+    group over its tile, the rows gathered once and copied to every
+    place.  ``weights`` is then the real members' maps gathered on the
+    head place."""
+
+    def __init__(self, workflow: Any, member_hparams: np.ndarray,
+                 mesh: Any = None) -> None:
         trainer = workflow.trainer
         if trainer.device is None or trainer.weights is None:
             raise ValueError("SOMPopulationEngine needs a Kohonen workflow "
@@ -269,23 +306,36 @@ class SOMPopulationEngine:
         self.decision = workflow.decision
         self.device = trainer.device
         self.n_members = int(hp.shape[0])
+        self.placement = engine_core.MemberPlacement(
+            self.device, self.n_members, mesh)
+        self.member_sharded = self.placement.sharded
+        self._n_stacked = self.placement.n_stacked
+        (hp,) = self.placement.pad(hp)
         self._hp = hp
         self.streaming = not self.loader.device_resident
         f = trainer.forward
-        self.weights: Optional[torch.Tensor] = \
-            trainer.weights.unsqueeze(0).repeat(self.n_members, 1, 1)
+        w0 = self.device.get(trainer.weights)
+        #: the per-place tiles of the stacked maps
+        self._tiles: Optional[List[torch.Tensor]] = \
+            self.placement.put_members(
+                np.repeat(w0[None], self._n_stacked, axis=0))
         coords = self.device.put(grid_coords(f.sx, f.sy))
-        resident = not self.streaming
+        # a sharded cohort's places take the group's rows gathered once
+        # (the streamed form); one device gathers them in the group
+        resident = not self.streaming and not self.member_sharded
         data_dims = (None, None) if resident else (None,)
-        self._train = torch.func.vmap(
-            engine_core.build_som_epoch(coords, resident),
+        #: a place's group: the vmapped epoch over its tile, the grid on
+        #: that place
+        self._train = [torch.func.vmap(
+            engine_core.build_som_epoch(c, resident),
             in_dims=(0, 0, 0) + data_dims + (None,))
+            for c in self.placement.put_replicated(coords)]
         self._eval = torch.func.vmap(
             engine_core.build_som_eval(resident),
             in_dims=(0,) + data_dims + (None,))
         from veles_tpu_torch.serve import residency
         residency.charge(self.device, "som_population",
-                         residency.tree_nbytes(self.weights), "cohort")
+                         self.placement.tile_bytes(self._tiles), "cohort")
 
     def _schedule_at(self, epoch: int):
         decay = self.trainer.decay_epochs
@@ -321,57 +371,81 @@ class SOMPopulationEngine:
     def _run(self) -> np.ndarray:
         ld = self.loader
         dev = self.device
+        pl = self.placement
         P = self.n_members
         max_epochs = self.decision.max_epochs
         fit_class = VALID if ld.class_lengths[VALID] > 0 else TRAIN
         best = np.full(P, np.inf)
-        acc = dev.zeros((P, 2))
-        weights = self.weights
+        acc = pl.zeros_members((self._n_stacked, 2))
+        tiles = list(self._tiles)
         try:
             while True:
                 ld.run()
                 klass = ld.minibatch_class
                 k = len(ld.superstep_mask)
                 if klass in (TRAIN, fit_class):
-                    mask = dev.put(ld.superstep_mask)
-                    if ld.device_resident:
-                        rows = (ld.original_data,
-                                dev.put(ld.superstep_indices))
+                    masks = pl.put_replicated(dev.put(ld.superstep_mask))
+                    if ld.device_resident and not pl.sharded:
+                        rows = [(ld.original_data,
+                                 dev.put(ld.superstep_indices))]
                     else:
-                        rows = (ld.superstep_data.to(dev.device),)
+                        if ld.device_resident:
+                            # the group's rows, gathered once
+                            xb = torch.stack([
+                                ld.original_data.index_select(0, i)
+                                for i in dev.put(ld.superstep_indices)])
+                        else:
+                            xb = ld.superstep_data.to(dev.device)
+                        rows = [(x,) for x in pl.put_replicated(xb)]
                 if klass == TRAIN:
                     alphas, sigmas = self._member_schedule(k)
-                    weights, stats = self._train(
-                        weights, dev.put(alphas), dev.put(sigmas), *rows,
-                        mask)
-                    if fit_class == TRAIN:
-                        acc += stats
+                    al, si = pl.put_members(alphas), pl.put_members(sigmas)
+                    for p in range(len(pl.places)):
+                        tiles[p], stats = self._train[p](
+                            tiles[p], al[p], si[p], *rows[p], masks[p])
+                        if fit_class == TRAIN:
+                            acc[p] += stats
                 elif klass == fit_class:
-                    acc += self._eval(weights, *rows, mask)
+                    for p in range(len(pl.places)):
+                        acc[p] += self._eval(tiles[p], *rows[p], masks[p])
                 if not ld.class_ended:
                     continue
                 if klass == fit_class:
-                    a = dev.get(acc).astype(np.float64)
+                    a = pl.fetch_members(acc).astype(np.float64)
                     best = np.minimum(best,
                                       a[:, 0] / np.maximum(a[:, 1], 1.0))
-                    acc = dev.zeros((P, 2))
+                    acc = pl.zeros_members((self._n_stacked, 2))
                 if klass == TRAIN and max_epochs is not None and \
                         ld.epoch_number >= max_epochs:
                     break
         finally:
             ld.stop()
-        self.weights = weights
+        self._tiles = tiles
         return best
+
+    @property
+    def weights(self) -> Optional[torch.Tensor]:
+        """The real members' (P, N, D) maps: the one tile off a mesh, the
+        tiles gathered on the head place (the fillers dropped) on one;
+        None after :meth:`release`."""
+        if self._tiles is None:
+            return None
+        if not self.placement.sharded:
+            return self._tiles[0]
+        head = self.device.device
+        return torch.cat([t.to(head) for t in self._tiles])[
+            :self.n_members]
 
     @property
     def _params(self):
         """The stacked maps as a member-stacked param tree (the
         reference's attribute; ``genetics/handoff.py`` adopts from it),
         None after :meth:`release`."""
-        if self.weights is None:
+        w = self.weights
+        if w is None:
             return None
-        return {self.trainer.forward.name: {"weights": self.weights}}
+        return {self.trainer.forward.name: {"weights": w}}
 
     def release(self) -> None:
         """Drop the stacked maps."""
-        self.weights = None
+        self._tiles = None

@@ -36,15 +36,26 @@ class end.  A streaming loader's superstep is uploaded once through the
 fused runner's pinned staging and broadcast over the members.  The
 confusion matrix is not computed: the GA reads ``n_err`` only.
 
-Not ported: member sharding over a mesh and padding to a per-device
-tile (one card), the HBM arbiter's ledger, telemetry and fault sites.
+Member sharding (the reference's ``fused.py:1424-1500``): given a
+``mesh`` of places (``parallel/mesh.py``) the member axis is padded to a
+multiple of its N places by repeating member 0 and each place holds its
+P/N members (``engine/core.py`` ``MemberPlacement``).  Each place runs
+the same ``vmap`` chain over its tile; the minibatch is gathered and
+ingested once and copied to each place, the draws are made once
+(``prng.SharedDraws``) and copied, and the ``(P, 3)`` accumulator is
+fetched tile by tile with the fillers' rows dropped before anything
+reads them.  The LRN kernels' member rule folds a tile's members into
+its rows: one launch a layer a place.  ``$VELES_MESH_SHARD_MEMBERS=
+never`` keeps every member on the workflow's device.  The cohort's
+stack is charged to the arbiter's cohort pool per device: the fullest
+place's bytes.
 """
 
 from __future__ import annotations
 
 import functools
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -65,10 +76,11 @@ class PopulationTrainEngine:
     train=True)``) and not run; ``rates`` and ``decays`` are (P, n_gd,
     2) ``[lr, lr_bias]`` / ``[wd, wd_bias]`` arrays.  Members that
     complete early stop updating their bookkeeping; their params train
-    on until the whole cohort is done, as in the reference."""
+    on until the whole cohort is done, as in the reference.  ``mesh``
+    shards the members over its places."""
 
     def __init__(self, workflow: Any, member_rates: np.ndarray,
-                 member_decays: np.ndarray) -> None:
+                 member_decays: np.ndarray, mesh: Any = None) -> None:
         fused = getattr(workflow, "fused", None)
         if fused is None or fused.device is None or not fused.has_params:
             raise ValueError("PopulationTrainEngine needs a workflow "
@@ -94,18 +106,26 @@ class PopulationTrainEngine:
                 f"[lr, lr_bias] / [wd, wd_bias] arrays; got "
                 f"{rates.shape} / {decays.shape}")
         self.n_members = int(rates.shape[0])
-        self._rates = rates
         dev = self.device
-        self._wd = dev.put(decays)
+        #: where the member axis lives: one tile on ``device``, or P/N a
+        #: place over ``mesh``
+        self.placement = engine_core.MemberPlacement(dev, self.n_members,
+                                                     mesh)
+        self.member_sharded = self.placement.sharded
+        #: stacked member count, mesh padding included
+        self._n_stacked = self.placement.n_stacked
+        rates, decays = self.placement.pad(rates, decays)
+        self._rates = rates
+        #: per-place tiles of the decays, params and velocities
+        self._wd = self.placement.put_members(decays)
         host = fused.host_params()
-        self._params: Optional[Dict[str, Dict[str, torch.Tensor]]] = \
-            batching.stack_member_params(
-                self.forwards, [host] * self.n_members, dev)
-        self._opt: Optional[Dict[str, Dict[str, torch.Tensor]]] = {
+        self._tiles: Optional[List[Dict[str, Dict[str, torch.Tensor]]]] \
+            = self.placement.stack(self.forwards, [host] * self.n_members)
+        self._opt: Optional[List[Dict[str, Dict[str, torch.Tensor]]]] = [{
             gd.name: {pn: torch.zeros_like(t)
-                      for pn, t in self._params[f.name].items()}
+                      for pn, t in tile[f.name].items()}
             for f, gd in zip(self.forwards, self.gds)
-            if gd is not None and gd.gradient_moment}
+            if gd is not None and gd.gradient_moment} for tile in self._tiles]
         self._rng_counter = 0
         self._la_iteration = 0
         #: (epoch, class, (P, 3) host metrics) of every class end, in
@@ -118,17 +138,22 @@ class PopulationTrainEngine:
         self.minibatches = 0
         self._build()
         # the stacked params, velocities and decays: the cohort's device
-        # footprint, in the arbiter's cohort pool
+        # footprint per device (the fullest place's), in the arbiter's
+        # cohort pool
         from veles_tpu_torch.serve import residency
-        residency.charge(dev, "population", residency.tree_nbytes(
-            self._params) + residency.tree_nbytes(self._opt) +
-            residency.tree_nbytes(self._wd), "cohort")
+        pl = self.placement
+        residency.charge(dev, "population", pl.tile_bytes(self._tiles) +
+                         pl.tile_bytes(self._opt) + pl.tile_bytes(self._wd),
+                         "cohort")
 
     def _build(self) -> None:
         from veles_tpu_torch.ops.fused import RNG_STREAM
         seed = prng.get(RNG_STREAM).seed
         cd = self.compute_dtype
-        forward_pass = engine_core.build_forward(self.forwards, seed, cd)
+        draws = prng.SharedDraws(self.device.device) \
+            if self.member_sharded else None
+        forward_pass = engine_core.build_forward(self.forwards, seed, cd,
+                                                 draws=draws)
         backward_update = engine_core.build_backward(self.forwards,
                                                      self.gds, cd)
         cast = batching.make_caster(cd)
@@ -203,8 +228,9 @@ class PopulationTrainEngine:
 
     def _minibatches(self, k: int, use_targets: bool):
         """The firing's k (x, target) pairs, one at a time, each ingested
-        once for all members: gathered from the resident set, or sliced
-        from the streamed superstep, uploaded once."""
+        once for all members (and copied to each place by the caller):
+        gathered from the resident set, or sliced from the streamed
+        superstep, uploaded once."""
         ld = self.loader
         ingest = self.fused._ingest
         if self.streaming:
@@ -243,6 +269,8 @@ class PopulationTrainEngine:
         dev = self.device
         dec = self.decision
         P = self.n_members
+        pl = self.placement
+        n_places = len(pl.places)
         max_epochs = dec.max_epochs
         fail_iters = dec.fail_iterations
         has_valid = ld.class_lengths[VALID] > 0
@@ -251,8 +279,8 @@ class PopulationTrainEngine:
         min_valid_epoch = np.full(P, -1, np.int64)
         min_train = np.full(P, np.inf)
         complete = np.zeros(P, bool)
-        params, opt = self._params, self._opt
-        acc = dev.zeros((P, 3))
+        params, opt = list(self._tiles), list(self._opt)
+        acc = pl.zeros_members((self._n_stacked, 3))
         self.minibatches = 0
         t0 = time.perf_counter()
         try:
@@ -261,21 +289,29 @@ class PopulationTrainEngine:
                 k = int(ld.superstep_indices.shape[0])
                 klass = ld.minibatch_class
                 if klass in (TRAIN, VALID):
-                    mask = dev.put(ld.superstep_mask)
+                    masks = pl.put_replicated(dev.put(ld.superstep_mask))
                     batches = self._minibatches(k, use_targets)
                     self.minibatches += k
                 if klass == TRAIN:
-                    lr = dev.put(self._member_lr(k))
+                    lr = pl.put_members(self._member_lr(k))
                     for j, (x, target) in enumerate(batches):
-                        params, opt, s = self._train_step(
-                            params, opt, lr[:, j], self._wd, x, target,
-                            mask[j], self._rng_counter + j)
-                        acc += s
+                        xs = pl.put_replicated(x)
+                        ts = pl.put_replicated(target)
+                        for p in range(n_places):
+                            params[p], opt[p], s = self._train_step(
+                                params[p], opt[p], lr[p][:, j],
+                                self._wd[p], xs[p], ts[p], masks[p][j],
+                                self._rng_counter + j)
+                            acc[p] += s
                 elif klass == VALID:
-                    cparams = self._cast(params)
+                    cparams = [self._cast(t) for t in params]
                     for j, (x, target) in enumerate(batches):
-                        acc += self._eval_step(cparams, x, target, mask[j],
-                                               self._rng_counter + j)
+                        xs = pl.put_replicated(x)
+                        ts = pl.put_replicated(target)
+                        for p in range(n_places):
+                            acc[p] += self._eval_step(
+                                cparams[p], xs[p], ts[p], masks[p][j],
+                                self._rng_counter + j)
                 if self.streaming and klass in (TRAIN, VALID) and \
                         dev.platform == "cuda":
                     self.fused._stream_state.release()
@@ -284,8 +320,10 @@ class PopulationTrainEngine:
                 self._rng_counter += k
                 if not ld.class_ended:
                     continue
-                a = dev.get(acc)   # one (P, 3) fetch per class end
-                acc = dev.zeros((P, 3))
+                # one (P, 3) fetch per class end, the fillers' rows
+                # dropped
+                a = pl.fetch_members(acc)
+                acc = pl.zeros_members((self._n_stacked, 3))
                 self.history.append((ld.epoch_number, int(klass), a))
                 err = a[:, 0].astype(np.float64)
                 live = ~complete
@@ -310,16 +348,28 @@ class PopulationTrainEngine:
         finally:
             ld.stop()
         self.seconds = time.perf_counter() - t0
-        self._params, self._opt = params, opt
+        self._tiles, self._opt = params, opt
         return min_valid if has_valid else min_train
 
     def member_params(self, i: int) -> Dict[str, Dict[str, np.ndarray]]:
         """Member ``i``'s trained params as host arrays (port layout)."""
-        return {fn: {pn: self.device.get(t[i]) for pn, t in ps.items()}
-                for fn, ps in self._params.items()}
+        p, j = self.placement.locate(i)
+        return {fn: {pn: self.device.get(t[j]) for pn, t in ps.items()}
+                for fn, ps in self._tiles[p].items()}
 
     def release(self) -> None:
         """Drop the stacked device state: an evaluator lives across many
         cohorts, and device memory must not accumulate."""
-        self._params = self._opt = self._wd = None
+        self._tiles = self._opt = self._wd = None
+
+    @property
+    def _params(self):
+        """The stacked params (the reference's attribute, which
+        ``genetics/handoff.py`` adopts from): the member-stacked tree,
+        or a sharded cohort's per-place trees; None after
+        :meth:`release`."""
+        tiles = self._tiles
+        if tiles is None or self.member_sharded:
+            return tiles
+        return tiles[0]
 

@@ -24,7 +24,9 @@ reference's key chain and ``jax.random.uniform`` draws exactly the
 reference's uniforms.  Dropout draws through it too.  On a
 data-parallel rank each layer's generator is a :class:`RowSlice`: the
 draw covers the global minibatch and the rank keeps its rows, so the
-ranks together draw what one device draws.
+ranks together draw what one device draws.  A member-sharded
+cohort's places share each minibatch's draws through
+:class:`SharedDraws`: made once, copied to every place.
 
 :func:`snapshot_state` / :func:`restore_state` carry every named
 stream's numpy state through a snapshot (``snapshotter.py``), so a
@@ -148,12 +150,63 @@ def torch_generator(seed: int, counter: int, layer: int,
     return gen if rows is None else RowSlice(gen, *rows)
 
 
+class SharedDraws:
+    """One minibatch's draws made once, on ``device``, and copied to
+    every place that asks: a member-sharded cohort's places
+    (``ops/population.py``) each run the same layers at the same
+    ``(seed, counter)`` and so ask for the same draws in the same order.
+    :meth:`generator` stands where :func:`torch_generator` would; a draw
+    is made by the first place that asks for it and kept, keyed by
+    (layer, Gibbs step, its ordinal among that layer's draws, shape),
+    until the counter moves on.  What it hands out is bitwise what
+    :func:`torch_generator` on ``device`` draws, on one card or
+    several."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = torch.device(device)
+        self._at = None
+        self._gens: Dict[int, torch.Generator] = {}
+        self._made: Dict[tuple, torch.Tensor] = {}
+
+    def generator(self, seed: int, counter: int, layer: int
+                  ) -> "_SharedGen":
+        if self._at != (seed, counter):
+            self._at = (seed, counter)
+            self._gens.clear()
+            self._made.clear()
+        return _SharedGen(self, seed, counter, layer)
+
+    def draw(self, g: "_SharedGen", shape, t: int) -> torch.Tensor:
+        key = (g.layer, t, g.drawn, tuple(shape))
+        g.drawn += 1
+        u = self._made.get(key)
+        if u is None:
+            rng = self._gens.get(g.layer)
+            if rng is None:
+                rng = self._gens[g.layer] = torch_generator(
+                    g.seed, g.counter, g.layer, self.device)
+            u = self._made[key] = uniform(rng, shape, self.device, t)
+        return u
+
+
+class _SharedGen:
+    """A stochastic layer's generator under :class:`SharedDraws`."""
+    __slots__ = ("draws", "seed", "counter", "layer", "drawn")
+
+    def __init__(self, draws: SharedDraws, seed: int, counter: int,
+                 layer: int) -> None:
+        self.draws, self.seed, self.counter = draws, seed, counter
+        self.layer, self.drawn = layer, 0
+
+
 def uniform(rng, shape, device: torch.device, t: int = 0) -> torch.Tensor:
     """f32 uniforms on ``[0, 1)`` of ``shape`` on ``device``: from the
     layer's generator ``rng`` at Gibbs step ``t == 0``, else from a
     generator keyed by ``(rng's seed, t)``.  On the card ``rng`` is a
     CUDA generator and the draw is made there.  A :class:`RowSlice`
     draws the global minibatch's rows and returns its own."""
+    if isinstance(rng, _SharedGen):
+        return rng.draws.draw(rng, shape, t).to(device)
     rows = None
     if isinstance(rng, RowSlice):
         rows, rng = rng, rng.gen

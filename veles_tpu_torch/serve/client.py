@@ -21,7 +21,9 @@ fields (``veles_tpu_torch/trace.py``), so the hive's spans join the
 caller's trace.  The two locks come from the lock-order witness's
 factories as ``client.wire`` and ``client.results``.  The process runs
 on the card unless the caller asks for the CPU (``backend="cpu"``).
-Left out: ``--mesh`` (multi-card serving).
+``mesh=N`` (> 1) starts a hive that owns N places (``--mesh N``); on
+the CPU every place is ``cpu``, and no flag like the reference's
+virtual-device count is needed.
 """
 
 from __future__ import annotations
@@ -61,13 +63,16 @@ def hive_command(models: Dict[str, str], backend: str = "auto",
                  heartbeat_every: Optional[float] = None,
                  install_dir: Optional[str] = None,
                  online: bool = False,
-                 metrics_dir: Optional[str] = None) -> List[str]:
+                 metrics_dir: Optional[str] = None,
+                 mesh: int = 0) -> List[str]:
     """The command line :class:`HiveClient` starts a hive with."""
     cmd = [sys.executable, "-m", "veles_tpu_torch", "--serve-models"]
     cmd += [f"{name}={path}" for name, path in models.items()]
     cmd += ["-b", backend]
     if online:
         cmd += ["--online"]
+    if mesh and mesh > 1:
+        cmd += ["--mesh", str(int(mesh))]
     for flag, value in (("--max-batch", max_batch),
                         ("--max-wait-ms", max_wait_ms),
                         ("--hbm-budget", hbm_budget),
@@ -92,12 +97,13 @@ class HiveClient:
                  cwd: Optional[str] = None, online: bool = False,
                  stderr: Any = None,
                  start_timeout: float = 120.0,
-                 metrics_dir: Optional[str] = None) -> None:
+                 metrics_dir: Optional[str] = None,
+                 mesh: int = 0) -> None:
         cmd = hive_command(models, backend=backend, max_batch=max_batch,
                            max_wait_ms=max_wait_ms, hbm_budget=hbm_budget,
                            heartbeat_every=heartbeat_every,
                            install_dir=install_dir, online=online,
-                           metrics_dir=metrics_dir)
+                           metrics_dir=metrics_dir, mesh=mesh)
         run_env = dict(os.environ)
         run_env["PYTHONPATH"] = os.pathsep.join(
             p for p in (_ROOT, run_env.get("PYTHONPATH")) if p)

@@ -28,8 +28,9 @@ the replica with the most free bytes.
 
 With a fleet ``metrics_dir``, each replica's hive persists its
 telemetry in ``<metrics_dir>/replica-<i>``, on every spawn and respawn.
-The process runs on the card unless the caller asks for the CPU.  Left
-out: ``--mesh`` replicas (multi-card serving): ``devices`` is always 1.
+The process runs on the card unless the caller asks for the CPU.  A
+replica with ``mesh=N`` (> 1) runs a ``--mesh N`` hive; its ``devices``
+and capacity (devices x the per-place budget) come from its own hello.
 """
 
 from __future__ import annotations
@@ -116,10 +117,15 @@ class Replica:
                  start_timeout: float = 180.0,
                  install_dir: Optional[str] = None,
                  stderr: Any = None,
-                 metrics_dir: Optional[str] = None) -> None:
+                 metrics_dir: Optional[str] = None,
+                 mesh: int = 0) -> None:
         self.idx = idx
         self.models = dict(models)
         self.backend = backend
+        #: places this replica's hive owns (--mesh N); 0 or 1: one device
+        self.mesh = int(mesh)
+        #: what the replica's own hello advertised (1 until the first
+        #: spawn)
         self.devices = 1
         #: capacity the replica's own hello advertised; None until the
         #: first spawn
@@ -181,7 +187,7 @@ class Replica:
             heartbeat_every=self.heartbeat_every,
             install_dir=self.install_dir, env=self.env, cwd=self.cwd,
             stderr=self.stderr, start_timeout=self.start_timeout,
-            metrics_dir=self.metrics_dir)
+            metrics_dir=self.metrics_dir, mesh=self.mesh)
         hello = self.client.hello or {}
         with self._lock:
             self.spawn_seconds = time.monotonic() - t0

@@ -83,8 +83,18 @@ with it, and recorded as ``hive.request`` in the flight recorder's ring;
 the ring is dumped on a SIGTERM drain (``sigterm``) and before the
 flapping replica's SIGKILL (``flap``).  The locks come from the lock-order
 witness's factories: ``hive.emit`` (the reference's) and ``hive.stats``
-(the port's own request counts).  Not in this slice (argparse rejects
-it): ``--mesh``.
+(the port's own request counts).
+
+``--mesh N`` (or ``$VELES_SERVE_MESH``; the reference's
+``hive.py:233-245``): the replica owns a mesh of N places
+(``parallel/mesh.py`` ``make_mesh``: on the card place i is ``cuda:(i //
+$VELES_MESH_RANKS_PER_CARD)``), one ``MeshDevice`` that the residency
+manager and the engines read.  Budgets are per place, and a model over
+one place's budget serves member-sharded and resident
+(``$VELES_SERVE_MESH_SHARD``, ``serve/residency.py``).  The hello
+advertises ``devices`` N and each model's ``sharded``; ``op=stats``'s
+model rows carry ``sharded`` too.  A mesh the visible cards cannot hold
+exits 2 naming ``$VELES_MESH_RANKS_PER_CARD``.
 """
 
 from __future__ import annotations
@@ -203,6 +213,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--backend", default="auto",
                    help="auto|cuda (CUDA device 0; fails without one) "
                         "or cpu")
+    p.add_argument("--mesh", type=int,
+                   default=int(knobs.get(knobs.SERVE_MESH)),
+                   help="places this replica owns ($VELES_SERVE_MESH): >1 "
+                        "binds an N-place mesh; budgets are per place and "
+                        "a model over one place's budget serves member-"
+                        "sharded and resident instead of spilling "
+                        "($VELES_SERVE_MESH_SHARD)")
     p.add_argument("--max-batch", type=int, default=64,
                    help="rows per micro-batch: the one dispatch shape")
     p.add_argument("--max-wait-ms", type=float, default=5.0,
@@ -257,7 +274,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     install_dir = args.install_dir or tempfile.mkdtemp(
         prefix="hive_models_")
 
-    device = make_device(args.backend)
+    if args.mesh and args.mesh > 1:
+        # the replica owns a mesh of places: one MeshDevice, which the
+        # residency manager and the engines read their places from
+        from veles_tpu_torch.parallel import MeshDevice, make_mesh
+        try:
+            device = MeshDevice(make_mesh(int(args.mesh), args.backend))
+        except ValueError as e:
+            print(f"--serve-models --mesh {args.mesh}: {e}",
+                  file=sys.stderr)
+            return 2
+    else:
+        device = make_device(args.backend)
     residency = ResidencyManager(
         device, budget_bytes=args.hbm_budget or None,
         max_batch=max(1, args.max_batch),
@@ -308,12 +336,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         "backend": device.backend_name, "platform": device.platform,
         "max_batch": residency.max_batch,
         "max_wait_ms": residency.max_wait_s * 1000.0,
-        "online": learner is not None, "devices": 1,
+        "online": learner is not None,
+        # the replica's real capacity (places x the per-place budget),
+        # which the fleet's placement reads
+        "devices": residency.n_devices,
         "device_budget": residency.budget_bytes,
         "models": {
             m.name: {"members": len(m.member_params),
                      "param_bytes": m.param_bytes,
-                     "resident": m.resident, "sharded": False,
+                     "resident": m.resident,
+                     "sharded": bool(m.engine is not None
+                                     and m.engine.member_sharded),
                      "version": m.meta.get("version")}
             for m in residency.models.values()},
     })
@@ -355,6 +388,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             b = m.engine.batcher if m.engine is not None else None
             models[m.name] = {
                 "resident": m.resident,
+                "sharded": bool(m.engine is not None
+                                and m.engine.member_sharded),
                 "dispatches": m.engine.dispatches if m.engine else 0,
                 "rows": b.rows if b is not None else 0,
                 "max_batch_rows": b.max_rows if b is not None else 0}

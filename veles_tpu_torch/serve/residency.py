@@ -27,7 +27,18 @@ Telemetry, as the reference's: the ledger is published as the
 hosts models, the ``serve.models_resident`` / ``serve.resident_bytes*``
 gauges; loads, restores and spills journal, and spills count.
 
-Left out here: mesh placement (``serve.mesh_devices`` is always 1).
+On a mesh replica (a ``MeshDevice``, ``--serve-models --mesh N``) the
+budget is one place's and every charge is per place (the reference's
+``residency.py:181-230``): a model is admitted member-sharded when
+``$VELES_SERVE_MESH_SHARD`` says ``always``, or ``auto`` and its stack
+is over one place's budget (:meth:`ResidencyManager._shard_members`),
+and then costs its padded stack over N a place
+(``EnsembleEvalEngine.param_bytes_per_device``), so a model that would
+spill on one device serves resident.  The decision is taken once, at the
+model's first admission, and a restore lands on the same placement.
+``serve.mesh_devices`` is the replica's place count, and a sharded load
+journals ``serve.model_sharded_resident`` and logs "member-sharded over
+N devices".
 """
 
 from __future__ import annotations
@@ -80,6 +91,9 @@ class ResidencyManager:
     def __init__(self, device: Any, budget_bytes: Optional[int] = None,
                  max_batch: int = 64, max_wait_s: float = 0.005) -> None:
         self.device = device
+        #: places the replica's device owns (1 off a mesh): budgets and
+        #: charges are per place, and ``total_memory`` is one place's
+        self.n_devices = int(getattr(device, "n_devices", 1))
         self.budget_bytes = int(budget_bytes) if budget_bytes else (
             int(knobs.get(knobs.HBM_BUDGET)) or
             ((device is not None and device.total_memory())
@@ -122,7 +136,7 @@ class ResidencyManager:
         plus any serve-tagged charge, the others their charges."""
         with self._lock:
             reserved = list(self.reserved.values())
-            model_bytes = sum(m.param_bytes for m in self.models.values()
+            model_bytes = sum(self._charge(m) for m in self.models.values()
                               if m.resident)
         out = {pool: 0 for pool in POOLS}
         out["serve"] = model_bytes
@@ -130,9 +144,40 @@ class ResidencyManager:
             out[pool] += nbytes
         return out
 
+    def _shard_members(self, m: HostedModel) -> bool:
+        """The placement of ``m``'s stacked member axis: on a mesh
+        replica ``$VELES_SERVE_MESH_SHARD`` ``always`` shards every
+        model, ``never`` none, and ``auto`` exactly the models over ONE
+        place's budget (what would spill, or be admitted over budget, on
+        one device).  A built engine's placement is fixed."""
+        live = getattr(m.engine, "member_sharded", None)
+        if live is not None:
+            return bool(live)
+        if getattr(self.device, "mesh", None) is None or \
+                self.n_devices < 2:
+            return False
+        from veles_tpu_torch.parallel.mesh import shard_mode
+        mode = shard_mode(knobs.get(knobs.SERVE_MESH_SHARD))
+        if mode == "never":
+            return False
+        return mode == "always" or m.param_bytes > self.budget_bytes
+
+    def _charge(self, m: HostedModel) -> int:
+        """``m``'s residency cost a place under its (decided or live)
+        placement: the whole stack, or the padded stack over N when
+        member-sharded."""
+        live = getattr(m.engine, "param_bytes_per_device", None)
+        if live is not None:
+            return int(live)
+        if self._shard_members(m):
+            n, p = self.n_devices, len(m.member_params)
+            return m.param_bytes // p * (-(-p // n) * n) // n
+        return m.param_bytes
+
     def resident_bytes(self) -> int:
-        """Resident stacked models plus every side charge."""
-        return sum(m.param_bytes for m in list(self.models.values())
+        """Resident stacked models (their charge a place) plus every side
+        charge."""
+        return sum(self._charge(m) for m in list(self.models.values())
                    if m.resident) + sum(
             v[0] for v in tuple(self.reserved.values()))
 
@@ -158,7 +203,7 @@ class ResidencyManager:
         telemetry.gauge(events.GAUGE_SERVE_RESIDENT_BYTES).set(resident)
         telemetry.gauge(events.GAUGE_SERVE_RESIDENT_BYTES_PER_DEVICE).set(
             resident)
-        telemetry.gauge(events.GAUGE_SERVE_MESH_DEVICES).set(1)
+        telemetry.gauge(events.GAUGE_SERVE_MESH_DEVICES).set(self.n_devices)
 
     def ensure(self, name: str):
         """Return ``name``'s ready engine, admitting (or restoring) it
@@ -188,7 +233,8 @@ class ResidencyManager:
         if m.engine is None:
             from veles_tpu_torch.ops.fused import EnsembleEvalEngine
             engine = EnsembleEvalEngine(m.forwards, m.member_params,
-                                        self.device)
+                                        self.device,
+                                        shard_members=self._shard_members(m))
             engine.attach_batcher(self.max_batch, self.max_wait_s,
                                   label=name,
                                   sample_shape=m.sample_shape)
@@ -199,6 +245,16 @@ class ResidencyManager:
                             members=m.engine.n_members,
                             param_bytes=m.param_bytes,
                             seconds=round(time.perf_counter() - t0, 4))
+            if m.engine.member_sharded:
+                telemetry.event(
+                    events.EV_SERVE_MODEL_SHARDED, model=name,
+                    devices=self.n_devices, param_bytes=m.param_bytes,
+                    per_device=m.engine.param_bytes_per_device)
+                log.info("model %r member-sharded over %d devices: %.2f "
+                         "MiB total, %.2f MiB/device, resident where a "
+                         "single device would spill", name, self.n_devices,
+                         m.param_bytes / (1 << 20),
+                         m.engine.param_bytes_per_device / (1 << 20))
             log.info("model %r loaded: %d members, %.2f MiB stacked",
                      name, engine.n_members, m.param_bytes / (1 << 20))
         elif not m.resident:
@@ -215,8 +271,10 @@ class ResidencyManager:
         """Under the lock: ``(victim, blocked)``, the least-recently-
         used resident, non-busy model to spill for ``incoming``.  A
         busy engine is never a victim: its flush thread still reads the
-        params.  A model alone over the budget is admitted anyway."""
-        need = incoming.param_bytes
+        params.  A model alone over the budget is admitted anyway.  The
+        charge is taken after the placement decision: a member-sharded
+        model needs its padded stack over N a place."""
+        need = self._charge(incoming)
         if need > self.budget_bytes:
             log.warning("model %r needs %d bytes, over the residency "
                         "budget (%d): admitting it alone",

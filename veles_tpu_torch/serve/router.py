@@ -37,8 +37,11 @@ true}``.  The replicas run on the card unless ``-b cpu`` asks for the
 CPU.  ``--metrics-dir DIR`` (``FleetRouter(metrics_dir=)``) persists the
 router's telemetry in DIR and each replica's in ``DIR/replica-<i>``
 (a respawn writes its new pid's files beside the dead one's), the
-layout ``veles_tpu/obs.py`` ``fleet_rows`` reads.  Refused: ``--mesh``
-(multi-card serving, the port's multi-GPU item).
+layout ``veles_tpu/obs.py`` ``fleet_rows`` reads.  ``--mesh`` (the
+reference's ``router.py:105``, ``:161-179``, :func:`parse_mesh`): a bare
+``N`` gives every replica a ``--mesh N`` hive, ``I=N`` (repeatable) only
+replica I, the mixed fleet; each replica's capacity comes from its own
+hello (``devices`` x the per-place budget), which the placement reads.
 
 Tracing (``veles_tpu_torch/trace.py``, ``$VELES_TRACE_SAMPLE``): each
 request is minted a root context at :meth:`FleetRouter.request` and runs
@@ -109,7 +112,8 @@ class FleetRouter:
                  probe_backoff_cap: Optional[float] = None,
                  env_overrides: Optional[Dict[int, Dict[str, str]]] = None,
                  stderr: Any = None,
-                 metrics_dir: Optional[str] = None) -> None:
+                 metrics_dir: Optional[str] = None,
+                 mesh: Any = None) -> None:
         if n_replicas < 1:
             raise ValueError(f"a fleet needs >= 1 replica, got "
                              f"{n_replicas}")
@@ -162,6 +166,15 @@ class FleetRouter:
             merged.update(over)
             return merged
 
+        def _replica_mesh(i: int) -> int:
+            # an int meshes every replica, {I: N} only replica I (the
+            # mixed one-device / N-place fleet)
+            if mesh is None:
+                return 0
+            if isinstance(mesh, dict):
+                return int(mesh.get(i, 0))
+            return int(mesh)
+
         def _make_replica(i: int,
                           install_dir: Optional[str] = None) -> Replica:
             return Replica(i, self.models, backend=backend,
@@ -171,7 +184,7 @@ class FleetRouter:
                            env=_replica_env(i),
                            start_timeout=start_timeout,
                            install_dir=install_dir, stderr=stderr,
-                           metrics_dir=metrics_dir)
+                           metrics_dir=metrics_dir, mesh=_replica_mesh(i))
 
         #: the scale-up path reuses the founding replicas' recipe
         self._make_replica = _make_replica
@@ -875,6 +888,26 @@ class FleetRouter:
 
 # -- the CLI front end -----------------------------------------------------
 
+def parse_mesh(specs: List[str]) -> Any:
+    """``--mesh`` specs -> the FleetRouter ``mesh`` argument: a bare
+    ``N`` meshes every replica with N places; ``I=N`` (repeatable) meshes
+    only replica I.  The two forms do not mix (ValueError)."""
+    if not specs:
+        return None
+    per: Dict[int, int] = {}
+    uniform: Optional[int] = None
+    for s in specs:
+        idx, eq, n = s.partition("=")
+        if eq:
+            per[int(idx)] = int(n)
+        else:
+            uniform = int(s)
+    if per and uniform is not None:
+        raise ValueError(
+            "mix of bare N and I=N --mesh specs; use one form")
+    return per if per else uniform
+
+
 def parse_canary(spec: str) -> Tuple[str, str, Optional[float]]:
     """``CNAME=PRIMARY[:FRACTION]`` -> (cname, primary, fraction)."""
     cname, _, rest = spec.partition("=")
@@ -900,6 +933,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--backend", default="auto",
                    help="the replicas' backend: auto|cuda (the card; "
                         "fails without one) or cpu")
+    p.add_argument("--mesh", action="append", default=[],
+                   metavar="N|I=N",
+                   help="places per replica: a bare N meshes every "
+                        "replica, I=N (repeatable) only replica I; "
+                        "placement follows each replica's advertised "
+                        "capacity ($VELES_SERVE_MESH)")
     p.add_argument("--canary", action="append", default=[],
                    metavar="CNAME=PRIMARY[:FRACTION]",
                    help="register model CNAME as the canary of PRIMARY, "
@@ -938,20 +977,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-#: flags of the reference's fleet that this port refuses, and the item of
-#: the port that brings each
-_REFUSED = {"--mesh": "multi-GPU serving (ROADMAP item 10)"}
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    for flag, item in _REFUSED.items():
-        if any(a == flag or a.startswith(flag + "=") for a in argv):
-            print(f"--serve-fleet: {flag} is not ported yet; it comes "
-                  f"with {item}", file=sys.stderr)
-            return 2
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose
                         else logging.INFO, stream=sys.stderr)
@@ -976,6 +1005,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         for cspec in args.canary:
             cname, primary, frac = parse_canary(cspec)
             canaries[cname] = (primary, frac)
+        mesh = parse_mesh(args.mesh)
         router = FleetRouter(
             specs, args.replicas, backend=args.backend,
             max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
@@ -986,7 +1016,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 hot=set(args.hot) if args.hot else None),
             slo_p99_ms=args.slo_p99_ms, max_inflight=args.max_inflight,
             deadline_ms=args.deadline_ms,
-            metrics_dir=args.metrics_dir)
+            metrics_dir=args.metrics_dir, mesh=mesh)
     except (ValueError, RuntimeError) as e:
         print(f"--serve-fleet: {e}", file=sys.stderr)
         return 2

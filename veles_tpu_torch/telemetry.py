@@ -402,10 +402,16 @@ def _close_journal() -> None:
             _journal_file = None
 
 
+#: bumped by :func:`configure` and :func:`reset`: a flush that began
+#: under an older generation writes nothing (see :func:`flush`)
+_generation = 0
+
+
 def configure(metrics_dir: Optional[str]) -> None:
     """Point persistence at ``metrics_dir`` (None tears it down), and
     export ``$VELES_METRICS_DIR`` so child processes inherit it."""
-    global _dir
+    global _dir, _generation
+    _generation += 1
     _close_journal()
     _dir = metrics_dir or None
     if _dir:
@@ -598,9 +604,12 @@ def flush() -> Optional[str]:
     (a tempfile, then ``os.replace``), push the journal's buffer to the
     disk and write the lock witness's snapshot beside them.  None, and
     nothing written, without a metrics dir; never raises on a file
-    error."""
+    error.  A flush that :func:`configure` or :func:`reset` overtook
+    writes nothing: the throttled flush runs on a thread of its own, and
+    its snapshot, taken after a reset, would replace the last one
+    written into the old dir with the reset registry's."""
     global _last_flush
-    d = _dir
+    d, gen = _dir, _generation
     if not d:
         return None
     try:
@@ -614,6 +623,9 @@ def flush() -> Optional[str]:
             # the serving path
             text = json.dumps(snapshot())
             with os.fdopen(fd, "w") as f:
+                if gen != _generation:
+                    raise OSError("telemetry reconfigured during the "
+                                  "flush")
                 f.write(text)
             os.replace(tmp, path)
         except BaseException:
@@ -699,7 +711,8 @@ def reset() -> None:
     """Zero every metric in place, clear the event ring, drop the
     journal handle and re-read ``$VELES_METRICS_DIR`` (the tests' clean
     slate); references held elsewhere stay wired."""
-    global _dir, _last_flush
+    global _dir, _last_flush, _generation
+    _generation += 1
     _registry.reset()
     _recent.clear()
     _close_journal()

@@ -1003,6 +1003,7 @@ def drill_fleet__replica_flap(matrix: Matrix):
     autoscaler, watching the healthy replicas' pressure, takes no
     action (a flapping member is a health problem, not a capacity
     signal)."""
+    from veles_tpu_torch import telemetry
     from veles_tpu_torch.serve.autoscale import (FleetAutoscaler,
                                                  ScaleController)
     d = tempfile.mkdtemp(prefix="chaos_flap_")
@@ -1020,19 +1021,25 @@ def drill_fleet__replica_flap(matrix: Matrix):
         x = np.ones((1, 6, 6, 1), np.float32)
         want = oracle(x)
         scaler.start()
-        window = 12.0
-        stop_at = time.monotonic() + window
+        # traffic flows for at least 12 s and until replica 0 has flapped
+        # 3 times (a loaded host respawns slowly): the window follows
+        # the deaths it checks, within a 180 s cap
+        t0 = time.monotonic()
         answered = 0
-        while time.monotonic() < stop_at:
+        flapper = router.replicas[0]
+        while time.monotonic() - t0 < 12.0 or (
+                flapper.deaths < 3 and time.monotonic() - t0 < 180.0):
             r = router.request("m", x, timeout=30)
             assert "probs" in r, r
             assert _close_enough(r, want)
             answered += 1
             time.sleep(0.05)
+        window = time.monotonic() - t0
+        telemetry.flush()
         deaths = [e for e in journal_events_from_dir(
             mdir, events.EV_FLEET_REPLICA_DIED) if e.get("replica") == 0]
         assert len(deaths) >= 2, \
-            f"replica 0 flapped only {len(deaths)}x in {window}s"
+            f"replica 0 flapped only {len(deaths)}x in {window:.1f}s"
         # the backoff grows with consecutive deaths: each flap costs at
         # least `after` plus the backoff, so the window bounds the deaths
         backoffs = [e.get("backoff", 0.0) for e in deaths]
