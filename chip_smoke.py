@@ -1374,7 +1374,8 @@ def train_phase(card: str, workdir: str, resident: dict):
     """Full-width AlexNet, 2 epochs, through the port's entry path, with
     a metrics dir and an event sink, on deterministic cuDNN: it is also
     the stream phase's resident run, whose history, params, launches and
-    superstep ms go into ``resident``.  Returns the readings and the
+    3 supersteps' ms (timed on deterministic cuDNN, as that phase times
+    its streamed ones) go into ``resident``.  Returns the readings and the
     workflow (the profile phase goes on with it)."""
     import torch
 
@@ -1461,24 +1462,35 @@ def train_phase(card: str, workdir: str, resident: dict):
         page.close()
     cli = _plot_cli()
 
-    # one train superstep timed with CUDA events (the loader goes on
-    # past the last epoch: a validation firing, then train)
-    ld.run()
-    ld.run()
-    check(ld.minibatch_class == TRAIN and ld.superstep_k == SUPERSTEP,
-          f"no full train superstep: class {ld.minibatch_class}, k "
-          f"{ld.superstep_k}")
-    w.lr_adjust.run()
-    start, end = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-    torch.cuda.synchronize()
-    start.record()
-    fused.run()
-    end.record()
-    torch.cuda.synchronize()
-    superstep_ms = start.elapsed_time(end)
-    resident["superstep_ms"] = [superstep_ms]
-    fused.take_class_metrics()
+    # the stream phase's resident supersteps: timed as it times its
+    # streamed ones, 3 of them on deterministic cuDNN as both drives ran
+    torch.backends.cudnn.deterministic = True
+    try:
+        resident["superstep_ms"] = [
+            t[0] for t in _time_train_supersteps(w, 3)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # one train superstep timed with CUDA events on cuDNN's default
+    # algorithms, after one that sets them up, timed apart (the loader
+    # goes on past the last epoch: a validation firing, then train)
+    default_ms = []
+    for _ in range(2):
+        ld.run()
+        ld.run()
+        check(ld.minibatch_class == TRAIN and ld.superstep_k == SUPERSTEP,
+              f"no full train superstep: class {ld.minibatch_class}, k "
+              f"{ld.superstep_k}")
+        w.lr_adjust.run()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        start.record()
+        fused.run()
+        end.record()
+        torch.cuda.synchronize()
+        default_ms.append(start.elapsed_time(end))
+        fused.take_class_metrics()
+    superstep_ms = default_ms[-1]
 
     # in situ: each norm layer's backward at a real training minibatch
     caps = [_Capture(gd) for gd in w.gds if isinstance(gd, GDLRNormalizer)]
@@ -1556,6 +1568,7 @@ def train_phase(card: str, workdir: str, resident: dict):
             "train_minibatches": train_mb,
             "valid_minibatches": valid_mb, "launches": launches,
             "history": hist, "superstep_ms": superstep_ms,
+            "first_default_superstep_ms": default_ms[0],
             "ms_per_train_minibatch": superstep_ms / SUPERSTEP,
             "train_img_s": SUPERSTEP * TRAIN_BATCH / superstep_ms * 1e3,
             "run_wall_s": w.wall_time, "run_img_s_wall":
@@ -1995,7 +2008,7 @@ def stream_phase(card: str, workdir: str, resident: dict) -> dict:
         breakdown = _assembly_breakdown(ld)
         assemble_ms = float(np.mean([t[2] for t in streamed]))
         stage_ms = float(np.mean([t[1] for t in streamed]))
-        # the resident superstep: phase 4's, timed there after its run
+        # the resident supersteps: phase 4's run's, timed there as these
         timed = {"stream": [t[0] for t in streamed],
                  "resident": resident["superstep_ms"]}
 
@@ -6444,7 +6457,10 @@ MESH_COHORT_MB = {"train": 2, "valid": 1}
 #: over all 3, so the bar is the cohort phase's for bf16 (the whole
 #: model's relative L2, COHORT_MODEL_RTOL); the share of elements outside
 #: tests/test_torch_population.py's f32 bar (which the tier-1 test holds
-#: on the CPU) is reported
+#: on the CPU) is reported.  The model's norm is mostly fc6's and fc7's,
+#: so each member's change from its start is held leaf by leaf as well,
+#: at phase 25's bar (DP_DELTA_RTOL), and the evaluator's change norms
+#: against this process's
 MESH_PARAM_RTOL, MESH_PARAM_ATOL = 1e-4, 5e-6
 MESH_COHORT_CONFIG = '''
 from veles_tpu_torch.config import root
@@ -6597,7 +6613,9 @@ def _mesh_cohorts(cfg: str, values: list, mesh) -> dict:
             "minibatches": engine.minibatches,
             "seconds": engine.seconds,
             "stacked": engine._n_stacked,
+            "start": w.fused.host_params(),
             "params": [engine.member_params(i) for i in range(len(values))],
+            "change_norms": engine.change_norms(),
             "cap": _hbm_cohort_cap(w, 0, m), "setup_s": setup_s}
         print(f"mesh: the {kind} cohort set up in {setup_s:.1f} s, ran in "
               f"{engine.seconds:.1f} s", flush=True)
@@ -6612,6 +6630,36 @@ def _mesh_cohorts(cfg: str, values: list, mesh) -> dict:
         del engine, w
         torch.cuda.empty_cache()
     return runs
+
+
+def _member_deltas(sharded: dict, flat: dict) -> dict:
+    """Each member's change from its start (``d``), leaf by leaf: the
+    sharded cohort's against the unsharded's, ``||d - d_flat|| /
+    ||d_flat||`` at worst; and the power of that check, the least
+    ``||d_i - d_j|| / ||d_j||`` between two unsharded members on the
+    gene's leaf (the first forward's first param, conv1's weights)."""
+    def change(run, i, fn, pn):
+        return run["params"][i][fn][pn] - run["start"][fn][pn]
+
+    worst, worst_leaf = 0.0, None
+    for i, ps in enumerate(flat["params"]):
+        for fn, leaves in ps.items():
+            for pn in leaves:
+                want = change(flat, i, fn, pn)
+                gap = float(np.linalg.norm(change(sharded, i, fn, pn) -
+                                           want) /
+                            max(np.linalg.norm(want), 1e-30))
+                if gap >= worst:
+                    worst, worst_leaf = gap, f"member {i} {fn}.{pn}"
+    fn = next(iter(flat["start"]))
+    pn = next(iter(flat["start"][fn]))
+    n = len(flat["params"])
+    apart = min(float(np.linalg.norm(change(flat, i, fn, pn) -
+                                     change(flat, j, fn, pn)) /
+                      max(np.linalg.norm(change(flat, j, fn, pn)), 1e-30))
+                for i in range(n) for j in range(n) if i != j)
+    return {"worst": worst, "worst_leaf": worst_leaf,
+            "gene_leaf": f"{fn}.{pn}", "members_apart": apart}
 
 
 def _mesh_som(mesh) -> dict:
@@ -6852,6 +6900,27 @@ def mesh_phase(card: str, workdir: str) -> dict:
     check(worst["model_rel_l2"] <= COHORT_MODEL_RTOL["bfloat16"],
           f"mesh: the sharded cohort's params differ from the unsharded's "
           f"by {worst['model_rel_l2']:.3g} (relative L2 of the model)")
+    # each member's change from its start, leaf by leaf, as phase 25
+    # holds its ranks': a tile trained at another member's rates moves
+    # the gene's leaf (conv1's weights) by another distance
+    delta = _member_deltas(sharded, flat)
+    check(delta["worst"] <= DP_DELTA_RTOL and delta["members_apart"] >
+          DP_DELTA_RTOL, f"mesh: the sharded members' change from their "
+          f"start against the unsharded's: worst leaf {delta['worst']:.3g}"
+          f" ({delta['worst_leaf']}), limit {DP_DELTA_RTOL}; the "
+          f"unsharded members' {delta['gene_leaf']} changes "
+          f"{delta['members_apart']:.3g} apart at the least (a misplaced "
+          f"member must show above the limit)")
+    # the evaluator's members moved as this process's did
+    norms = np.asarray(chunk["change_norms"])
+    norms_gap = {kind: float(np.max(np.abs(norms - run["change_norms"]) /
+                                    np.maximum(run["change_norms"], 1e-30)))
+                 for kind, run in (("sharded", sharded), ("flat", flat))}
+    check(norms.shape == flat["change_norms"].shape and
+          max(norms_gap.values()) <= DP_DELTA_RTOL,
+          f"mesh: the evaluator's change norms {norms.shape} against this "
+          f"process's cohorts: relative gap {norms_gap} (limit "
+          f"{DP_DELTA_RTOL})")
     # the SOM cohort
     check(not any(som["sharded"]["launches"].values()),
           f"mesh: SOM cohort launched {som['sharded']['launches']}")
@@ -6886,6 +6955,11 @@ def mesh_phase(card: str, workdir: str) -> dict:
             "params_max_abs_err": worst["abs"],
             "params_model_rel_l2": worst["model_rel_l2"],
             "params_outside_f32_bar": worst["outside_f32_bar"],
+            "change_gap_worst": delta["worst"],
+            "change_gap_worst_leaf": delta["worst_leaf"],
+            "gene_leaf": delta["gene_leaf"],
+            "members_apart": delta["members_apart"],
+            "evaluator_norms_gap": norms_gap,
             "minibatches": sharded["minibatches"],
             "evaluator_places": hello.get("places"),
             "evaluator_s": chunk["seconds"],
@@ -6904,8 +6978,12 @@ def mesh_phase(card: str, workdir: str) -> dict:
           f"{job['fitnesses']}, launches {chunk['kernel_launches']} "
           f"(unsharded {flat['launches']}), cap {chunk['cap']} vs one "
           f"place's {place_cap}, params rel L2 "
-          f"{worst['model_rel_l2']:.3g} (max abs {worst['abs']:.3g}); SOM "
-          f"rel {som_rel:.3g}  [{card}]", flush=True)
+          f"{worst['model_rel_l2']:.3g} (max abs {worst['abs']:.3g}), "
+          f"change gap {delta['worst']:.3g} ({delta['worst_leaf']}) with "
+          f"members {delta['members_apart']:.3g} apart on "
+          f"{delta['gene_leaf']}, evaluator norms gap "
+          f"{max(norms_gap.values()):.3g}; SOM rel {som_rel:.3g}  [{card}]",
+          flush=True)
     return out
 
 

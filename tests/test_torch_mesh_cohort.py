@@ -15,6 +15,7 @@ package's engines on conftest's 8 virtual XLA:CPU devices; after
   engines' exactly; the params equal the port's unsharded engine's
   within ``test_torch_population.py``'s rtol 1e-4 / atol 5e-6, and the
   reference's at the stable rates;
+- ``change_norms`` is each real member's distance from its start;
 - ``$VELES_MESH_SHARD_MEMBERS=never`` keeps the cohort on one device;
 - ``_hbm_cohort_cap`` equals the reference's for 1 and 8 places, and
   ``never``.
@@ -139,7 +140,7 @@ def check_sharded_wine(lrs, n, stacked):
     assert engine.member_sharded and engine._n_stacked == stacked
     assert fits.shape == (len(lrs),)
     # every tile on its place, a whole tile each
-    tiles = engine._params
+    tiles = engine._tiles
     assert len(tiles) == n
     for tile, place in zip(tiles, make_mesh(n).places):
         for ps in tile.values():
@@ -166,6 +167,23 @@ def test_sharded_params_equal_the_references_at_stable_rates():
     _assert_params(engine, ref, STABLE_LRS, ref=True)
     _, flat_ref = _ref_cohort(STABLE_LRS, 100, 5)
     _assert_params(engine, flat_ref, STABLE_LRS, ref=True)
+
+
+def test_change_norms_are_each_members_distance_from_its_start():
+    """``change_norms`` (what the evaluator reports a chunk) equals each
+    real member's host-side distance from the workflow's params, leaf by
+    leaf, sharded (fillers dropped) as unsharded."""
+    for mesh in (make_mesh(2), None):
+        _, engine = _sharded(WINE_LRS, mesh)
+        start = engine.fused.host_params()
+        want = [[np.linalg.norm(a - start[fn][pn]) for fn, ps in
+                 engine.member_params(i).items() for pn, a in ps.items()]
+                for i in range(len(WINE_LRS))]
+        got = engine.change_norms()
+        assert got.shape == (len(WINE_LRS), 4)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+        # the gene is the first layer's rate: its weights move apart
+        assert len(set(np.round(got[:, 0], 6))) == len(WINE_LRS)
 
 
 def test_knob_never_keeps_the_cohort_on_one_device(monkeypatch):

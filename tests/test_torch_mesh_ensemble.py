@@ -94,7 +94,7 @@ def test_sharded_engine_is_the_flat_engine_bitwise(members, n):
     assert eng.member_sharded and eng._n_stacked == 4
     assert eng.param_bytes == flat.param_bytes
     assert eng.param_bytes_per_device == flat.param_bytes // 3 * 4 // n
-    for tile, place in zip(eng._params, mesh.places):
+    for tile, place in zip(eng._tiles, mesh.places):
         for ps in tile.values():
             assert all(t.device == place and len(t) == 4 // n
                        for t in ps.values())
@@ -183,7 +183,7 @@ def test_handoff_into_a_sharded_stack(monkeypatch):
     served = ho.adopt_cohort(cohort, fits)
     idx = ho.top_k(fits)
     best = [cohort.member_params(int(i)) for i in idx]
-    tiles = served._params
+    tiles = served._tiles
     for fn, ps in tiles[0].items():
         for pn in ps:
             rows = [t[fn][pn][j] for t in tiles for j in range(2)]
@@ -197,7 +197,7 @@ def test_handoff_into_a_sharded_stack(monkeypatch):
                                   flat.predict_proba(x))
     # a promotion's tree of the real members lands tiled, padded alike
     mgr.swap_params("winner", flat.stacked_params)
-    assert isinstance(served._params, list)
+    assert len(served._tiles) == 2
     np.testing.assert_array_equal(served.predict_proba(x),
                                   flat.predict_proba(x))
     ho.refresh_host()

@@ -6,7 +6,7 @@ veles_tpu_torch.genetics.worker --serve --dp N``, the reference's
   gene) answered by a ``--dp 2`` evaluator and a one-device one: the same
   fitnesses, the hello's ``places`` 2 and 1, each chunk's ``places`` and
   a cap twice the one-device one's (the reference's ``_hbm_cohort_cap``
-  at ``n_devices`` 2 and 1);
+  at ``n_devices`` 2 and 1), and each member's ``change_norms`` equal;
 - ``--dp 2 -b cuda`` without the cards exits 2 before its hello, naming
   ``$VELES_MESH_RANKS_PER_CARD``.
 """
@@ -17,6 +17,7 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -84,6 +85,12 @@ def test_a_dp_evaluator_scores_its_cohort_as_one_device_does(cfg):
     assert out[2][2]["places"] == 2 and out[0][2]["places"] == 1
     assert out[2][2]["members"] == 3
     assert not any(out[2][2]["kernel_launches"].values())
+    # each member's distance from its start, leaf by leaf: the same
+    # members trained alike on either placement, each its own distance
+    norms = {dp: np.asarray(out[dp][2]["change_norms"]) for dp in (2, 0)}
+    assert norms[2].shape == (3, 4)
+    np.testing.assert_allclose(norms[2], norms[0], rtol=1e-4, atol=5e-6)
+    assert len(set(np.round(norms[0][:, 0], 6))) == 3
     # the cap: 2 places' worth of the same budget, as the reference's
     cap1, cap2 = out[0][2]["cap"], out[2][2]["cap"]
     assert cap2 in (2 * cap1, 2 * cap1 + 1)

@@ -161,48 +161,37 @@ def build_member_forward(forwards: List[Any], compute_dtype: torch.dtype
 
 
 def build_mean_probs(forwards: List[Any], n_members: int,
-                     compute_dtype: torch.dtype, places=None) -> Callable:
+                     compute_dtype: torch.dtype, places) -> Callable:
     """The ensemble's mean member probabilities: each member's forward,
     then a FIXED left-to-right f32 add chain over the real members
     divided by their count, the order the reference pins
     (``engine/core.py:239-242``).  The reference ``jax.vmap``s one
     member's forward over the stacked member axis; here that axis is a
-    loop that slices member ``i`` out of each stacked tensor (a view,
-    no copy).
+    loop that slices member ``i`` out of its place's tile (a view, no
+    copy).
 
-    With ``places`` (a mesh's, member-sharded) ``params`` is the list of
-    per-place tiles (:class:`MemberPlacement`): the rows ``x`` (on the
-    head place) are copied to each place once, each REAL member's
-    probabilities are computed on its place and copied to the head
-    place, and the same add chain runs over them in member order; a
+    ``params`` is the list of per-place tiles (:class:`MemberPlacement`,
+    one tile off a mesh) and ``places`` their devices: the rows ``x``
+    (on the head place) are copied to each place once, each REAL
+    member's probabilities are computed on its place and copied to the
+    head place, and the add chain runs over them in member order; a
     filler member (``batching.pad_members``) is stored but never
-    computed.  On one device this is the unsharded chain, bitwise."""
+    computed.  On one place every copy is the tensor itself."""
     cast = batching.make_caster(compute_dtype)
     member_forward = build_member_forward(forwards, compute_dtype)
 
-    def members(cparams, x):
-        for i in range(n_members):
-            yield member_forward({f: {p: t[i] for p, t in ps.items()}
-                                  for f, ps in cparams.items()}, x)
-
-    def sharded_members(tiles, x):
+    @torch.inference_mode()
+    def mean_probs(tiles, x: torch.Tensor) -> torch.Tensor:
         head = x.device
         per = next(iter(next(iter(tiles[0].values())).values())).shape[0]
+        tiles = [cast(t) for t in tiles]
         xs = [x.to(place) for place in places]
+        acc: Optional[torch.Tensor] = None
         for i in range(n_members):
             p, j = divmod(i, per)
-            member = {f: {pn: t[j] for pn, t in ps.items()}
-                      for f, ps in tiles[p].items()}
-            yield member_forward(member, xs[p]).to(head)
-
-    @torch.inference_mode()
-    def mean_probs(params, x: torch.Tensor) -> torch.Tensor:
-        if places is None:
-            stream = members(cast(params), x)
-        else:
-            stream = sharded_members([cast(t) for t in params], x)
-        acc: Optional[torch.Tensor] = None
-        for probs in stream:
+            probs = member_forward({f: {pn: t[j] for pn, t in ps.items()}
+                                    for f, ps in tiles[p].items()},
+                                   xs[p]).to(head)
             acc = probs if acc is None else acc + probs
         return acc / n_members
 
@@ -383,7 +372,10 @@ class MemberPlacement:
                   ) -> List[Dict[str, Dict[str, torch.Tensor]]]:
         """A member-stacked device tree of ``n_members`` members as
         per-place tiles, padded by repeating its member 0 (a handoff's
-        best member, a promotion's first): what a sharded engine adopts."""
+        best member, a promotion's first): what an engine adopts.  Off a
+        mesh the tree itself is the one tile."""
+        if not self.sharded:
+            return [tree]
         tiles: List[Dict[str, Dict[str, torch.Tensor]]] = \
             [{} for _ in self.places]
         for fn, ps in tree.items():
@@ -397,13 +389,23 @@ class MemberPlacement:
                     t[fn][pn] = a[p * self.per:(p + 1) * self.per].to(place)
         return tiles
 
+    def gather(self, tiles: List[torch.Tensor]) -> torch.Tensor:
+        """A tiled member-axis value as one tensor of the REAL members on
+        ``device``: off a mesh the one tile itself, on one a copy
+        gathered from the places (the fillers dropped)."""
+        if not self.sharded:
+            return tiles[0]
+        head = self.device.device
+        return torch.cat([t.to(head) for t in tiles])[:self.n_members]
+
     def gather_tree(self, tiles: List[Dict[str, Dict[str, torch.Tensor]]]
                     ) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Per-place tiles as one member-stacked tree of the REAL members
-        on ``device`` (a copy where the places are elsewhere)."""
-        head = self.device.device
-        return {fn: {pn: torch.cat([t[fn][pn].to(head) for t in tiles])[
-            :self.n_members] for pn in ps} for fn, ps in tiles[0].items()}
+        """Per-place trees as one member-stacked tree of the REAL members
+        (:meth:`gather` of each leaf; off a mesh the one tile itself)."""
+        if not self.sharded:
+            return tiles[0]
+        return {fn: {pn: self.gather([t[fn][pn] for t in tiles])
+                     for pn in ps} for fn, ps in tiles[0].items()}
 
     def locate(self, i: int) -> Tuple[int, int]:
         """(place, row in its tile) of member ``i``."""

@@ -87,16 +87,7 @@ class GAServingHandoff:
     @staticmethod
     def _gather(stacked_params: Any, idx: np.ndarray):
         """Members ``idx`` of every leaf of a member-stacked tree,
-        gathered on the tree's device; of a sharded cohort's per-place
-        tiles (a list of trees), gathered on the first place."""
-        if isinstance(stacked_params, list) and len(stacked_params) > 1:
-            tiles = stacked_params
-            return {fn: {pn: torch.stack([
-                tiles[p][fn][pn][j].to(t.device)
-                for p, j in (divmod(int(i), len(t)) for i in idx)])
-                for pn, t in ps.items()} for fn, ps in tiles[0].items()}
-        if isinstance(stacked_params, list):
-            (stacked_params,) = stacked_params
+        gathered on the tree's device."""
         index = None
         out = {}
         for fn, ps in stacked_params.items():
@@ -143,10 +134,11 @@ class GAServingHandoff:
     def adopt_cohort(self, cohort_engine: Any, fitness: np.ndarray):
         """The whole move for a just-trained cohort: top K by fitness,
         gather, swap.  ``cohort_engine`` exposes its member-stacked tree
-        as ``_params`` (a ``PopulationTrainEngine``'s is its per-place
-        tiles): ``PopulationTrainEngine`` (supervised and CD-k RBM
-        cohorts) or ``SOMPopulationEngine``, whose ``run`` returned
-        ``fitness``.  It must not be released yet."""
+        as ``_params`` (of a member-sharded cohort, its real members
+        gathered on the head place): ``PopulationTrainEngine``
+        (supervised and CD-k RBM cohorts) or ``SOMPopulationEngine``,
+        whose ``run`` returned ``fitness``.  It must not be released
+        yet."""
         stacked = cohort_engine._params
         if stacked is None:
             raise RuntimeError(

@@ -37,8 +37,11 @@ in half and retried, and a failing singleton is trained per genome: the
 reference's semantics for a bad genome.  Every such split and
 per-genome fallback is counted in the result's ``fallbacks``.  Each
 trained chunk adds ``{"members", "seconds", "minibatches", "places",
-"cap", "kernel_launches"}`` to the result's ``stats`` (the LRN kernels'
-launches during its run).
+"cap", "change_norms", "kernel_launches"}`` to the result's ``stats``:
+``change_norms`` is each member's (P, leaves) distance from its start
+(``PopulationTrainEngine.change_norms``), which a fitness that did not
+move cannot show, and ``kernel_launches`` the LRN kernels' launches
+during its run.
 
 ``--dp N`` member-shards every cohort over a mesh of N places of this
 one process (``parallel/mesh.py`` ``make_mesh``; the reference's
@@ -214,6 +217,7 @@ def _train_cohort_chunk(create, pristine, config_files, overrides, args,
         stats.append({"members": len(idxs), "seconds": engine.seconds,
                       "minibatches": engine.minibatches,
                       "places": len(engine.placement.places), "cap": cap,
+                      "change_norms": engine.change_norms().tolist(),
                       "kernel_launches": {
                           "lrn_fwd": lrn_cuda.lrn_fwd.launches - launches[0],
                           "lrn_bwd": lrn_cuda.lrn_bwd.launches -

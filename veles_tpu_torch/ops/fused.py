@@ -711,7 +711,9 @@ class EnsembleEvalEngine:
             knob=False)
         #: stacked member count, mesh padding included
         self._n_stacked = self._placement.n_stacked
-        self._params = self._stack(member_params)
+        #: the per-place tiles of the stacked params (one tile off a
+        #: mesh); None while spilled
+        self._tiles = self._placement.stack(self.forwards, member_params)
         #: device bytes of the stacked f32 params of the real members
         self.param_bytes = batching.stacked_param_bytes(member_params)
         #: the residency charge a device: the padded stack over N places
@@ -721,7 +723,7 @@ class EnsembleEvalEngine:
                 self._placement.places)
         self._mean_probs = engine_core.build_mean_probs(
             self.forwards, self.n_members, self.compute_dtype,
-            places=self._placement.places if shard_members else None)
+            self._placement.places)
         self._batcher = None
         #: the attached evaluation split (attach_dataset): a tensor, or
         #: its per-place row tiles when row-sharded
@@ -745,14 +747,6 @@ class EnsembleEvalEngine:
         #: the one-shot hook of :meth:`notify_next_dispatch`
         self._on_next_dispatch = None
 
-    def _stack(self, member_params):
-        """The stacked params: one tree on the device, or per-place tiles
-        when member-sharded."""
-        if self.member_sharded:
-            return self._placement.stack(self.forwards, member_params)
-        return batching.stack_member_params(self.forwards, member_params,
-                                            self.device)
-
     def _check_members(self, member_params) -> None:
         """Every member must carry exactly the port-layout param shapes
         the (initialized) forward chain expects: a layout mix-up fails
@@ -774,10 +768,10 @@ class EnsembleEvalEngine:
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """Mean member probabilities (f32) of a device batch."""
-        params = self._params   # one read: a spill may land after it
-        if params is None:
+        tiles = self._tiles   # one read: a spill may land after it
+        if tiles is None:
             raise RuntimeError("params are spilled; restore_params()")
-        return self._mean_probs(params, x)
+        return self._mean_probs(tiles, x)
 
     def predict_proba(self, x: np.ndarray) -> np.ndarray:
         """Mean member probabilities for a host batch."""
@@ -1007,34 +1001,30 @@ class EnsembleEvalEngine:
     def spill_params(self) -> None:
         """Drop the stacked device params (LRU spill); the host copies
         stay with the residency manager."""
-        self._params = None
+        self._tiles = None
 
     def restore_params(self, member_params) -> None:
         """Upload the host member copies again, on the same placement."""
-        self._params = self._stack(member_params)
+        self._tiles = self._placement.stack(self.forwards, member_params)
 
     @property
     def stacked_params(self):
-        """The live stacked param tree (None while spilled); of a
-        member-sharded engine, its real members gathered on the head
-        place (a copy)."""
-        params = self._params
-        if params is None or not self.member_sharded:
-            return params
-        return self._placement.gather_tree(params)
+        """The live member-stacked param tree of the real members (None
+        while spilled): off a mesh the one tile itself, member-sharded
+        a copy gathered on the head place."""
+        tiles = self._tiles
+        return None if tiles is None else self._placement.gather_tree(tiles)
 
     def adopt_stacked_params(self, stacked) -> None:
         """Serve ``stacked``, a device tree of the same structure and
         shapes, from the next dispatch on: one attribute store, so a
-        dispatch that already read the old tree finishes on it.  A
-        member-sharded engine takes a tree of its real members (tiled
-        here, padded by repeating the tree's first member, the
-        reference's handoff padding) or its own tiles.  Callers go
-        through ``ResidencyManager.swap_params``, which orders this
-        against spill decisions."""
-        if self.member_sharded and isinstance(stacked, dict):
-            stacked = self._placement.tile_tree(stacked)
-        self._params = stacked
+        dispatch that already read the old tree finishes on it.  The
+        tree holds the real members; a member-sharded engine tiles it
+        over its places, padded by repeating the tree's first member
+        (the reference's handoff padding).  Callers go through
+        ``ResidencyManager.swap_params``, which orders this against
+        spill decisions."""
+        self._tiles = self._placement.tile_tree(stacked)
 
     def notify_next_dispatch(self, callback) -> None:
         """Arm a one-shot hook fired right after the next serving
@@ -1044,7 +1034,7 @@ class EnsembleEvalEngine:
 
     @property
     def resident(self) -> bool:
-        return self._params is not None
+        return self._tiles is not None
 
     @property
     def busy(self) -> bool:
@@ -1056,7 +1046,7 @@ class EnsembleEvalEngine:
         if self._batcher is not None:
             self._batcher.close()
             self._batcher = None
-        self._params = self._dataset = self._labels = None
+        self._tiles = self._dataset = self._labels = None
 
 
 from veles_tpu_torch.ops.population import PopulationTrainEngine  # noqa: E402,F401

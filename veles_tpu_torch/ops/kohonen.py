@@ -428,13 +428,8 @@ class SOMPopulationEngine:
         """The real members' (P, N, D) maps: the one tile off a mesh, the
         tiles gathered on the head place (the fillers dropped) on one;
         None after :meth:`release`."""
-        if self._tiles is None:
-            return None
-        if not self.placement.sharded:
-            return self._tiles[0]
-        head = self.device.device
-        return torch.cat([t.to(head) for t in self._tiles])[
-            :self.n_members]
+        tiles = self._tiles
+        return None if tiles is None else self.placement.gather(tiles)
 
     @property
     def _params(self):

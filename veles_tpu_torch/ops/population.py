@@ -357,6 +357,22 @@ class PopulationTrainEngine:
         return {fn: {pn: self.device.get(t[j]) for pn, t in ps.items()}
                 for fn, ps in self._tiles[p].items()}
 
+    def change_norms(self) -> np.ndarray:
+        """(P, leaves) L2 norms of each real member's change from the
+        params it started from (the workflow's, which the cohort leaves
+        untrained), the leaves in tree order: how far each member moved,
+        computed on each place, one small fetch."""
+        norms = []
+        for tile in self._tiles:
+            cols = []
+            for fn, ps in tile.items():
+                start = self.fused.device_params(fn)
+                for pn, t in ps.items():
+                    cols.append((t - start[pn].to(t.device)).flatten(1)
+                                .norm(dim=1))
+            norms.append(torch.stack(cols, 1))
+        return self.placement.fetch_members(norms)
+
     def release(self) -> None:
         """Drop the stacked device state: an evaluator lives across many
         cohorts, and device memory must not accumulate."""
@@ -364,12 +380,10 @@ class PopulationTrainEngine:
 
     @property
     def _params(self):
-        """The stacked params (the reference's attribute, which
-        ``genetics/handoff.py`` adopts from): the member-stacked tree,
-        or a sharded cohort's per-place trees; None after
-        :meth:`release`."""
+        """The member-stacked param tree of the real members (the
+        reference's attribute, which ``genetics/handoff.py`` adopts
+        from): off a mesh the one tile itself, member-sharded a copy
+        gathered on the head place; None after :meth:`release`."""
         tiles = self._tiles
-        if tiles is None or self.member_sharded:
-            return tiles
-        return tiles[0]
+        return None if tiles is None else self.placement.gather_tree(tiles)
 
