@@ -12,8 +12,8 @@ data files), profiles training supersteps, runs the GA and ensembles
 through the CLI, learns online in the serving process and hands a GA
 cohort to serving, serves from a fleet of hive replicas, trains data
 parallel, serves and trains member-sharded over a mesh of two places
-sharing the card, and holds each hand-written kernel against its plain
-PyTorch version.  Every phase is fatal: the script
+sharing the card, trains through the master--slave mode in one process,
+and holds each hand-written kernel against its plain PyTorch version.  Every phase is fatal: the script
 exits nonzero, printing no result line, when any check fails, when
 there is no CUDA device, or when it is run without the repository
 beside it.  A phase that fails, by a check or by any other exception, is
@@ -38,9 +38,14 @@ imports nothing of JAX and nothing of the JAX package.
    the inputs with no host time in the window (``cuda_ms``), its memory
    bound, its share of the bound and the max abs error.
 3. Serve: pack a 2-member full-width AlexNet ensemble (gaussian init at
-   ``alexnet_layers``' stddevs from a numpy seed), start
-   ``python -m veles_tpu_torch --serve-models alexnet=PKG --max-batch
-   64`` on the card, send concurrent requests of 1-16 rows, check every
+   ``alexnet_layers``' stddevs from a numpy seed), publish it to the
+   port's forge server (``forge.make_forge_server`` on 127.0.0.1, a free
+   port, in a thread) and fetch it into a fresh directory
+   (``forge.publish``, ``forge.fetch``): the fetched file's sha256 and
+   manifest, and the manifest the server answered, the packed file's.
+   Start ``python -m veles_tpu_torch --serve-models alexnet=FETCHED
+   --max-batch 64`` on the card (beside its start, this process loads
+   the same package and computes its CPU plain path's f32 answers), send concurrent requests of 1-16 rows, check every
    answer (rows_n, crc, probabilities summing to 1, agreement with the
    in-process engine at the same dtype), read the hive's stats (the
    serving path's kernel launches), shut it down (rc 0).  Then each norm
@@ -104,9 +109,15 @@ imports nothing of JAX and nothing of the JAX package.
    validation firing, so it includes whatever host assembly the
    prefetch thread had not finished; the resident superstep is phase
    4's), the host assembly, staging and H2D ms and bytes per superstep,
-   the assembly's steps timed one by one, and ``save_workflow`` /
-   ``load_workflow`` of the full-width workflow uncompressed and as
-   ``.gz``.
+   the assembly's steps timed one by one.  ``save_workflow`` of the
+   full-width workflow uncompressed and as ``.gz`` runs on a thread of
+   its own beside phase 7 (file IO and zlib work off the GIL; a save
+   writes no state of the process); after phase 7 each is loaded back
+   with ``load_workflow`` on a thread beside phase 8, which draws from
+   no prng stream, and held when joined after it (``stream_gz``), the
+   loaded copy a snapshot with its params (the prng streams a load puts
+   back are put back as they were: loaded beside phase 7's in-process
+   run, they changed its draws).
 7. Preempt-resume: a workflow file written to the scratch directory
    builds ``models/alexnet.py``'s workflow on 256 + 128 images for 2
    epochs (superstep 1, so that a TRAIN class spans two firings) and,
@@ -361,20 +372,40 @@ imports nothing of JAX and nothing of the JAX package.
    minibatch (once a place; the unsharded cohort once), the cohort cap 2
    places' worth of one place's budget; the SOM cohort of 3 over the 2
    places against its unsharded run.
-27. Summary (a phase of its own): each phase's wall seconds on a
+27. Master--slave (ROADMAP item 10c): one ``server.MasterServer`` and
+   one ``client.SlaveClient`` in this process over full-width AlexNet,
+   2 epochs of 128 + 64 images at 64 a minibatch (``MS_*``): the master
+   on the CPU (it computes nothing), the slave on the card, every
+   message pickled (protocol 4) by the loops ``serve()`` runs and
+   carried by ``_InProcessTransport`` (the line says whether zmq
+   imports on the machine): 6 jobs, 4 of them train, done and
+   applied; ``lrn_fwd`` 2 a job and ``lrn_bwd`` 2 a train job (counts
+   zeroed just before the loop, read just after); against a standalone
+   run of the same config and seed on the card (superstep 8), both on
+   deterministic cuDNN: every validation row's loss within
+   ``MS_LOSS_TOL`` and ``n_err`` within ``MS_NERR_TOL``, the final
+   params within ``MS_PARAM_ATOL`` (the reference's bars,
+   ``tests/test_master_slave.py``), and each param's change from its
+   start within 1e-3 relative (``same_run``: the rows stay near ln 1000
+   at this depth); and, beside it, ``python -m
+   veles_tpu_torch --listen-address`` / ``--master-address`` exit 2
+   naming zmq (zmq blocked in the child where it imports).
+28. Summary (a phase of its own): each phase's wall seconds on a
    ``phases`` line (each also printed as it ends), then ``serve``,
    ``train``, ``stream``, ``preempt``, ``data``, ``mnist7``,
    ``cifar10``, ``quantized``, ``mnist_ae``, ``kohonen``, ``layers``, ``wine``, ``mnist_rbm``, ``mnist_dbn``, ``profile``,
    ``cohort``, ``som_cohort``, ``ga``, ``ensemble``, ``online``,
-   ``fleet``, ``dp`` and ``mesh`` JSON lines, each with its phase's
-   ``seconds``, the total minutes, the card line, the
-   ``kernels`` line, then the device line last.
+   ``fleet``, ``dp``, ``mesh`` and ``master_slave`` JSON lines, each
+   with its phase's ``seconds``, a ``scaling`` line (the scaling model,
+   ``tools/scaling_model.py``, on phase 4's timed minibatch), the total
+   minutes, the card line, the ``kernels`` line, then the device line
+   last.
 
-``python3 chip_smoke.py --only fleet`` (or ``preempt``, ``online``,
-``dp``, ``mesh``, or a comma-separated list of them) runs phase 1's
-build, phase 3's package and phase 24 (7, 23, 25, 26, those listed)
-alone, and prints their JSON lines and no result lines (``dp`` then
-holds nothing against phase 4's epoch).
+``python3 chip_smoke.py --only fleet`` (or ``serve``, ``preempt``,
+``online``, ``dp``, ``mesh``, ``master_slave``, or a comma-separated
+list of them) runs phase 1's build, phase 3's package and phase 24 (3,
+7, 23, 25, 26, 27, those listed) alone, and prints their JSON lines and
+no result lines (``dp`` then holds nothing against phase 4's epoch).
 """
 
 from __future__ import annotations
@@ -928,8 +959,24 @@ def serve_phase(card: str, workdir: str):
     print(f"serve: packed {N_MEMBERS}-member ensemble "
           f"({os.path.getsize(pkg) / 2**20:.1f} MiB) in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    # the hive serves the copy fetched from the port's forge
+    forge_res, pkg = forge_round_trip(pkg, workdir, card)
 
     hive = HiveProcess(pkg, workdir)
+
+    def local_model():
+        # beside the hive's start: the same package in this process, and
+        # its CPU plain path's f32 answers to 4 rows
+        device = make_device("cuda")
+        model = load_model_package("alexnet", pkg, device,
+                                   os.path.join(workdir, "local"),
+                                   dict(root.__dict__))
+        ecpu = EnsembleEvalEngine(model.forwards, model.member_params,
+                                  make_device("cpu"))
+        want = ecpu.predict_proba(np.concatenate(request_rows())[:4])
+        ecpu.release()
+        return device, model, want
+    local = _Background(local_model)
     try:
         t0 = time.perf_counter()
         hello = hive.wait_hello()
@@ -993,10 +1040,7 @@ def serve_phase(card: str, workdir: str):
         check(np.allclose(probs.sum(-1), 1.0, atol=1e-3),
               f"request {i}: probs sum {probs.sum(-1)}")
     # the in-process engine on the card, same package, same dtype
-    device = make_device("cuda")
-    pristine = dict(root.__dict__)
-    model = load_model_package("alexnet", pkg, device,
-                               os.path.join(workdir, "local"), pristine)
+    device, model, want32 = local.result()
 
     # every dispatch ran both LRN layers for every member on the card
     dispatches = int(stats["dispatches"])
@@ -1037,11 +1081,7 @@ def serve_phase(card: str, workdir: str):
                              compute_dtype=torch.float32)
     got = e32.predict_proba(rows4)
     e32.release()
-    cpu = make_device("cpu")
-    ecpu = EnsembleEvalEngine(model.forwards, model.member_params, cpu)
-    want = ecpu.predict_proba(rows4)
-    ecpu.release()
-    f32 = agree(got, want, 0.0, 1e-3, 1e-3, "f32 card vs CPU plain path")
+    f32 = agree(got, want32, 0.0, 1e-3, 1e-3, "f32 card vs CPU plain path")
 
     lat_ms = sorted(v * 1e3 for v in lat.values())
     n_rows = sum(len(r) for r in reqs)
@@ -1058,8 +1098,57 @@ def serve_phase(card: str, workdir: str):
              "lrn_alpha_share_in_situ": alpha_shares,
              "prob_max": float(max(np.max(a["probs"])
                                    for a in answers.values())),
-             "card": card}
+             "forge": forge_res, "card": card}
     return serve, launches
+
+
+def forge_round_trip(pkg: str, workdir: str, card: str):
+    """Publish ``pkg`` to the port's forge server (127.0.0.1, a free
+    port, in a thread) and fetch it into a fresh directory: the fetched
+    file's sha256 and manifest the packed file's.  Returns (the line's
+    dict, the fetched path)."""
+    import hashlib
+
+    from veles_tpu_torch import forge
+
+    def sha256(path):
+        h = hashlib.sha256()
+        with open(path, "rb") as f:
+            for chunk in iter(lambda: f.read(1 << 22), b""):
+                h.update(chunk)
+        return h.hexdigest()
+
+    t0 = time.perf_counter()
+    server = forge.make_forge_server(os.path.join(workdir, "forge_store"),
+                                     port=0, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        published = forge.publish(pkg, url)
+        t_pub = time.perf_counter() - t0
+        dest = os.path.join(workdir, "forge_fetched")
+        got = forge.fetch(published["name"], url, dest)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    seconds = time.perf_counter() - t0
+    want = forge.ForgePackage.read_manifest(pkg)
+    sums = {"packed": sha256(pkg), "fetched": sha256(got)}
+    check(sums["packed"] == sums["fetched"] and os.listdir(dest) ==
+          [os.path.basename(pkg)], f"forge: fetched {got} differs: {sums}")
+    check(forge.ForgePackage.read_manifest(got) == want and
+          {k: v for k, v in published.items() if k != "file"} == want,
+          "forge: the fetched or published manifest is not the packed one")
+    out = {"bytes": os.path.getsize(got), "sha256": sums["fetched"],
+           "sha256_equal": True, "manifest_equal": True,
+           "publish_s": t_pub, "publish_fetch_s": seconds}
+    print(f"serve: forge published and fetched {out['bytes']} bytes over "
+          f"{url} in {seconds:.1f} s (publish {t_pub:.1f} s), sha256 and "
+          f"manifest equal the packed file's; the hive serves the fetched "
+          f"copy  [{card}]", flush=True)
+    return out, got
 
 
 # -- phase 4: training ----------------------------------------------------
@@ -1967,7 +2056,6 @@ def stream_phase(card: str, workdir: str, resident: dict) -> dict:
     (``resident``, its drive on deterministic cuDNN as this one's)."""
     import torch
 
-    from veles_tpu_torch.snapshotter import load_workflow, save_workflow
     torch.backends.cudnn.deterministic = True
     try:
         launcher, launches, seconds = _drive(
@@ -2012,21 +2100,12 @@ def stream_phase(card: str, workdir: str, resident: dict) -> dict:
         timed = {"stream": [t[0] for t in streamed],
                  "resident": resident["superstep_ms"]}
 
-        snap = {}
-        for suffix in (".pickle", ".pickle.gz"):
-            path = os.path.join(workdir, "stream" + suffix)
-            t0 = time.perf_counter()
-            save_workflow(ws, path)
-            save_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            back = load_workflow(path)
-            load_s = time.perf_counter() - t0
-            check(back.fused.restored and back.fused._acc_carry is None,
-                  f"{suffix}: not a snapshot with params")
-            snap[suffix] = {"bytes": os.path.getsize(path),
-                            "save_s": save_s, "load_s": load_s}
-            os.remove(path)
-            del back
+        # the snapshot saves (file IO and zlib, off the GIL) run beside
+        # phase 7; the loads, which put back the process's prng streams,
+        # come after it (``stream_gz``)
+        snaps = _Background(lambda: {
+            suffix: _snapshot_save(ws, workdir, suffix)
+            for suffix in (".pickle", ".pickle.gz")})
     finally:
         torch.backends.cudnn.deterministic = False
     out = {"epochs": N_EPOCHS, "minibatch": TRAIN_BATCH,
@@ -2043,13 +2122,88 @@ def stream_phase(card: str, workdir: str, resident: dict) -> dict:
            "h2d_bytes_per_superstep": SUPERSTEP * TRAIN_BATCH * row_bytes,
            "h2d_gb_s": SUPERSTEP * TRAIN_BATCH * row_bytes / h2d_ms / 1e6,
            "drive_s": {p: r["drive_s"] for p, r in runs.items()},
-           "snapshot": snap, "card": card}
+           "snapshot": snaps, "card": card}
     print(f"stream: superstep ms streamed {timed['stream']} resident "
           f"{timed['resident']}; host assembly {assemble_ms:.1f} ms, "
           f"stage+queue {stage_ms:.1f} ms, H2D {h2d_ms:.2f} ms for "
           f"{out['h2d_bytes_per_superstep']} bytes per superstep; assembly "
           f"steps {breakdown}  [{card}]", flush=True)
     return out
+
+
+def _snapshot_save(w, workdir: str, suffix: str) -> dict:
+    """``save_workflow`` of ``w`` as ``suffix`` (it reads the process's
+    state and writes none): the path, the bytes and the seconds."""
+    from veles_tpu_torch.snapshotter import save_workflow
+    path = os.path.join(workdir, "stream" + suffix)
+    t0 = time.perf_counter()
+    save_workflow(w, path)
+    return {"path": path, "bytes": os.path.getsize(path),
+            "save_s": time.perf_counter() - t0}
+
+
+def _snapshot_load(saved: dict, suffix: str) -> dict:
+    """``load_workflow`` of a saved snapshot: the loaded copy must be a
+    snapshot with its params and no partial class.  The prng streams it
+    puts back are put back as they were (a later phase's draws are not
+    the snapshot's)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.snapshotter import load_workflow
+    path = saved.pop("path")
+    streams = prng.snapshot_state()
+    try:
+        t0 = time.perf_counter()
+        back = load_workflow(path)
+        saved["load_s"] = time.perf_counter() - t0
+    finally:
+        prng.restore_state(streams)
+    check(back.fused.restored and back.fused._acc_carry is None,
+          f"{suffix}: not a snapshot with params")
+    os.remove(path)
+    return saved
+
+
+class _Background:
+    """``fn(*args)`` on a thread of its own; :meth:`result` joins it and
+    returns its value or raises its exception."""
+
+    def __init__(self, fn, *args) -> None:
+        self._out, self._err = None, None
+
+        def run():
+            try:
+                self._out = fn(*args)
+            except BaseException as e:  # noqa: BLE001 — raised on join
+                self._err = e
+        self._t = threading.Thread(target=run, daemon=True)
+        self._t.start()
+
+    def result(self, timeout: float = 600.0):
+        self._t.join(timeout)
+        check(not self._t.is_alive(), "a background check did not end")
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
+def stream_loads(stream: dict) -> None:
+    """After phase 7: load phase 6's saved snapshots back, each held, on
+    a thread beside phase 8 (which draws from no prng stream)."""
+    saves = stream["snapshot"]
+    stream["snapshot"] = _Background(lambda: {
+        suffix: _snapshot_load(saved, suffix)
+        for suffix, saved in saves.result().items()})
+
+
+def stream_gz(stream: dict, card: str) -> dict:
+    """Join phase 6's snapshot round trips into its line."""
+    snap = stream["snapshot"] = stream["snapshot"].result()
+    print("stream: snapshots (saved beside phase 7, loaded beside 8) " +
+          ", ".join(
+        f"{k} {v['bytes']} bytes, save {v['save_s']:.1f} s, load "
+        f"{v['load_s']:.1f} s" for k, v in snap.items()) + f"  [{card}]",
+        flush=True)
+    return snap
 
 
 #: the preempt-resume phase's workflow: AlexNet with a superstep of 1, so
@@ -6987,6 +7141,216 @@ def mesh_phase(card: str, workdir: str) -> dict:
     return out
 
 
+# -- phase 27: the master--slave mode ----------------------------------------
+
+#: the phase's cut: 2 epochs of 128 + 64 images at 64 a minibatch, so 6
+#: one-minibatch jobs, 4 of them train; widths and depth are the model's
+MS_TRAIN, MS_VALID, MS_MB = 128, 64, 64
+MS_OVERRIDES = [f"root.alexnet.loader.n_train={MS_TRAIN}",
+                f"root.alexnet.loader.n_valid={MS_VALID}",
+                f"root.alexnet.loader.minibatch_size={MS_MB}",
+                f"root.alexnet.decision.max_epochs={N_EPOCHS}"]
+MS_TRAIN_JOBS = N_EPOCHS * MS_TRAIN // MS_MB
+MS_JOBS = MS_TRAIN_JOBS + N_EPOCHS * MS_VALID // MS_MB
+#: the reference's bars (``tests/test_master_slave.py``): one slave
+#: against the standalone run
+MS_LOSS_TOL, MS_NERR_TOL, MS_PARAM_ATOL = 1e-4, 1, 1e-4
+
+
+class _InProcessTransport:
+    """Both ends of the master--slave loops in one process: the slave's
+    ``request`` puts its bytes in the master's inbox and waits for the
+    answer; the master's ``recv`` / ``send`` take and answer them.  The
+    loops pickle every message (protocol 4) on either side, as over
+    zmq."""
+
+    def __init__(self) -> None:
+        import queue
+        self._queue = queue
+        self.inbox, self.outbox = queue.Queue(), queue.Queue()
+        self.messages = 0
+        self.bytes = 0
+
+    def recv(self, timeout_ms: int):
+        try:
+            return self.inbox.get(timeout=timeout_ms / 1000.0)
+        except self._queue.Empty:
+            return None
+
+    def send(self, ident, raw: bytes) -> None:
+        self.outbox.put(raw)
+
+    def request(self, raw: bytes) -> bytes:
+        self.inbox.put((b"slave-0", raw))
+        reply = self.outbox.get(timeout=120)
+        self.messages += 1
+        self.bytes += len(raw) + len(reply)
+        return reply
+
+
+def _ms_workflow(backend: str):
+    """The phase's AlexNet (the cut set, seeded SEED) initialized for
+    training on ``backend``."""
+    from veles_tpu_torch.config import parse_overrides, root
+    from veles_tpu_torch.launcher import Launcher, load_workflow_module
+    saved_root = copy.deepcopy(dict(root.__dict__))
+    parse_overrides(MS_OVERRIDES)
+    try:
+        launcher = Launcher(backend=backend, seed=SEED)
+        launcher.create_workflow(
+            load_workflow_module(ALEXNET_FILE).create_workflow)
+        launcher.initialize()
+    finally:
+        root.__dict__.clear()
+        root.__dict__.update(saved_root)
+    return launcher.workflow
+
+
+def _zmq_state():
+    """(whether zmq imports here, a sentence saying so)."""
+    try:
+        import zmq
+    except ImportError as e:
+        return False, f"zmq does not import on this machine ({e})"
+    return True, f"zmq {zmq.__version__} imports on this machine"
+
+
+def _ms_cli_refusals() -> dict:
+    """``python -m veles_tpu_torch --listen-address`` and
+    ``--master-address``, side by side: each exits 2 naming zmq, before
+    the card or the workflow file (where zmq imports here, it is blocked
+    in the child as the tier-1 test blocks it)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    blocked = _zmq_state()[0]
+    head = [sys.executable, "-c",
+            "import runpy, sys; sys.modules['zmq'] = None; "
+            "sys.argv = ['veles_tpu_torch'] + sys.argv[1:]; "
+            "runpy.run_module('veles_tpu_torch', run_name='__main__', "
+            "alter_sys=True)"] if blocked else \
+        [sys.executable, "-m", "veles_tpu_torch"]
+    procs = {flag: subprocess.Popen(
+        head + [flag, "tcp://127.0.0.1:0", ALEXNET_FILE], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for flag in ("--listen-address", "--master-address")}
+    out = {"zmq_blocked_in_child": blocked}
+    for flag, proc in procs.items():
+        _, err = proc.communicate(timeout=120)
+        check(proc.returncode == 2 and "zmq" in err,
+              f"{flag} without zmq: rc {proc.returncode}, stderr "
+              f"{err[-500:]!r}")
+        out[flag] = {"rc": proc.returncode, "stderr": err.strip()[-200:]}
+    return out
+
+
+def master_slave_phase(card: str, workdir: str) -> dict:
+    """One ``MasterServer`` and one ``SlaveClient`` in this process over
+    full-width AlexNet: the master on the CPU (it computes nothing), the
+    slave on the card, every message pickled through the loops that
+    ``serve()`` runs (``_InProcessTransport``); held against a
+    standalone run of the same config and seed on the card, both under
+    deterministic cuDNN."""
+    import torch
+
+    from veles_tpu_torch.client import SlaveClient
+    from veles_tpu_torch.server import MasterServer
+
+    cli = _Background(_ms_cli_refusals)
+    cache = _CachedSynthetic()
+    torch.backends.cudnn.deterministic = True
+    try:
+        try:
+            t0 = time.perf_counter()
+            alone = _ms_workflow("cuda")
+            setup_s = time.perf_counter() - t0
+            _zero_launches()
+            t0 = time.perf_counter()
+            alone.run()
+            torch.cuda.synchronize()
+            alone_s = time.perf_counter() - t0
+            alone_launches = _launches()
+            want_hist = list(alone.decision.history)
+            want = alone.fused.host_params()
+            del alone
+            # the slave first: the master's loader then draws its later
+            # epochs' shuffles from the stream as the standalone run did
+            slave_w = _ms_workflow("cuda")
+            master_w = _ms_workflow("cpu")
+        finally:
+            cache.restore()
+        transport = _InProcessTransport()
+        server = MasterServer(master_w, linger_s=0.5)
+        client = SlaveClient(slave_w)
+        master = _Background(server.run_loop, transport)
+        _zero_launches()
+        t0 = time.perf_counter()
+        client.run_loop(transport)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        launches = _launches()
+        master.result(120)
+        total_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(client.jobs_done == server._applied == MS_JOBS
+          and master_w.decision.complete,
+          f"{client.jobs_done} jobs done, {server._applied} applied, "
+          f"want {MS_JOBS}")
+    want_launches = _want_launches(MS_TRAIN_JOBS, MS_JOBS - MS_TRAIN_JOBS)
+    check(launches == want_launches == alone_launches,
+          f"the slave launched {launches}, the standalone run "
+          f"{alone_launches}, want {want_launches} (2 a job, 2 more a "
+          f"train job)")
+    got_hist = list(master_w.decision.history)
+    check([(r["class"], r["count"]) for r in got_hist] ==
+          [(r["class"], r["count"]) for r in want_hist] ==
+          [("validation", MS_VALID), ("train", MS_TRAIN)] * N_EPOCHS,
+          f"histories {got_hist} / {want_hist}")
+    gaps = [{"loss": abs(a["loss"] - b["loss"]),
+             "n_err": abs(a["n_err"] - b["n_err"])}
+            for a, b in zip(got_hist, want_hist)
+            if a["class"] == "validation"]
+    for a in got_hist:
+        check(np.isfinite(a["loss"]), f"non-finite loss {a}")
+    check(all(g["loss"] <= MS_LOSS_TOL and g["n_err"] <= MS_NERR_TOL
+              for g in gaps), f"validation rows against the standalone "
+          f"run: {gaps} (bars {MS_LOSS_TOL}, {MS_NERR_TOL})")
+    got = master_w.fused.host_params()
+    worst = max(float(np.abs(got[f][p] - a).max())
+                for f, ps in want.items() for p, a in ps.items())
+    check(worst <= MS_PARAM_ATOL, f"final params differ from the "
+          f"standalone run's by {worst:.3g} (bar {MS_PARAM_ATOL})")
+    # the rows stay near ln(1000) at this depth: each param's change from
+    # its start is what sees a lost or doubled job (``same_run``)
+    init = _initial_params(slave_w)
+    same = same_run(got_hist, got, want_hist, want, init)
+    moved = max(float(np.abs(got[f][p] - a).max())
+                for f, ps in init.items() for p, a in ps.items())
+    refusals = cli.result(120)
+    out = {"transport": "in-process pickle", "zmq": _zmq_state()[1],
+           "jobs": MS_JOBS, "train_jobs": MS_TRAIN_JOBS,
+           "jobs_done": client.jobs_done, "applied": server._applied,
+           "messages": transport.messages, "message_bytes": transport.bytes,
+           "launches": launches, "standalone_launches": alone_launches,
+           "validation_gaps": gaps, "params_max_abs_gap": worst,
+           "same_run": same, "params_moved_max_abs": moved,
+           "bars": {"loss": MS_LOSS_TOL, "n_err": MS_NERR_TOL,
+                    "params": MS_PARAM_ATOL},
+           "history": got_hist, "setup_s": setup_s,
+           "standalone_s": alone_s, "loop_s": loop_s, "total_s": total_s,
+           "s_per_job": loop_s / MS_JOBS, "cli": refusals, "card": card}
+    print(f"master_slave: {MS_JOBS} jobs ({MS_TRAIN_JOBS} train) of "
+          f"{MS_MB} rows from a CPU master to a slave on the card over "
+          f"the in-process pickle transport ({_zmq_state()[1]}), "
+          f"{transport.messages} messages, {transport.bytes} bytes, "
+          f"{loop_s:.1f} s ({loop_s / MS_JOBS:.2f} s a job); launches "
+          f"{launches}; against the standalone run: validation {gaps}, "
+          f"params max abs {worst:.3g} (moved up to {moved:.3g} from the "
+          f"start), {same}; the CLI's flags exit 2 naming zmq"
+          f"  [{card}]", flush=True)
+    return out
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as sock:
@@ -7111,11 +7475,13 @@ def main() -> int:
         return out
 
     only = {"preempt": preempt_phase, "online": online_phase,
-            "fleet": fleet_phase, "dp": dp_phase, "mesh": mesh_phase}
+            "fleet": fleet_phase, "dp": dp_phase, "mesh": mesh_phase,
+            "master_slave": master_slave_phase,
+            "serve": lambda c, w: serve_phase(c, w)[0]}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and set(sys.argv[2].split(",")) <= set(only):
-        # development: phase 1's build, the served package and phases 7,
-        # 23, 24, 25 and / or 26 alone; no result lines
+        # development: phase 1's build, the served package and phases 3,
+        # 7, 23, 24, 25, 26 and / or 27 alone; no result lines
         try:
             timed("build", lrn_cuda.build)
             timed("package", build_package, workdir)
@@ -7195,7 +7561,9 @@ def main() -> int:
         preempt = timed("preempt", preempt_phase, card, workdir)
         # phases 8-11: real data, the three small models, uint8 ingest
         data_dir = os.path.join(workdir, "data")
+        stream_loads(stream)
         data = timed("data", data_phase, card, data_dir)
+        timed("stream_gz", stream_gz, stream, card)
         mnist7, mnist7_w = timed("mnist7", mnist7_phase, card, data_dir)
         cifar10 = timed("cifar10", cifar10_phase, card, data_dir)
         quantized = timed("quantized", quantized_phase, card, workdir)
@@ -7226,6 +7594,9 @@ def main() -> int:
         dp = timed("dp", dp_phase, card, workdir, train)
         # phase 26: member-sharded cohorts and mesh serving
         mesh = timed("mesh", mesh_phase, card, workdir)
+        # phase 27: the master--slave mode
+        master_slave = timed("master_slave", master_slave_phase, card,
+                             workdir)
         results = {"serve": serve, "train": train, "stream": stream,
                    "preempt": preempt, "data": data, "mnist7": mnist7,
                    "cifar10": cifar10, "quantized": quantized,
@@ -7234,8 +7605,8 @@ def main() -> int:
                    "mnist_dbn": mnist_dbn, "profile": profile,
                    "cohort": cohort, "som_cohort": som_cohort, "ga": ga,
                    "ensemble": ensemble, "online": online, "fleet": fleet,
-                   "dp": dp, "mesh": mesh}
-        # phase 27: the summary
+                   "dp": dp, "mesh": mesh, "master_slave": master_slave}
+        # phase 28: the summary
         kernels = timed("summary", summary, rows, serve_launches, results,
                         dict(phases), card)
     except Exception:   # named by timed()
@@ -7273,7 +7644,8 @@ def summary(rows, serve_launches, res: dict, phases: dict,
             "dp_rank1": res["dp"]["launches"][k][1],
             "dp_nccl": res["dp"]["nccl"]["launches"][k],
             "mesh_cohort": res["mesh"]["cohort"]["launches"][k],
-            "mesh_som": res["mesh"]["som"]["launches"][k]}
+            "mesh_som": res["mesh"]["som"]["launches"][k],
+            "master_slave": res["master_slave"]["launches"][k]}
     launches["lrn_fwd"] = dict(
         launches["lrn_fwd"], serve=serve_launches,
         export=res["train"]["export"]["launches"]["lrn_fwd"],
@@ -7285,6 +7657,12 @@ def summary(rows, serve_launches, res: dict, phases: dict,
                        launches["lrn_bwd"], card)]
     for phase, r in res.items():
         r["seconds"] = phases[phase]
+    # the scaling model (veles_tpu_torch/tools/scaling_model.py) on phase
+    # 4's timed minibatch; its link rates are spec values
+    from veles_tpu_torch.tools import scaling_model
+    res["scaling"] = scaling_model.model(
+        res["train"]["ms_per_train_minibatch"], card, TRAIN_BATCH)
+    res["scaling"]["seconds"] = 0.0
     print("phases " + json.dumps(phases))
     for phase, r in res.items():
         print(f"{phase} " + json.dumps(r))

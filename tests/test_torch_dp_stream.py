@@ -81,3 +81,30 @@ def test_a_ranks_dropout_mask_is_its_rows_of_the_global_mask():
                 11, 3, 2, torch.device("cpu")), (8, 7),
                 torch.device("cpu"), t)
             assert torch.equal(u, full[lo:hi])
+
+
+def test_a_rank_leaves_its_group_before_the_interpreter_exits(tmp_path):
+    """``Launcher.close()`` (called by the CLI after a rank's run reached
+    its end) destroys the process group while the process is whole: a
+    finished rank left that to the interpreter's teardown and aborted
+    (exit 134, "terminate called without an active exception") in about
+    1 of 50 loaded two-rank runs."""
+    import os
+    import subprocess
+    import sys
+
+    from torch_dp_fixtures import REPO
+    code = (
+        "import torch.distributed as dist\n"
+        "from veles_tpu_torch.launcher import Launcher\n"
+        "la = Launcher(backend='cpu', multihost=True)\n"
+        "assert dist.is_initialized() and la.group.world_size == 1\n"
+        "la.close()\n"
+        "assert not dist.is_initialized() and la.group.store is None\n"
+        "la.close()\n"
+        "print('closed')\n")
+    env = dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT="0", WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    p = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0 and p.stdout.strip() == "closed", p.stderr

@@ -3,8 +3,9 @@
 and no module imports ``zmq``, ``matplotlib`` or ``PIL``, which the
 card's machine does not have, when it is imported: the graphics bus
 imports ``zmq`` and ``matplotlib`` inside the functions that bind a
-socket or render a plot, and nowhere else.  The port's entry points
-refuse to drop silently onto the CPU."""
+socket or render a plot, and the master--slave mode imports ``zmq``
+inside the functions that bind or connect its sockets, and nowhere
+else.  The port's entry points refuse to drop silently onto the CPU."""
 
 import ast
 import os
@@ -23,9 +24,13 @@ PKG = os.path.join(REPO, "veles_tpu_torch")
 #: packages the card's machine lacks
 BLOCKED = ("jax", "jaxlib", "veles_tpu", "zmq", "matplotlib", "PIL")
 #: of those, what a function may import when it is called (the graphics
-#: bus's optional packages), and the only functions that do
+#: bus's optional packages, and the master--slave mode's zmq), and the
+#: only functions that do
 LAZY = ("zmq", "matplotlib")
-LAZY_SITES = {("graphics_server.py", "_ensure_sock", "zmq"),
+LAZY_SITES = {("server.py", "serve", "zmq"),
+              ("client.py", "serve", "zmq"),
+              ("chip_smoke.py", "_zmq_state", "zmq"),
+              ("graphics_server.py", "_ensure_sock", "zmq"),
               ("graphics_server.py", "_plt", "matplotlib"),
               ("graphics_server.py", "_plt", "matplotlib.pyplot"),
               ("graphics_client.py", "serve", "zmq"),
@@ -116,7 +121,10 @@ def test_every_port_module_imports_with_jax_blocked():
             "veles_tpu_torch.analysis.cli",
             "veles_tpu_torch.tools.veleslint",
             "veles_tpu_torch.parallel", "veles_tpu_torch.parallel.mesh",
-            "veles_tpu_torch.parallel.data_parallel"} <= set(names)
+            "veles_tpu_torch.parallel.data_parallel",
+            "veles_tpu_torch.distributable", "veles_tpu_torch.server",
+            "veles_tpu_torch.client", "veles_tpu_torch.forge",
+            "veles_tpu_torch.tools.scaling_model"} <= set(names)
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -257,6 +265,19 @@ def test_plot_flags_refused_without_their_package(flags, package,
     assert proc.returncode == 2, proc.stderr
     assert package in proc.stderr and "needs" in proc.stderr
     assert not (tmp_path / "plots").exists()
+
+
+@pytest.mark.parametrize("flag", ["--listen-address", "--master-address"])
+def test_master_slave_flags_refused_without_zmq(flag, tmp_path):
+    """``--listen-address`` and ``--master-address`` exit 2 naming zmq
+    where it does not import, before the config or the card, as on the
+    card's machine; ``--dp`` does not get past the refusal either."""
+    blocked = ("jax", "jaxlib", "veles_tpu", "zmq")
+    for extra in ([], ["--dp", "2"]):
+        proc = _blocked_run([flag, "tcp://127.0.0.1:0", "-b", "cuda", *extra,
+                             "no_such_workflow.py"], blocked, tmp_path)
+        assert proc.returncode == 2, proc.stderr
+        assert "needs zmq" in proc.stderr and flag in proc.stderr
 
 
 def test_graphics_client_names_zmq_when_it_is_missing():

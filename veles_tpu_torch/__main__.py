@@ -1,7 +1,7 @@
 """The port's command line.
 
     python -m veles_tpu_torch [--supervise] [-b auto|cuda|cpu] [-s SEED]
-        [--dp N] [--multihost]
+        [--dp N] [--multihost] [--listen-address ADDR | --master-address ADDR]
         [--snapshot FILE] [--profile DIR] [--metrics-dir DIR]
         [--log-events FILE] [-p] [--plots-endpoint ENDPOINT]
         [--status-server URL] [-v] [--dump-config] WORKFLOW.py
@@ -65,6 +65,18 @@ joins a group from torchrun's environment (``MASTER_ADDR``,
 --nnodes H --nproc-per-node C -m veles_tpu_torch --multihost ...`` on
 every host.  A rank whose peer died exits 13 after a final snapshot;
 ``--supervise`` resumes 13 as it resumes 14.
+
+``--listen-address ADDR`` runs the workflow as the master of the
+master--slave mode (``veles_tpu_torch/server.py``: it owns the params
+and issues one-minibatch jobs), and ``--master-address ADDR`` as a slave
+of the master at ADDR (``client.py``: it computes jobs with the fused
+step on its device), each over zmq (``tcp://host:port``); either flag is
+refused (exit 2, naming ``zmq``) where zmq does not import.  As the
+reference's: a master computes nothing, so ``--dp`` does not shard it
+(one process runs); a slave with ``--dp N`` or ``--multihost`` is one
+slave computing each job data parallel over its group.  A master with
+``--multihost`` is refused (exit 2): every process of the group would
+bind the one address.
 
 ``--optimize POP:GEN`` tunes the config values wrapped in ``Tune(...)``
 (``veles_tpu_torch/genetics/``): a population of POP genomes for GEN
@@ -131,6 +143,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="join a data-parallel group from torchrun's "
                         "environment (MASTER_ADDR, MASTER_PORT, "
                         "WORLD_SIZE, RANK, LOCAL_RANK)")
+    p.add_argument("--master-address", default=None, metavar="ADDR",
+                   help="run as a slave of the master at ADDR (zmq, "
+                        "tcp://host:port); needs zmq")
+    p.add_argument("--listen-address", default=None, metavar="ADDR",
+                   help="run as the master, listening at ADDR (zmq, "
+                        "tcp://host:port); needs zmq")
     p.add_argument("--snapshot", default=None, metavar="FILE",
                    help="resume from this snapshot")
     p.add_argument("--profile", default=None, metavar="DIR",
@@ -217,6 +235,31 @@ def missing_plot_packages(args) -> Optional[str]:
     return None
 
 
+def refused_master_slave(args) -> Optional[str]:
+    """The message refusing ``--listen-address`` / ``--master-address``
+    without zmq, or a master with ``--multihost``; None when they may
+    start (or are not given)."""
+    flags = [f for f, on in (("--listen-address", args.listen_address),
+                             ("--master-address", args.master_address))
+             if on]
+    if not flags:
+        return None
+    try:
+        __import__("zmq")
+    except ImportError as e:
+        return (f"{' / '.join(flags)} needs zmq, which does not import "
+                f"here ({e})")
+    if args.listen_address and not args.master_address and args.multihost:
+        return ("--listen-address with --multihost is refused: every "
+                "process of the group would bind the one address, and a "
+                "master computes nothing to share")
+    return None
+
+
+def _is_master(args) -> bool:
+    return bool(args.listen_address) and not args.master_address
+
+
 def refused_parallel(args) -> Optional[str]:
     """The message refusing a data-parallel command line the port does
     not run, or one whose cards are missing; None when it may start.
@@ -241,7 +284,8 @@ def refused_parallel(args) -> Optional[str]:
                     f"ignores --dp there); member-sharded cohorts run in "
                     f"the GA evaluator, python -m "
                     f"veles_tpu_torch.genetics.worker --serve --dp N")
-    if args.dp and args.dp > 1 and not args.multihost:
+    if args.dp and args.dp > 1 and not args.multihost \
+            and not _is_master(args):
         from veles_tpu_torch.parallel.mesh import check_cards
         try:
             check_cards(args.dp, args.backend)
@@ -271,13 +315,19 @@ def main(argv=None) -> int:
     overrides = [a for a in argv if is_override(a)]
     args = build_parser().parse_args([a for a in argv
                                       if a not in overrides])
-    refused = missing_plot_packages(args) or refused_parallel(args)
+    refused = missing_plot_packages(args) or refused_master_slave(args) \
+        or refused_parallel(args)
     if refused:
         print(refused, file=sys.stderr)
         return 2
     level = logging.DEBUG if args.verbose else logging.INFO
     logging.basicConfig(level=level,
                         format="%(levelname)s %(name)s: %(message)s")
+    if _is_master(args) and args.dp is not None and args.dp > 1:
+        logging.getLogger("veles.launcher").info(
+            "--dp %d: a master computes nothing; one process serves the "
+            "jobs", args.dp)
+        args.dp = None
     if args.dp is not None and args.dp > 1 and not args.multihost:
         from veles_tpu_torch.launcher import run_ranks
         return run_ranks(argv, args.dp)
@@ -318,7 +368,8 @@ def main(argv=None) -> int:
                             plotters=args.plotters,
                             status_server=args.status_server,
                             verbose=args.verbose, multihost=args.multihost,
-                            dp=args.dp)
+                            dp=args.dp, master_address=args.master_address,
+                            listen_address=args.listen_address)
     except (RuntimeError, ValueError) as e:
         if not args.multihost:
             raise
@@ -326,6 +377,7 @@ def main(argv=None) -> int:
         return 2
     try:
         drive_workflow(launcher, workflow_file)
+        launcher.close()
     except SnapshotCorruptError as e:
         print(f"--snapshot {args.snapshot}: no intact snapshot ({e})",
               file=sys.stderr)

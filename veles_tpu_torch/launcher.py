@@ -3,8 +3,7 @@ snapshot, the graceful stop, and loading workflow modules and config
 files.
 
 Counterpart of ``veles_tpu/launcher.py`` (``Launcher``,
-``drive_workflow``, ``load_workflow_module``, ``apply_config_file``),
-standalone mode:
+``drive_workflow``, ``load_workflow_module``, ``apply_config_file``):
 
 - ``Launcher(snapshot=PATH)``: :meth:`Launcher.create_workflow`
   resumes the pickled workflow (``load_workflow(PATH, fallback=True)``:
@@ -61,14 +60,24 @@ Data parallelism (``parallel/``), one process per rank:
   sums the stop request over the group); rank 0 writes the final
   snapshot, after the partial class metrics are summed, and every rank
   exits 14.
+- :meth:`Launcher.close` ends a rank that ran to its end: it destroys
+  the process group while the process is whole.  Left to the
+  interpreter's exit, the group's teardown aborted a finished rank
+  (SIGABRT, "terminate called without an active exception", no Python
+  frame left) in about 1 of 50 two-rank CPU runs beside other load.
 - :func:`run_ranks` is ``--dp N`` on one host: it starts N ranks of the
   same command with ``--multihost`` and a local rendezvous, forwards
   SIGTERM and SIGINT to them, kills what is left of the group
   ``$VELES_MULTIHOST_DEADLINE`` + 30 s after a rank failed, and returns
   the worst exit code (a failure over 13 over 14 over 0).
 
-:func:`workflow_fitness` is the GA's fitness of a finished run.  Left
-out: master/slave (the zmq compat mode).
+Modes (:attr:`Launcher.mode`), as the reference's: ``standalone``;
+``master`` (``listen_address``: ``server.MasterServer`` serves the
+workflow's jobs) and ``slave`` (``master_address``, which wins when both
+are given: ``client.SlaveClient`` computes jobs, over the data-parallel
+group when there is one).
+
+:func:`workflow_fitness` is the GA's fitness of a finished run.
 """
 
 from __future__ import annotations
@@ -113,9 +122,13 @@ class Launcher:
                  plotters: bool = False,
                  status_server: Optional[str] = None,
                  verbose: bool = False, multihost: bool = False,
-                 dp: Optional[int] = None) -> None:
+                 dp: Optional[int] = None,
+                 master_address: Optional[str] = None,
+                 listen_address: Optional[str] = None) -> None:
         self.backend = backend
         self.snapshot = snapshot
+        self.master_address = master_address
+        self.listen_address = listen_address
         #: where ``run`` writes its profiler trace and FLOPs table
         self.profile_dir = profile
         #: attach the standard plotters / a status reporter posting to
@@ -141,7 +154,16 @@ class Launcher:
         self.final_snapshot_seconds: Optional[float] = None
         self._preempt_signum: Optional[int] = None
         self._preempt_done = threading.Event()
-        log.info("launcher: backend=%s device=%r", backend, self.device)
+        log.info("launcher: backend=%s device=%r mode=%s", backend,
+                 self.device, self.mode)
+
+    @property
+    def mode(self) -> str:
+        if self.master_address:
+            return "slave"
+        if self.listen_address:
+            return "master"
+        return "standalone"
 
     def create_workflow(self, factory, **kwargs: Any):
         """``factory(launcher, **kwargs)`` -> workflow, or the workflow
@@ -173,10 +195,18 @@ class Launcher:
             if self.group is not None else None
         uninstall = self._install_preempt_handlers()
         faults.maybe_inject_sigterm(
-            attempt=knobs.get(knobs.SUPERVISE_ATTEMPT), mode="standalone")
+            attempt=knobs.get(knobs.SUPERVISE_ATTEMPT), mode=self.mode)
         try:
             with profiling.trace(self.profile_dir):
-                self.workflow.run()
+                if self.mode == "standalone":
+                    self.workflow.run()
+                elif self.mode == "master":
+                    from veles_tpu_torch.server import MasterServer
+                    MasterServer(self.workflow, self.listen_address).serve()
+                else:
+                    from veles_tpu_torch.client import SlaveClient
+                    SlaveClient(self.workflow, self.master_address,
+                                group=self.group).serve()
         except Exception as e:
             if self.group is not None:
                 # a dead peer surfaces here as a failed collective
@@ -194,6 +224,17 @@ class Launcher:
             watchdog_stop()
         if self.profile_dir:
             self._dump_flops_table()
+
+    def close(self) -> None:
+        """Leave the data-parallel group after a run that reached its
+        end (no-op without one): ``destroy_process_group`` joins the
+        backend's threads here, not in the interpreter's teardown."""
+        if self.group is None:
+            return
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        self.group.store = None
 
     def _dump_flops_table(self) -> None:
         """The analytic per-layer FLOPs and params table, next to the

@@ -50,8 +50,18 @@ Telemetry: each epoch's wall seconds (from the first firing, or the
 last epoch end) go to ``loader.epoch_seconds``, with a
 ``loader.epoch`` event and the ``loader.epochs`` counter.
 
-Not ported: the host ``fill_minibatch`` path and the master/slave
-hooks.
+Distribution hooks (``distributable.py``; the master--slave mode,
+``server.py`` / ``client.py``): :meth:`Loader.generate_data_for_slave`
+gives the job of the firing that just ran, the reference's
+``{"indices", "class", "size"}`` of its one minibatch (the master fires
+one minibatch at a time), and :meth:`Loader.apply_data_from_master`
+makes that job the loader's superstep of one minibatch on a slave: the
+(1, mb) indices and mask the fused runner reads, and, for a streaming
+loader, its rows assembled on the host.  ``host_fill_enabled`` False
+(the master's) skips a streaming loader's host assembly in
+:meth:`Loader.run`: the master ships indices only.
+
+Not ported: the host ``fill_minibatch`` path.
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ import numpy as np
 import torch
 
 from veles_tpu_torch import events, prng, telemetry
+from veles_tpu_torch.distributable import Distributable
 
 TEST, VALID, TRAIN = 0, 1, 2
 CLASS_NAMES = ("test", "validation", "train")
@@ -70,7 +81,7 @@ CLASS_NAMES = ("test", "validation", "train")
 PRNG_STREAM = "loader"
 
 
-class Loader:
+class Loader(Distributable):
     """Abstract loader: subclasses implement :meth:`load_data`, which
     sets ``class_lengths`` (and the data)."""
 
@@ -99,6 +110,9 @@ class Loader:
         self._present_classes: List[int] = []
         #: False: the fused step consumes host-assembled batches
         self.device_resident = True
+        #: False: a streaming loader's firing emits indices only (the
+        #: master of the master--slave mode, which computes nothing)
+        self.host_fill_enabled = True
         #: torch dtype the streamed data is cast to on the host (None:
         #: the loader's own)
         self.stream_dtype: Optional[torch.dtype] = None
@@ -136,6 +150,7 @@ class Loader:
         self.__dict__.update(state)
         self.__dict__.setdefault("dequant", None)
         self.__dict__.setdefault("superstep_targets", None)
+        self.__dict__.setdefault("host_fill_enabled", True)
         self.__dict__["_epoch_t0"] = None
         self.__dict__["group"] = None
 
@@ -237,7 +252,8 @@ class Loader:
         self.superstep_mask = masks
         self.superstep_k = len(idxs)
         self.minibatch_class = klass
-        if not self.device_resident:
+        streams = not self.device_resident and self.host_fill_enabled
+        if streams:
             self._fill_superstep_streaming(idxs)
 
         if self._pos >= n:  # class exhausted
@@ -260,7 +276,7 @@ class Loader:
                 self._reset_epoch()
         # the next group is now fully determined: assemble it while the
         # device computes this one
-        if not self.device_resident:
+        if streams:
             self._start_prefetch()
 
     # -- streaming superstep assembly (device_resident False) ----------
@@ -322,6 +338,28 @@ class Loader:
         self._prefetch_future = (
             idxs.tobytes(),
             self._prefetch_pool.submit(self._assemble_superstep, idxs))
+
+    # -- distribution hooks (the master--slave mode) --------------------
+
+    def generate_data_for_slave(self, slave=None) -> dict:
+        """The job of the last firing: its last minibatch's indices,
+        class and real rows."""
+        return {"indices": self.superstep_indices[-1].copy(),
+                "class": self.minibatch_class,
+                "size": int(self.superstep_mask[-1].sum())}
+
+    def apply_data_from_master(self, data) -> None:
+        """Make a master's job this loader's superstep of one
+        minibatch."""
+        self.minibatch_class = data["class"]
+        indices = np.asarray(data["indices"], np.int64)
+        mask = np.zeros(len(indices), np.float32)
+        mask[:data["size"]] = 1.0
+        self.superstep_indices = indices[None]
+        self.superstep_mask = mask[None]
+        self.superstep_k = 1
+        if not self.device_resident:
+            self._fill_superstep_streaming(self.superstep_indices)
 
     def stop(self) -> None:
         """Shut the prefetch thread down (a later firing starts a new

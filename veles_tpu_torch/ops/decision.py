@@ -12,6 +12,15 @@ set by the firing that ended a train class (the plotters' gate).
 ``improved``, ``complete`` and ``epoch_ended_flag`` are plain booleans
 the workflow's loop reads.  All of it is plain state that rides in a
 snapshot as it is.
+
+The master of the master--slave mode (``server.py``) computes nothing:
+it sets ``metrics_source`` to None and hands each applied job's
+``[n_err, loss_sum, count]`` to :meth:`DecisionGD.apply_data_from_slave`
+(the reference's format, a list a metric), and a class end then sums
+what the jobs gave in f32, in the order they were applied, as the
+fused runner's device accumulator does.
+:meth:`DecisionGD.generate_data_for_master` gives the values pending
+since the last class end, in the same format.
 """
 
 from __future__ import annotations
@@ -19,12 +28,15 @@ from __future__ import annotations
 import logging
 from typing import Any, List, Optional
 
+import numpy as np
+
+from veles_tpu_torch.distributable import Distributable
 from veles_tpu_torch.loader.base import CLASS_NAMES, TRAIN, VALID
 
 log = logging.getLogger("veles.decision")
 
 
-class DecisionGD:
+class DecisionGD(Distributable):
     def __init__(self, workflow: Any = None, name: str = "decision",
                  max_epochs: Optional[int] = None,
                  fail_iterations: int = 100) -> None:
@@ -36,8 +48,12 @@ class DecisionGD:
         self.improved = False
         self.epoch_ended_flag = False
         self.loader = None
-        #: the fused runner: metrics accumulate on its device
+        #: the fused runner: metrics accumulate on its device; None:
+        #: the jobs' metrics a master applied (``apply_data_from_slave``)
         self.metrics_source = None
+        self._acc_n_err: List[float] = []
+        self._acc_loss: List[float] = []
+        self._acc_count: List[float] = []
         self.epoch_n_err = [0.0, 0.0, 0.0]
         self.epoch_loss = [0.0, 0.0, 0.0]
         self.epoch_error_pct = [100.0, 100.0, 100.0]
@@ -53,6 +69,8 @@ class DecisionGD:
         self.__dict__.update(state)
         self.__dict__.setdefault("confusion_per_class", [None, None, None])
         self.__dict__.setdefault("epoch_ended_flag", False)
+        for key in ("_acc_n_err", "_acc_loss", "_acc_count"):
+            self.__dict__.setdefault(key, [])
 
     def run(self) -> None:
         self.improved = False
@@ -61,7 +79,11 @@ class DecisionGD:
         if not ld.class_ended:
             return
         klass = ld.minibatch_class
-        n_err, loss, count, conf = self.metrics_source.take_class_metrics()
+        if self.metrics_source is None:
+            n_err, loss, count, conf = self._take_slave_metrics()
+        else:
+            n_err, loss, count, conf = \
+                self.metrics_source.take_class_metrics()
         if conf is not None:
             self.confusion_per_class[klass] = conf
         self.epoch_n_err[klass] = n_err
@@ -104,3 +126,30 @@ class DecisionGD:
             log.info("complete: no validation improvement in %d epochs",
                      self.fail_iterations)
             self.complete = True
+
+    # -- distribution hooks (the master--slave mode) --------------------
+
+    @staticmethod
+    def _f32_sum(values) -> float:
+        acc = np.float32(0.0)
+        for v in values:
+            acc = np.float32(acc + np.float32(v))
+        return float(acc)
+
+    def _take_slave_metrics(self):
+        out = tuple(self._f32_sum(a) for a in (self._acc_n_err,
+                                               self._acc_loss,
+                                               self._acc_count))
+        for a in (self._acc_n_err, self._acc_loss, self._acc_count):
+            a.clear()
+        return out + (None,)
+
+    def generate_data_for_master(self) -> dict:
+        return {"n_err": [float(x) for x in self._acc_n_err],
+                "loss": [float(x) for x in self._acc_loss],
+                "count": [float(x) for x in self._acc_count]}
+
+    def apply_data_from_slave(self, data, slave=None) -> None:
+        self._acc_n_err.extend(data["n_err"])
+        self._acc_loss.extend(data["loss"])
+        self._acc_count.extend(data["count"])

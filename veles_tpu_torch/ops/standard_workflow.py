@@ -188,6 +188,11 @@ class StandardWorkflow:
             f.initialize(shape)
             shape = f.output_shape
         if train:
+            # the fused runner feeds the decision from the loader's
+            # batches (a master of the master--slave mode unhooks both,
+            # and its snapshot keeps that)
+            self.decision.metrics_source = self.fused
+            self.loader.host_fill_enabled = True
             if not self.evaluator.wants_targets:
                 self.evaluator.n_classes = int(shape[-1])
             # a resumed runner carries its trained params: drawing the

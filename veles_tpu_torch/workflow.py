@@ -11,6 +11,8 @@ of ``veles_tpu/workflow.py``).
   units.  A ``Repeater`` joins the loop-back edge with the initial one
   (OR semantics, where other units AND their predecessors).
 - A per-unit timing table is logged at the end.
+- It carries the distribution hooks (``distributable.py``), no-ops as
+  the reference's.
 
 This is the graph API for workflow files written against units.  The
 port's own models keep their plain loop (``ops/standard_workflow.py``).
@@ -22,6 +24,7 @@ import collections
 import time
 from typing import Any, Optional
 
+from veles_tpu_torch.distributable import Distributable
 from veles_tpu_torch.mutable import Bool
 from veles_tpu_torch.units import Container, Unit
 
@@ -36,7 +39,7 @@ class EndPoint(Unit):
             self.workflow.stopped.set(True)
 
 
-class Workflow(Container):
+class Workflow(Container, Distributable):
     """Container + scheduler for a unit graph."""
 
     def __init__(self, workflow: Optional[Unit] = None,
