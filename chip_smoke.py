@@ -375,21 +375,20 @@ imports nothing of JAX and nothing of the JAX package.
 27. Master--slave (ROADMAP item 10c): one ``server.MasterServer`` and
    one ``client.SlaveClient`` in this process over full-width AlexNet,
    2 epochs of 128 + 64 images at 64 a minibatch (``MS_*``): the master
-   on the CPU (it computes nothing), the slave on the card, every
-   message pickled (protocol 4) by the loops ``serve()`` runs and
-   carried by ``_InProcessTransport`` (the line says whether zmq
-   imports on the machine): 6 jobs, 4 of them train, done and
-   applied; ``lrn_fwd`` 2 a job and ``lrn_bwd`` 2 a train job (counts
-   zeroed just before the loop, read just after); against a standalone
+   on the CPU (it computes nothing) in ``serve()`` on a thread, the
+   slave on the card in its ``serve()``, joined by zmq on 127.0.0.1
+   (the master binds a free port; every message pickled, protocol 4):
+   6 jobs, 4 of them train, done and applied; ``lrn_fwd`` 2 a job and
+   ``lrn_bwd`` 2 a train job (counts zeroed just before the loop, read
+   just after); against a standalone
    run of the same config and seed on the card (superstep 8), both on
    deterministic cuDNN: every validation row's loss within
    ``MS_LOSS_TOL`` and ``n_err`` within ``MS_NERR_TOL``, the final
    params within ``MS_PARAM_ATOL`` (the reference's bars,
    ``tests/test_master_slave.py``), and each param's change from its
    start within 1e-3 relative (``same_run``: the rows stay near ln 1000
-   at this depth); and, beside it, ``python -m
-   veles_tpu_torch --listen-address`` / ``--master-address`` exit 2
-   naming zmq (zmq blocked in the child where it imports).
+   at this depth).  The card's machine has zmq; the flags' refusal
+   without it is held on the CPU (``tests/test_torch_import.py``).
 28. Summary (a phase of its own): each phase's wall seconds on a
    ``phases`` line (each also printed as it ends), then ``serve``,
    ``train``, ``stream``, ``preempt``, ``data``, ``mnist7``,
@@ -2103,8 +2102,10 @@ def stream_phase(card: str, workdir: str, resident: dict) -> dict:
         # the snapshot saves (file IO and zlib, off the GIL) run beside
         # phase 7; the loads, which put back the process's prng streams,
         # come after it (``stream_gz``)
+        from veles_tpu_torch import prng
+        streams = prng.snapshot_state()
         snaps = _Background(lambda: {
-            suffix: _snapshot_save(ws, workdir, suffix)
+            suffix: _snapshot_save(ws, streams, workdir, suffix)
             for suffix in (".pickle", ".pickle.gz")})
     finally:
         torch.backends.cudnn.deterministic = False
@@ -2131,26 +2132,26 @@ def stream_phase(card: str, workdir: str, resident: dict) -> dict:
     return out
 
 
-def _snapshot_save(w, workdir: str, suffix: str) -> dict:
-    """``save_workflow`` of ``w`` as ``suffix`` (it reads the process's
-    state and writes none): the path, the bytes and the seconds."""
+def _snapshot_save(w, streams: dict, workdir: str, suffix: str) -> dict:
+    """``save_workflow`` of ``w`` with the prng ``streams`` taken on the
+    main thread, as ``suffix`` (it reads no process state and writes
+    none): the path, the bytes and the seconds."""
     from veles_tpu_torch.snapshotter import save_workflow
     path = os.path.join(workdir, "stream" + suffix)
     t0 = time.perf_counter()
-    save_workflow(w, path)
+    save_workflow(w, path, streams)
     return {"path": path, "bytes": os.path.getsize(path),
             "save_s": time.perf_counter() - t0}
 
 
-def _snapshot_load(saved: dict, suffix: str) -> dict:
+def _snapshot_load(saved: dict, streams: dict, suffix: str) -> dict:
     """``load_workflow`` of a saved snapshot: the loaded copy must be a
     snapshot with its params and no partial class.  The prng streams it
-    puts back are put back as they were (a later phase's draws are not
-    the snapshot's)."""
+    puts back are replaced by ``streams``, taken on the main thread (a
+    later phase's draws are not the snapshot's)."""
     from veles_tpu_torch import prng
     from veles_tpu_torch.snapshotter import load_workflow
     path = saved.pop("path")
-    streams = prng.snapshot_state()
     try:
         t0 = time.perf_counter()
         back = load_workflow(path)
@@ -2188,16 +2189,24 @@ class _Background:
 
 def stream_loads(stream: dict) -> None:
     """After phase 7: load phase 6's saved snapshots back, each held, on
-    a thread beside phase 8 (which draws from no prng stream)."""
+    a thread beside phase 8, which must draw from no prng stream: the
+    streams are taken here, put back after the loads, and held equal
+    when they are joined (``stream_gz``)."""
+    from veles_tpu_torch import prng
     saves = stream["snapshot"]
+    streams = stream["streams_beside_loads"] = prng.snapshot_state()
     stream["snapshot"] = _Background(lambda: {
-        suffix: _snapshot_load(saved, suffix)
+        suffix: _snapshot_load(saved, streams, suffix)
         for suffix, saved in saves.result().items()})
 
 
 def stream_gz(stream: dict, card: str) -> dict:
-    """Join phase 6's snapshot round trips into its line."""
+    """Join phase 6's snapshot round trips into its line, and hold the
+    prng streams as they were before the phase beside the loads."""
+    from veles_tpu_torch import prng
     snap = stream["snapshot"] = stream["snapshot"].result()
+    check(prng.snapshot_state() == stream.pop("streams_beside_loads"),
+          "the phase beside the snapshot loads drew from a prng stream")
     print("stream: snapshots (saved beside phase 7, loaded beside 8) " +
           ", ".join(
         f"{k} {v['bytes']} bytes, save {v['save_s']:.1f} s, load "
@@ -7157,37 +7166,6 @@ MS_JOBS = MS_TRAIN_JOBS + N_EPOCHS * MS_VALID // MS_MB
 MS_LOSS_TOL, MS_NERR_TOL, MS_PARAM_ATOL = 1e-4, 1, 1e-4
 
 
-class _InProcessTransport:
-    """Both ends of the master--slave loops in one process: the slave's
-    ``request`` puts its bytes in the master's inbox and waits for the
-    answer; the master's ``recv`` / ``send`` take and answer them.  The
-    loops pickle every message (protocol 4) on either side, as over
-    zmq."""
-
-    def __init__(self) -> None:
-        import queue
-        self._queue = queue
-        self.inbox, self.outbox = queue.Queue(), queue.Queue()
-        self.messages = 0
-        self.bytes = 0
-
-    def recv(self, timeout_ms: int):
-        try:
-            return self.inbox.get(timeout=timeout_ms / 1000.0)
-        except self._queue.Empty:
-            return None
-
-    def send(self, ident, raw: bytes) -> None:
-        self.outbox.put(raw)
-
-    def request(self, raw: bytes) -> bytes:
-        self.inbox.put((b"slave-0", raw))
-        reply = self.outbox.get(timeout=120)
-        self.messages += 1
-        self.bytes += len(raw) + len(reply)
-        return reply
-
-
 def _ms_workflow(backend: str):
     """The phase's AlexNet (the cut set, seeded SEED) initialized for
     training on ``backend``."""
@@ -7215,47 +7193,19 @@ def _zmq_state():
     return True, f"zmq {zmq.__version__} imports on this machine"
 
 
-def _ms_cli_refusals() -> dict:
-    """``python -m veles_tpu_torch --listen-address`` and
-    ``--master-address``, side by side: each exits 2 naming zmq, before
-    the card or the workflow file (where zmq imports here, it is blocked
-    in the child as the tier-1 test blocks it)."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
-    blocked = _zmq_state()[0]
-    head = [sys.executable, "-c",
-            "import runpy, sys; sys.modules['zmq'] = None; "
-            "sys.argv = ['veles_tpu_torch'] + sys.argv[1:]; "
-            "runpy.run_module('veles_tpu_torch', run_name='__main__', "
-            "alter_sys=True)"] if blocked else \
-        [sys.executable, "-m", "veles_tpu_torch"]
-    procs = {flag: subprocess.Popen(
-        head + [flag, "tcp://127.0.0.1:0", ALEXNET_FILE], cwd=HERE, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for flag in ("--listen-address", "--master-address")}
-    out = {"zmq_blocked_in_child": blocked}
-    for flag, proc in procs.items():
-        _, err = proc.communicate(timeout=120)
-        check(proc.returncode == 2 and "zmq" in err,
-              f"{flag} without zmq: rc {proc.returncode}, stderr "
-              f"{err[-500:]!r}")
-        out[flag] = {"rc": proc.returncode, "stderr": err.strip()[-200:]}
-    return out
-
-
 def master_slave_phase(card: str, workdir: str) -> dict:
     """One ``MasterServer`` and one ``SlaveClient`` in this process over
-    full-width AlexNet: the master on the CPU (it computes nothing), the
-    slave on the card, every message pickled through the loops that
-    ``serve()`` runs (``_InProcessTransport``); held against a
-    standalone run of the same config and seed on the card, both under
-    deterministic cuDNN."""
+    full-width AlexNet, joined by zmq on 127.0.0.1 through their
+    ``serve()``: the master on the CPU (it computes nothing) on a thread,
+    the slave on the card; held against a standalone run of the same
+    config and seed on the card, both under deterministic cuDNN."""
     import torch
 
     from veles_tpu_torch.client import SlaveClient
     from veles_tpu_torch.server import MasterServer
 
-    cli = _Background(_ms_cli_refusals)
+    zmq_ok, zmq_state = _zmq_state()
+    check(zmq_ok, f"master_slave: {zmq_state}")
     cache = _CachedSynthetic()
     torch.backends.cudnn.deterministic = True
     try:
@@ -7278,13 +7228,13 @@ def master_slave_phase(card: str, workdir: str) -> dict:
             master_w = _ms_workflow("cpu")
         finally:
             cache.restore()
-        transport = _InProcessTransport()
-        server = MasterServer(master_w, linger_s=0.5)
-        client = SlaveClient(slave_w)
-        master = _Background(server.run_loop, transport)
+        server = MasterServer(master_w, "tcp://127.0.0.1:*", linger_s=0.5)
+        master = _Background(server.serve)
+        check(server.bound.wait(60), "master_slave: the master did not bind")
+        client = SlaveClient(slave_w, server.endpoint)
         _zero_launches()
         t0 = time.perf_counter()
-        client.run_loop(transport)
+        client.serve()
         torch.cuda.synchronize()
         loop_s = time.perf_counter() - t0
         launches = _launches()
@@ -7326,11 +7276,10 @@ def master_slave_phase(card: str, workdir: str) -> dict:
     same = same_run(got_hist, got, want_hist, want, init)
     moved = max(float(np.abs(got[f][p] - a).max())
                 for f, ps in init.items() for p, a in ps.items())
-    refusals = cli.result(120)
-    out = {"transport": "in-process pickle", "zmq": _zmq_state()[1],
+    out = {"transport": "zmq REQ/ROUTER", "endpoint": server.endpoint,
+           "zmq": zmq_state,
            "jobs": MS_JOBS, "train_jobs": MS_TRAIN_JOBS,
            "jobs_done": client.jobs_done, "applied": server._applied,
-           "messages": transport.messages, "message_bytes": transport.bytes,
            "launches": launches, "standalone_launches": alone_launches,
            "validation_gaps": gaps, "params_max_abs_gap": worst,
            "same_run": same, "params_moved_max_abs": moved,
@@ -7338,16 +7287,14 @@ def master_slave_phase(card: str, workdir: str) -> dict:
                     "params": MS_PARAM_ATOL},
            "history": got_hist, "setup_s": setup_s,
            "standalone_s": alone_s, "loop_s": loop_s, "total_s": total_s,
-           "s_per_job": loop_s / MS_JOBS, "cli": refusals, "card": card}
+           "s_per_job": loop_s / MS_JOBS, "card": card}
     print(f"master_slave: {MS_JOBS} jobs ({MS_TRAIN_JOBS} train) of "
           f"{MS_MB} rows from a CPU master to a slave on the card over "
-          f"the in-process pickle transport ({_zmq_state()[1]}), "
-          f"{transport.messages} messages, {transport.bytes} bytes, "
+          f"zmq at {server.endpoint} ({zmq_state}), "
           f"{loop_s:.1f} s ({loop_s / MS_JOBS:.2f} s a job); launches "
           f"{launches}; against the standalone run: validation {gaps}, "
           f"params max abs {worst:.3g} (moved up to {moved:.3g} from the "
-          f"start), {same}; the CLI's flags exit 2 naming zmq"
-          f"  [{card}]", flush=True)
+          f"start), {same}  [{card}]", flush=True)
     return out
 
 

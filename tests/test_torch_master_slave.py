@@ -9,10 +9,12 @@ threads of this process, on the CPU, against the reference's
   reference's weights read through ``convert.py``), with one job a
   minibatch (28) and the decision fed by the jobs;
 - three slaves: the run ends at ``max_epochs``, each slave does at
-  least 10 jobs and the loss falls; on one fixed schedule (every slave
-  one job outstanding, answering in turn) the port's master and slaves
-  give the reference's train losses and final weights, and the loss
-  falls by the reference test's margin (0.2);
+  least 10 jobs and the loss falls, and the run's own schedule fed to
+  the reference's master and slaves gives the same jobs, staleness,
+  losses and final weights; on one fixed schedule (every slave one job
+  outstanding, answering in turn) the port's master and slaves give the
+  reference's train losses and final weights, and the loss falls by the
+  reference test's margin (0.2);
 - a zombie slave's job is requeued and the master still ends;
 - a slave joining late gets the current weights in its handshake;
 - a workflow without an initialized fused runner is refused (slave and
@@ -85,12 +87,30 @@ def start_master(server):
     return t, server.endpoint
 
 
-def run_cluster(n_slaves, max_epochs=2, momentum=0.9):
+def recorded(server):
+    """Wrap ``server._handle``: every message it answered, in order, as
+    ``(ident, message, reply type, seq, jobs applied when it answered)``
+    (the last is what a job issued there saw: its staleness is its seq
+    less that count)."""
+    log, handle = [], server._handle
+
+    def spy(msg, ident):
+        applied = server._applied
+        reply = handle(msg, ident)
+        log.append((ident, msg, reply["type"], reply.get("seq"), applied))
+        return reply
+
+    server._handle = spy
+    return log
+
+
+def run_cluster(n_slaves, max_epochs=2, momentum=0.9, record=False):
     slave_ws = [build_workflow(max_epochs, momentum)
                 for _ in range(n_slaves)]
     master_w = build_workflow(max_epochs, momentum)
     server = MasterServer(master_w, "tcp://127.0.0.1:*", job_timeout=30.0,
                           linger_s=0.5)
+    server.log = recorded(server) if record else None
     mt, addr = start_master(server)
     clients = [SlaveClient(w, addr, timeout_ms=30000) for w in slave_ws]
     threads = [start(c.serve, f"slave-{i}") for i, c in enumerate(clients)]
@@ -174,13 +194,54 @@ def train_losses(w):
     return [h["loss"] for h in w.decision.history if h["class"] == "train"]
 
 
+def replay(log, server, slaves):
+    """Feed ``server`` (either package's master) the messages of a
+    recorded run in their order, every one pickled, each job computed
+    by the slave of its ident (``slaves``, one a slave in the order of
+    their handshakes) when the run's slave answered it; the master
+    applies what is ready after each message and, once the decision is
+    complete, drops what is outstanding, as ``serve()`` does.  Returns
+    the run's rows as this master gave them: ``(reply type, seq, jobs
+    applied)``."""
+    def ask(msg, ident):
+        reply = server._handle(pickle.loads(pickle.dumps(msg, protocol=4)),
+                               ident)
+        server._apply_ready()
+        if server.workflow.decision.complete:
+            server._pending.clear()
+            server._requeue.clear()
+        return pickle.loads(pickle.dumps(reply, protocol=4))
+
+    by_ident, jobs, rows = {}, {}, []
+    for ident, msg, _, _, _ in log:
+        applied = server._applied
+        if msg["type"] == "handshake":
+            slave = by_ident[ident] = slaves[len(by_ident)]
+            reply = ask(msg, ident)
+            slave.workflow.fused.set_host_params(reply["params"])
+        elif msg["type"] == "job_done":
+            job = jobs.pop(ident)
+            assert job["seq"] == msg["seq"], (job["seq"], msg["seq"])
+            reply = ask(by_ident[ident]._run_job(job), ident)
+        else:
+            reply = ask(msg, ident)
+            if reply["type"] == "job":
+                jobs[ident] = reply
+        rows.append((reply["type"], reply.get("seq"), applied))
+    return rows
+
+
 def test_three_slaves_train():
     """Asynchronous SGD over 3 slave threads: the protocol ends at
     max_epochs, spreads the work, and the loss falls.  How far it falls
-    depends on the thread schedule (the staleness each job sees): the
-    reference's clear 0.2 margin is held on one fixed schedule below,
-    where it does not depend on the machine's load."""
-    master_w, _, clients = run_cluster(3, max_epochs=8, momentum=0.0)
+    depends on the thread schedule (the staleness each job sees), so the
+    run's own schedule, every message in its order, is fed to the
+    reference's master and three reference slaves: they issue the same
+    jobs with the same staleness and give the same train losses and
+    final weights (the reference's bars).  The reference's clear 0.2
+    margin is held on one fixed schedule below."""
+    master_w, server, clients = run_cluster(3, max_epochs=8, momentum=0.0,
+                                            record=True)
     assert master_w.decision.complete
     assert all(c.jobs_done >= 10 for c in clients), \
         [c.jobs_done for c in clients]
@@ -191,6 +252,47 @@ def test_three_slaves_train():
     for ps in master_w.fused.host_params().values():
         for a in ps.values():
             assert np.isfinite(a).all()
+
+    from veles_tpu.backends import JaxDevice, NumpyDevice
+    from veles_tpu.client import SlaveClient as RefSlave
+    from veles_tpu.server import MasterServer as RefMaster
+    from test_master_slave import build_workflow as ref_workflow
+
+    ref_slaves = []
+    for _ in range(3):
+        w = ref_workflow(8, 0.0)
+        w.initialize(device=JaxDevice(platform="cpu"))
+        ref_slaves.append(RefSlave(w, "tcp://127.0.0.1:1"))
+    rm = ref_workflow(8, 0.0)
+    rm.initialize(device=NumpyDevice())
+    rm.loader.host_fill_enabled = False   # as the reference's serve() sets
+    rm.loader.superstep = 1
+    ref_server = RefMaster(rm, "tcp://127.0.0.1:1", job_timeout=1e9)
+    rows = replay(server.log, ref_server, ref_slaves)
+    assert rows == [(kind, seq, applied)
+                    for _, _, kind, seq, applied in server.log]
+    assert ref_server._applied == server._applied
+    theirs = train_losses(rm)
+    assert len(theirs) == len(losses) == 8
+    for a, b in zip(losses, theirs):
+        assert abs(a - b) < 1e-4, (losses, theirs)
+    ours_v, theirs_v = (valid_history(master_w.decision.history),
+                        valid_history(rm.decision.history))
+    # a validation class issued ahead and done before the last train
+    # job's result is applied in the same pass: 8 or 9 rows, as the
+    # schedule has it
+    assert len(ours_v) == len(theirs_v) >= 8, (ours_v, theirs_v)
+    for a, b in zip(ours_v, theirs_v):
+        assert abs(a["loss"] - b["loss"]) < 1e-4, (a, b)
+        assert abs(a["n_err"] - b["n_err"]) <= 1, (a, b)
+    ref_params = params_from_jax({
+        f.name: {"weights": f.weights.map_read(),
+                 "bias": f.bias.map_read()} for f in rm.forwards})
+    got = master_w.fused.host_params()
+    for fname, ps in ref_params.items():
+        for pname, a in ps.items():
+            np.testing.assert_allclose(got[fname][pname], a, rtol=0,
+                                       atol=1e-4, err_msg=fname + pname)
 
 
 def round_robin(server, clients):
@@ -234,7 +336,7 @@ def test_three_slaves_on_one_schedule_follow_the_reference():
     server = MasterServer(master_w, job_timeout=1e9)
     server._prepare()
     done = round_robin(server, [SlaveClient(w) for w in slaves])
-    server._sync_runner()   # as run_loop does at its end
+    server._sync_runner()   # as serve() does at its end
 
     ref_slaves = []
     for _ in range(3):
@@ -317,8 +419,8 @@ def test_late_joining_slave_gets_current_weights():
     got = {}
     orig = c2._rpc
 
-    def spy(transport, msg):
-        reply = orig(transport, msg)
+    def spy(sock, msg):
+        reply = orig(sock, msg)
         if msg.get("type") == "handshake":
             got["params"] = reply["params"]
         return reply
@@ -369,11 +471,12 @@ def test_hooks_carry_the_reference_formats():
     other.apply_data_from_master({"indices": np.arange(MB), "class": TRAIN,
                                   "size": 7})
     assert other.superstep_mask.sum() == 7
+    # the jobs' metrics, summed at the class end in the order applied
     d = w.decision
     d.apply_data_from_slave({"n_err": [3.0], "loss": [1.5], "count": [30.0]})
     d.apply_data_from_slave({"n_err": [2.0], "loss": [0.5], "count": [30.0]})
-    assert d.generate_data_for_master() == {
-        "n_err": [3.0, 2.0], "loss": [1.5, 0.5], "count": [30.0, 30.0]}
+    assert d._take_slave_metrics() == (5.0, 2.0, 60.0, None)
+    assert d._take_slave_metrics() == (0.0, 0.0, 0.0, None)
     for unit in (ld, d, w.decision, Workflow(name="graph")):
         assert unit.drop_slave("gone") is None
 

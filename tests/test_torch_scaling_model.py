@@ -62,7 +62,8 @@ def test_sharded_residency_equals_the_reference(ref, n_rows, row_bytes,
 
 def test_rows_follow_the_reference_arithmetic():
     b, step_ms, n = 249513376, 8.5, 8
-    (nv, pcie) = scaling_model.scaling_rows(b, step_ms, n)
+    assert scaling_model.N_CARDS == n     # the reference's ring
+    (nv, pcie) = scaling_model.scaling_rows(b, step_ms)
     traffic = 2.0 * b * (n - 1) / n
     for row, rate in ((nv, 450e9), (pcie, 64e9)):
         t = traffic / rate * 1000.0

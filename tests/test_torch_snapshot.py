@@ -243,6 +243,27 @@ def test_prng_state_round_trip():
     np.testing.assert_array_equal(prng.get("weights").numpy.random(4), want)
 
 
+def test_a_save_carries_the_streams_it_is_given(tmp_path):
+    """``save_workflow(..., streams)`` writes the streams taken earlier
+    (a save on a thread of its own), not the process's at the time of
+    the save; a load puts those back."""
+    w = build(1)
+    w.initialize(device=make_device("cpu"), train=True)
+    prng.get("weights").numpy.random(3)
+    taken = prng.snapshot_state()
+    prng.get("weights").numpy.random(5)          # the process moves on
+    path = str(tmp_path / "s.pickle")
+    snapshotter.save_workflow(w, path, taken)
+    later = prng.snapshot_state()
+    assert later != taken
+    snapshotter.load_workflow(path)
+    assert prng.snapshot_state() == taken
+    prng.restore_state(later)
+    snapshotter.save_workflow(w, path)           # no streams: the process's
+    snapshotter.load_workflow(path)
+    assert prng.snapshot_state() == later
+
+
 # -- against the reference's resumed run -----------------------------------
 
 #: the reference's snapshots fail on an lr schedule (a closure)

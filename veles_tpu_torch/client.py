@@ -23,10 +23,8 @@ on its rows of the minibatch (the gradients summed over the group, as
 in a standalone data-parallel run), and rank 0 answers.
 
 :meth:`SlaveClient.serve` connects a zmq REQ socket to
-``master_address`` (zmq is imported there, and only there) and runs
-:meth:`SlaveClient.run_loop` over it.  The loop takes any transport with
-``request(bytes) -> bytes``; every message crosses it pickled
-(protocol 4).
+``master_address`` (zmq is imported there, and only there); every
+message crosses it pickled (protocol 4).
 """
 
 from __future__ import annotations
@@ -50,17 +48,6 @@ def _tree_sub(a: Dict[str, Dict[str, np.ndarray]],
               b: Dict[str, Dict[str, np.ndarray]]):
     return {fn: {pn: np.asarray(a[fn][pn]) - np.asarray(b[fn][pn])
                  for pn in a[fn]} for fn in a}
-
-
-class _ZmqReq:
-    """A zmq REQ socket as the loop's transport."""
-
-    def __init__(self, sock) -> None:
-        self.sock = sock
-
-    def request(self, raw: bytes) -> bytes:
-        self.sock.send(raw)
-        return self.sock.recv()
 
 
 class SlaveClient:
@@ -101,36 +88,34 @@ class SlaveClient:
         return self.group is None or self.group.rank == 0
 
     def serve(self) -> None:
-        """Connect a zmq REQ socket to ``master_address`` and run the
-        loop (on a group's other ranks, the loop alone)."""
-        if not self._speaks:
-            self.run_loop(None)
-            return
-        import zmq
+        """Connect a zmq REQ socket to ``master_address`` (on a group's
+        other ranks, none), then handshake and take jobs until the
+        master says ``bye``."""
+        sock = None
+        if self._speaks:
+            import zmq
 
-        sock = zmq.Context.instance().socket(zmq.REQ)
-        sock.setsockopt(zmq.RCVTIMEO, self.timeout_ms)
-        sock.setsockopt(zmq.LINGER, 0)
-        sock.connect(self.master_address)
-        log.info("slave %s connecting to %s", self.slave_id,
-                 self.master_address)
+            sock = zmq.Context.instance().socket(zmq.REQ)
+            sock.setsockopt(zmq.RCVTIMEO, self.timeout_ms)
+            sock.setsockopt(zmq.LINGER, 0)
+            sock.connect(self.master_address)
+            log.info("slave %s connecting to %s", self.slave_id,
+                     self.master_address)
         try:
-            self.run_loop(_ZmqReq(sock))
+            self._loop(sock)
         finally:
-            sock.close(0)
+            if sock is not None:
+                sock.close(0)
 
-    def run_loop(self, transport) -> None:
-        """Handshake, then jobs until the master says ``bye``;
-        ``transport`` has ``request(bytes) -> bytes`` (None on a group's
-        ranks past 0)."""
+    def _loop(self, sock) -> None:
         # the fused step gathers the rows on the device from the local
         # data set
         self.workflow.loader.host_fill_enabled = False
-        reply = self._exchange(transport, {"type": "handshake",
-                                           "id": self.slave_id})
+        reply = self._exchange(sock, {"type": "handshake",
+                                      "id": self.slave_id})
         self.workflow.fused.set_host_params(reply["params"])
         while True:
-            reply = self._exchange(transport, {"type": "job_request"})
+            reply = self._exchange(sock, {"type": "job_request"})
             if reply["type"] == "bye":
                 break
             if reply["type"] == "wait":
@@ -140,23 +125,26 @@ class SlaveClient:
                 raise RuntimeError(f"unexpected reply {reply!r}")
             result = self._run_job(reply)
             if self._speaks:
-                ack = self._rpc(transport, result)
+                ack = self._rpc(sock, result)
                 if ack["type"] != "ack":
                     raise RuntimeError(f"unexpected ack {ack!r}")
             self.jobs_done += 1
         log.info("slave %s done: %d jobs", self.slave_id, self.jobs_done)
 
-    def _exchange(self, transport, msg: dict) -> dict:
+    def _exchange(self, sock, msg: dict) -> dict:
         """One request's reply, on every rank of a group."""
         if self.group is None:
-            return self._rpc(transport, msg)
-        raw = transport.request(pickle.dumps(msg, protocol=PROTOCOL)) \
-            if self._speaks else None
+            return self._rpc(sock, msg)
+        raw = self._request(sock, msg) if self._speaks else None
         return pickle.loads(self._broadcast_bytes(raw))
 
-    def _rpc(self, transport, msg: dict) -> dict:
-        return pickle.loads(transport.request(
-            pickle.dumps(msg, protocol=PROTOCOL)))
+    @staticmethod
+    def _request(sock, msg: dict) -> bytes:
+        sock.send(pickle.dumps(msg, protocol=PROTOCOL))
+        return sock.recv()
+
+    def _rpc(self, sock, msg: dict) -> dict:
+        return pickle.loads(self._request(sock, msg))
 
     def _broadcast_bytes(self, raw: Optional[bytes]) -> bytes:
         """Rank 0's ``raw`` on every rank of the group."""

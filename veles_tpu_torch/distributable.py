@@ -3,9 +3,9 @@
 The master--slave mode (``server.py``, ``client.py``) calls these hooks
 on the units that carry them: ``generate_data_for_slave`` /
 ``apply_data_from_master`` move a job's share of a unit's state from
-the master to a slave, ``generate_data_for_master`` /
-``apply_data_from_slave`` move a result back, and ``drop_slave`` tells
-a unit that a slave went silent.  Data parallelism over
+the master to a slave, ``apply_data_from_slave`` takes a result back on
+the master, and ``drop_slave`` tells a unit that a slave went silent.
+The port keeps only the hooks its master and slave call.  Data parallelism over
 ``torch.distributed`` (``parallel/``) does not use them: its gradients
 are summed inside the step.
 
@@ -21,11 +21,6 @@ from typing import Any, Optional
 
 class Distributable:
     """Mixin with default no-op distribution hooks."""
-
-    negotiates_on_connect: bool = False
-
-    def generate_data_for_master(self) -> Any:
-        return None
 
     def generate_data_for_slave(self, slave: Optional[Any] = None) -> Any:
         return None

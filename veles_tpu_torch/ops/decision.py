@@ -19,8 +19,6 @@ it sets ``metrics_source`` to None and hands each applied job's
 (the reference's format, a list a metric), and a class end then sums
 what the jobs gave in f32, in the order they were applied, as the
 fused runner's device accumulator does.
-:meth:`DecisionGD.generate_data_for_master` gives the values pending
-since the last class end, in the same format.
 """
 
 from __future__ import annotations
@@ -143,11 +141,6 @@ class DecisionGD(Distributable):
         for a in (self._acc_n_err, self._acc_loss, self._acc_count):
             a.clear()
         return out + (None,)
-
-    def generate_data_for_master(self) -> dict:
-        return {"n_err": [float(x) for x in self._acc_n_err],
-                "loss": [float(x) for x in self._acc_loss],
-                "count": [float(x) for x in self._acc_count]}
 
     def apply_data_from_slave(self, data, slave=None) -> None:
         self._acc_n_err.extend(data["n_err"])

@@ -30,7 +30,7 @@ reference's:
   handshake get the current ones.
 - :meth:`MasterServer._issue_payload` fires the loader (one minibatch)
   and, since no loop runs on the master, the LR schedule by hand.
-- At most ``max_ahead`` jobs (0: twice the slaves) are issued and not
+- At most twice as many jobs as there are slaves are issued and not
   yet applied; past it a request gets ``wait``.  A job unanswered for
   ``job_timeout`` seconds is requeued and its slave dropped
   (``drop_slave`` on every unit that has it).  Once the decision is
@@ -39,10 +39,9 @@ reference's:
 
 :meth:`MasterServer.serve` binds a zmq ROUTER at ``listen_address`` (zmq
 is imported there, and only there; ``tcp://HOST:*`` binds a free port,
-logged and kept in ``endpoint``) and runs :meth:`MasterServer.run_loop`
-over it.  The loop takes any transport with ``recv(timeout_ms)`` (an
-``(ident, bytes)`` pair, or None) and ``send(ident, bytes)``; every
-message crosses it pickled.
+logged and kept in ``endpoint``) and answers there until the run is
+over.  :meth:`MasterServer._handle` answers one message and needs no
+socket.
 """
 
 from __future__ import annotations
@@ -86,36 +85,14 @@ class _Job:
         self.result = None
 
 
-class _ZmqRouter:
-    """The zmq ROUTER socket as the loop's transport."""
-
-    def __init__(self, sock) -> None:
-        self.sock = sock
-
-    def recv(self, timeout_ms: int):
-        if not self.sock.poll(timeout_ms):
-            return None
-        ident, _, raw = self.sock.recv_multipart()
-        return ident, raw
-
-    def send(self, ident, raw: bytes) -> None:
-        self.sock.send_multipart([ident, b"", raw])
-
-
 class MasterServer:
     def __init__(self, workflow, listen_address: str = "",
-                 job_timeout: float = 60.0, linger_s: float = 2.0,
-                 max_ahead: int = 0) -> None:
+                 job_timeout: float = 60.0, linger_s: float = 2.0) -> None:
         require_fused(workflow, "master")
         self.workflow = workflow
         self.listen_address = listen_address
         self.job_timeout = job_timeout
         self.linger_s = linger_s
-        #: bound on jobs issued and not yet applied; 0: twice the slaves.
-        #: Without it a fast slave races through the run computing every
-        #: diff against stale params while a stalled peer holds the
-        #: in-order application
-        self.max_ahead = max_ahead
         self._seq = 0
         #: issue-ordered jobs outstanding (applied from the head)
         self._pending: "OrderedDict[int, _Job]" = OrderedDict()
@@ -257,34 +234,25 @@ class MasterServer:
         self._canonical_params()
 
     def serve(self) -> None:
-        """Bind a zmq ROUTER at ``listen_address`` and run the loop."""
+        """Bind a zmq ROUTER at ``listen_address`` and answer messages
+        until the decision is complete and the linger has passed."""
         import zmq
 
+        self._prepare()
+        decision = self.workflow.decision
         sock = zmq.Context.instance().socket(zmq.ROUTER)
         sock.bind(self.listen_address)
         self.endpoint = sock.getsockopt_string(zmq.LAST_ENDPOINT)
         self.bound.set()
         log.info("master listening on %s", self.endpoint)
-        try:
-            self.run_loop(_ZmqRouter(sock))
-        finally:
-            sock.close(0)
-
-    def run_loop(self, transport) -> None:
-        """Answer messages until the decision is complete and the linger
-        has passed; ``transport`` has ``recv(timeout_ms)`` and
-        ``send(ident, bytes)``."""
-        self._prepare()
-        decision = self.workflow.decision
         deadline_idle = None
         try:
             while True:
-                got = transport.recv(100)
-                if got is not None:
-                    ident, raw = got
+                if sock.poll(100):
+                    ident, _, raw = sock.recv_multipart()
                     reply = self._handle(pickle.loads(raw), ident)
-                    transport.send(ident, pickle.dumps(reply,
-                                                       protocol=PROTOCOL))
+                    sock.send_multipart(
+                        [ident, b"", pickle.dumps(reply, protocol=PROTOCOL)])
                 self._apply_ready()
                 self._reap_dead_jobs()
                 if decision.complete:
@@ -300,6 +268,7 @@ class MasterServer:
                 else:
                     deadline_idle = None
         finally:
+            sock.close(0)
             self._sync_runner()
             self.workflow.loader.stop()
         log.info("master done: %d jobs applied, final validation error "
@@ -319,11 +288,12 @@ class MasterServer:
                 return {"type": "bye"}
             if self._requeue:
                 job = self._requeue.pop(0)
-            elif len(self._pending) >= (self.max_ahead or
-                                        2 * max(len(self._slaves), 1)):
+            elif len(self._pending) >= 2 * max(len(self._slaves), 1):
                 # the window is full: the head job straggles; the
                 # requester backs off instead of training ahead on
-                # stale params
+                # stale params (without it a fast slave would compute
+                # every diff against stale params while a stalled peer
+                # holds the in-order application)
                 return {"type": "wait", "delay_ms": 20}
             else:
                 job = _Job(self._seq, self._issue_payload())

@@ -110,13 +110,18 @@ def atomic_write(path: str, mode: str = "wb", opener=open,
         raise
 
 
-def save_workflow(workflow: Any, path: str) -> str:
+def save_workflow(workflow: Any, path: str,
+                  streams: Optional[dict] = None) -> str:
     """Pickle (workflow, stream state) to ``path`` inside the CRC
-    envelope, compressed as its suffix says, atomically."""
+    envelope, compressed as its suffix says, atomically.  ``streams``:
+    a :func:`prng.snapshot_state` taken earlier (a save on a thread of
+    its own), else the process's now."""
     from veles_tpu_torch import prng
     t0 = time.perf_counter()
-    payload = {"format": 2, "workflow": workflow,
-               "prng": prng.snapshot_state(), "timestamp": time.time()}
+    if streams is None:
+        streams = prng.snapshot_state()
+    payload = {"format": 2, "workflow": workflow, "prng": streams,
+               "timestamp": time.time()}
     blob = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
     torn = faults.fire("snapshot.torn_write", path=path)
     with atomic_write(path, "wb", _opener(path),

@@ -21,12 +21,12 @@ not measurements (:data:`LINKS`).  There is no default step time: no
 number taken on another device carries over.
 
     python -m veles_tpu_torch.tools.scaling_model --step-ms MS \\
-        --card "NVIDIA H100 80GB HBM3, 700.00 W" [--minibatch 128] \\
-        [--cards 8]
+        --card "NVIDIA H100 80GB HBM3, 700.00 W" [--minibatch 128]
 
 prints one JSON object: AlexNet-1000's f32 param bytes, the table a
-link, and the row-sharded residency of ``--minibatch`` x 8 distinct
-227x227x3 f32 rows over the cards (:func:`sharded_residency_prediction`).
+link for a ring of :data:`N_CARDS` cards (the reference's 8), and the
+row-sharded residency of ``--minibatch`` x 8 distinct 227x227x3 f32
+rows over them (:func:`sharded_residency_prediction`).
 """
 
 from __future__ import annotations
@@ -43,6 +43,8 @@ import numpy as np
 #: SXM part, 900 GB/s in all, so 450 a direction; PCIe Gen5 x16, 128 GB/s
 #: in all, 64 a direction
 LINKS = (("nvlink4_sxm", 450e9), ("pcie_gen5_x16", 64e9))
+#: cards in the modelled ring, the reference's
+N_CARDS = 8
 
 
 def param_bytes(forwards: Iterable, dtype_bytes: int = 4) -> int:
@@ -74,21 +76,20 @@ def sharded_residency_prediction(n_rows: int, row_bytes: int,
     }
 
 
-def scaling_rows(param_bytes_f32: int, step_ms: float, n_cards: int,
-                 links=LINKS) -> List[dict]:
+def scaling_rows(param_bytes_f32: int, step_ms: float) -> List[dict]:
     """One row a link: the ring all-reduce's bytes a card a step, their
     ms at the link's rate, and the scaling at no and at full overlap."""
     rows = []
-    traffic = 2.0 * param_bytes_f32 * (n_cards - 1) / n_cards
-    for name, rate in links:
+    traffic = 2.0 * param_bytes_f32 * (N_CARDS - 1) / N_CARDS
+    for name, rate in LINKS:
         t_comm_ms = traffic / rate * 1000.0
         worst = step_ms / (step_ms + t_comm_ms)
         rows.append({
             "link": name, "spec_GBps_per_direction": rate / 1e9,
             "allreduce_MB_per_card_per_step": round(traffic / 1e6, 1),
             "t_comm_ms": round(t_comm_ms, 3),
-            "scaling_x_zero_overlap": round(n_cards * worst, 3),
-            "scaling_x_full_overlap": float(n_cards)})
+            "scaling_x_zero_overlap": round(N_CARDS * worst, 3),
+            "scaling_x_full_overlap": float(N_CARDS)})
     return rows
 
 
@@ -106,7 +107,7 @@ def alexnet_forwards():
 
 
 def model(step_ms: float, card: str, minibatch: int = 128,
-          n_cards: int = 8, forwards=None) -> dict:
+          forwards=None) -> dict:
     """The whole table for a step of ``step_ms`` ms read on ``card``."""
     if not step_ms or step_ms <= 0:
         raise ValueError("step_ms must be a positive measured step time")
@@ -117,11 +118,11 @@ def model(step_ms: float, card: str, minibatch: int = 128,
     return {"model": "AlexNet-1000", "param_bytes_f32": b,
             "per_card_minibatch": int(minibatch),
             "measured_step_ms": float(step_ms), "measured_on": card,
-            "n_cards": int(n_cards),
+            "n_cards": N_CARDS,
             "links_are": "published spec values, not measurements",
-            "rows": scaling_rows(b, float(step_ms), int(n_cards)),
+            "rows": scaling_rows(b, float(step_ms)),
             "sharded_residency": sharded_residency_prediction(
-                minibatch * 8, row_b, n_cards)}
+                minibatch * 8, row_b, N_CARDS)}
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -134,11 +135,9 @@ def main(argv: Optional[list] = None) -> int:
                         "limit (nvidia-smi's name and power.limit)")
     p.add_argument("--minibatch", type=int, default=128,
                    help="rows a card a minibatch (default 128)")
-    p.add_argument("--cards", type=int, default=8,
-                   help="cards in the ring (default 8)")
     args = p.parse_args(argv)
     try:
-        out = model(args.step_ms, args.card, args.minibatch, args.cards)
+        out = model(args.step_ms, args.card, args.minibatch)
     except ValueError as e:
         print(f"scaling_model: {e}", file=sys.stderr)
         return 2
